@@ -10,21 +10,31 @@ Phases, in order; any failure exits nonzero:
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, TF32 off for every float32 product.
 2. build: the three flash-attention kernels compiled from
-   ``oim_tpu_torch/kernels/csrc`` (one nvcc per source, all at once).
+   ``oim_tpu_torch/kernels/csrc`` (one nvcc per source, all at once), with
+   ptxas's register and spill lines printed.
 3. kernels: each kernel (K1 forward, K2 dK/dV, K3 dQ) held against its
    plain PyTorch version on the same inputs, at the main path's shapes and
-   on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, lengths
-   not a multiple of the tile); its time beside its plain version's, its
-   bound, and scaled_dot_product_attention with an explicit bottom-right
-   mask as a yardstick the port never calls.
+   on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
+   with fully masked rows, lengths not a multiple of the tile, a delta that
+   carries an lse cotangent, a bf16 head_dim that K2/K3 serve by the fma
+   route); each K2/K3 launch must take the route ``kernels.bwd_route``
+   names. Its time beside its plain version's, its bound, and
+   scaled_dot_product_attention with an explicit bottom-right mask as a
+   yardstick the port never calls; K2 and K3 also timed on their fma route
+   (the first port's kernels) on the same inputs.
 4. agreement: llama.tiny's loss and gradients on the card (kernels) held
    against the same model on the CPU (plain versions).
 5. main path: the CLI's Trainer on llama3-8b at full width, cut to
    LAYERS layers, B=BATCH, T=SEQ, for STEPS steps. Every loss finite,
-   the first near ln(vocab), and each kernel's launch count equal to
-   n_layers x steps.
+   the first near ln(vocab), each kernel's launch count equal to
+   n_layers x steps, and every K2 and K3 launch on the wgmma route.
 6. the kernels line (JSON), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. Beside the contract's keys each
+   kernel record has ``routes`` (the main path's launches by kernel route,
+   e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, and for K2/K3
+   ``fma_route_ms`` (the CUDA-core kernel on the same inputs) and
+   ``resources`` (registers, spills, shared memory and blocks per SM of
+   the route the main path took, from the CUDA runtime).
 
 It refuses to run without a CUDA device, and outside a checkout of the
 repository (it imports the port from the directory it sits in).
@@ -47,9 +57,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-# Kernel vs plain version, both f32 inside: outputs rounded to bf16 may
-# differ by the rounding of one f32 summation order against another,
-# at most a few bf16 ulps (2^-7 relative) of the largest value.
+# Kernel vs plain version: both sum in f32 and round P and dS to bf16 at
+# the same points, so bf16 outputs differ by one f32 summation order
+# against another (and an input to a rounding that lands on the other side
+# of a bf16 step): a few bf16 ulps (2^-7 relative) of the largest value.
 BF16_REL_TOL = 2.0 ** -6
 F32_ABS_TOL = 1e-4  # f32 outputs (lse) and f32 odd cases
 
@@ -149,26 +160,37 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
 
     errors: list[str] = []
 
-    def run_case(b, tq, tk, h, hkv, d, causal, dtype, seed):
+    def run_case(b, tq, tk, h, hkv, d, causal, dtype, seed, lse_cotangent=False):
         q, k, v, do = attention_inputs(b, tq, tk, h, hkv, d, dtype, seed)
         scale = d ** -0.5
         ref_out, ref_lse = A.flash_forward_plain(q, k, v, causal, scale)
-        # delta as the autograd Function forms it: rowsum(dO * O) in f32
-        delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1).reshape(
-            b * h, tq).contiguous()
+        # delta as the autograd Functions form it: rowsum(dO * O) in f32,
+        # less the lse cotangent where lse is an output too
+        delta = (do.float() * ref_out.float()).sum(-1)
+        if lse_cotangent:
+            g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+            delta = delta - torch.randn(delta.shape, device="cuda", generator=g)
+        delta = delta.permute(0, 2, 1).reshape(b * h, tq).contiguous()
         ref_dk, ref_dv = A.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal, scale)
         ref_dq = A.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal, scale)
+        route = kernels.bwd_route(q, k, v, do)
+        before = {n: dict(kernels.ROUTES[n]) for n in ("flash_bwd_dkv", "flash_bwd_dq")}
         out, lse = kernels.flash_fwd(q, k, v, causal, scale)
         dk, dv = kernels.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale)
         dq = kernels.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
         torch.cuda.synchronize()
+        for n, seen in before.items():
+            took = [r for r, c in kernels.ROUTES[n].items() if c != seen[r]]
+            if took != [route]:
+                errors.append(f"{n} took route {took}, the rule says {route}")
         rel = BF16_REL_TOL if dtype == torch.bfloat16 else 0.0
 
         def tol(ref):
             return rel * float(ref.abs().max()) + (F32_ABS_TOL if rel == 0 else 0.0)
 
         tag = f"b{b} tq{tq} tk{tk} h{h}/{hkv} d{d} {'causal' if causal else 'full'} " \
-              f"{str(dtype).removeprefix('torch.')}"
+              f"{str(dtype).removeprefix('torch.')}{' lse-cotangent' if lse_cotangent else ''}" \
+              f"  K2/K3 route {route}"
         say(f" case {tag}")
         errs = {
             "flash_fwd": max(check("K1 out", out, ref_out, tol(ref_out), errors),
@@ -181,6 +203,8 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
 
     for case in odd_cases:
         run_case(*case)
+    if errors:
+        fail("odd cases: " + "; ".join(errors))
 
     b, t, h, hkv, d = shape
     say(f" main-path shape: q [{b},{t},{h},{d}] k/v [{b},{t},{hkv},{d}] bf16 causal")
@@ -217,6 +241,24 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
                          lambda: A.flash_bwd_dq_plain(q, k, v, do, lse, delta, True, scale),
                          lib_bwd, 3 * 2 * d * pairs, 3 * qb + 2 * kvb + 2 * rowb),
     }
+    # The first port's CUDA-core kernels on the same inputs, beside the
+    # tensor-core route the rule picks here.
+    earlier = {
+        "flash_bwd_dkv": lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale,
+                                                       route="fma"),
+        "flash_bwd_dq": lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale,
+                                                     route="fma"),
+    }
+    main_route = kernels.bwd_route(q, k, v, do)
+    resources = {}
+    for name in earlier:
+        for r, hd in (("wgmma", 128), ("wgmma", 64), ("fma", d)):
+            info = kernels.kernel_info(name, r, hd)
+            if hd == d:
+                resources.setdefault(name, {})[r] = info
+            say(f"  {name:<14s} {r:<5s} route{f' head_dim {hd}' if r == 'wgmma' else '':<13s}: "
+                f"{info['registers']} registers, {info['local_bytes']} B local (spills), "
+                f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} blocks per SM")
     records = []
     for name, replaces in KERNELS:
         kern, plain, lib, flops, nbytes = fns[name]
@@ -224,17 +266,22 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
         plain_ms = cuda_ms(plain, ITERS // 4)
         ms2 = cuda_ms(kern, ITERS)  # kernel, plain, kernel: a drift shows
         library_ms = cuda_ms(lib, ITERS)
+        fma_ms = cuda_ms(earlier[name], ITERS // 2) if name in earlier else None
         bound_ms, bound_by = bound(flops, nbytes)
+        best = min(ms, ms2)
         say(f"  {name:<14s} kernel {ms:.3f}/{ms2:.3f} ms  plain {plain_ms:.3f} ms  "
             f"library {library_ms:.3f} ms  bound {bound_ms:.4f} ms ({bound_by}; "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
-            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            f"{flops / (best * 1e-3) / 1e12:.1f} TFLOP/s"
+            + (f"  fma route {fma_ms:.3f} ms" if fma_ms is not None else ""))
         records.append({
             "name": name, "route": "cuda",
             "source": f"oim_tpu_torch/kernels/csrc/{kernels.SOURCES[name]}",
             "replaces": replaces, "launches": None, "max_abs_err": errs[name],
-            "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "ms": best, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "routes": None,
+            "tflops": flops / (best * 1e-3) / 1e12, "fma_route_ms": fma_ms,
+            "resources": resources[name][main_route] if name in resources else None,
             "library": ("scaled_dot_product_attention forward, explicit bottom-right mask"
                         if name == "flash_fwd" else
                         "scaled_dot_product_attention backward (dq, dk and dv in one call), "
@@ -296,6 +343,7 @@ def phase_main_path(profile: bool) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     hist = trainer.history
@@ -303,6 +351,7 @@ def phase_main_path(profile: bool) -> dict:
     mcfg = trainer.cfg.model_config()
     say(f"  losses {losses}")
     say(f"  launches {launches}  (want {layers} x {steps} = {layers * steps} each)")
+    say(f"  routes {routes}  (want every K2/K3 launch on wgmma)")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"main path: losses not finite or missing: {losses}")
     if abs(losses[0] - math.log(mcfg.vocab)) > 1.0:
@@ -311,6 +360,10 @@ def phase_main_path(profile: bool) -> dict:
         if launches[name] != layers * steps:
             fail(f"main path: {name} launched {launches[name]} times, "
                  f"want {layers * steps}")
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if routes[name]["wgmma"] != layers * steps:
+            fail(f"main path: {name} took routes {routes[name]}, want all "
+                 f"{layers * steps} on wgmma")
     steady = hist[1:] if len(hist) > 1 else hist
     step_s = sum(r["step_s"] for r in steady) / len(steady)
     tokens = batch * seq
@@ -319,8 +372,8 @@ def phase_main_path(profile: bool) -> dict:
         f"tokens/s {tokens / step_s:.0f}  MFU {mfu:.4f} of 989e12  "
         f"params {llama.num_params(mcfg) / 1e9:.3f}e9  peak mem {peak_gb:.1f} GB  "
         f"wall {wall:.1f} s")
-    result = {"launches": launches, "step_s": step_s, "mfu": mfu, "losses": losses,
-              "tokens_per_s": tokens / step_s, "peak_mem_gb": peak_gb}
+    result = {"launches": launches, "routes": routes, "step_s": step_s, "mfu": mfu,
+              "losses": losses, "tokens_per_s": tokens / step_s, "peak_mem_gb": peak_gb}
     if profile:
         result["profile"] = profile_step(trainer)
     return result
@@ -408,19 +461,24 @@ def main() -> int:
         f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    say("== 2. build")
+    say("== 2. build (nvcc -Xptxas -v: registers and spills per kernel)")
     t0 = time.monotonic()
-    built = kernels.build()
+    built = kernels.build(verbose=True)
     say(f"  built {built} in {time.monotonic() - t0:.1f} s")
 
     say("== 3. kernels against their plain versions")
     cfg = llama.LLAMA3_8B
     shape = (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     odd = [
-        # b, tq, tk, h, hkv, d, causal, dtype, seed
+        # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
         (2, 100, 150, 8, 2, 64, False, torch.bfloat16, 2),   # group 4, full, tq < tk
         (1, 77, 130, 4, 4, 128, True, torch.bfloat16, 3),    # group 1, causal, tq < tk
         (1, 130, 70, 4, 1, 40, True, torch.float32, 4),      # tq > tk: fully masked rows
+        (1, 200, 120, 4, 4, 128, True, torch.bfloat16, 5),   # the same on the wgmma route, d 128
+        (2, 200, 200, 8, 2, 128, True, torch.bfloat16, 6),   # group 4, ragged edges
+        (1, 192, 192, 8, 2, 128, True, torch.bfloat16, 7, True),  # delta - g_lse
+        (1, 150, 150, 8, 4, 64, True, torch.bfloat16, 9),    # wgmma at d 64, causal, ragged
+        (1, 96, 96, 4, 2, 96, True, torch.bfloat16, 8),      # bf16, fma route (d 96)
     ]
     records = phase_kernels(shape, odd)
 
@@ -431,6 +489,7 @@ def main() -> int:
     main = phase_main_path(args.profile)
     for rec in records:
         rec["launches"] = main["launches"][rec["name"]]
+        rec["routes"] = main["routes"][rec["name"]]
 
     say("== 6. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")

@@ -13,6 +13,14 @@ if the launch returns a CUDA error, and counts its launches in
 ``LAUNCHES`` (only where it launches). There is no fallback: a tensor the
 kernel does not take raises.
 
+Routes. K2 (``flash_bwd_dkv``) and K3 (``flash_bwd_dq``) each have two
+kernels in their source: a tensor-core one ("wgmma") and the CUDA-core one
+of the first port ("fma"). ``bwd_route`` picks one by dtype and shape
+alone, before the launch; it is a rule, never a ``try``, so a failed build
+or launch still raises. ``ROUTES[name][route]`` counts the launches each
+route took, beside ``LAUNCHES[name]``. K1 (``flash_fwd``) has one route,
+"fma".
+
 Nothing here imports or builds at module import time; the CPU tests import
 this module and never reach a build.
 """
@@ -41,10 +49,15 @@ SOURCES = {
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
 }
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 
-# Launch counts per kernel; chip_smoke.py zeroes them around the main path.
+# Launch counts per kernel, and per kernel and route; chip_smoke.py zeroes
+# them around the main path.
 LAUNCHES = {name: 0 for name in SOURCES}
+ROUTES = {"flash_fwd": {"fma": 0},
+          "flash_bwd_dkv": {"wgmma": 0, "fma": 0},
+          "flash_bwd_dq": {"wgmma": 0, "fma": 0}}
+WGMMA_HEAD_DIMS = (64, 128)  # the head_dims the tensor-core K2/K3 take
 
 MAX_HEAD_DIM = 128  # kMaxD in flash_common.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DType in flash_common.cuh
@@ -56,6 +69,39 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        for route in ROUTES[name]:
+            ROUTES[name][route] = 0
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The kernel a CUDA call of K2 or K3 takes, by dtype and shape alone:
+    "wgmma" (tensor cores) for bf16 with head_dim 64 or 128, every data
+    pointer 16-byte aligned (the kernel copies 16-byte chunks); "fma" (the
+    CUDA-core kernel) for everything else: f32 at any head_dim, bf16 at any
+    other head_dim. Sequence lengths, batch and head counts never change
+    the route: both kernels mask ragged tiles. A pure function of the
+    tensors' metadata; it launches nothing."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))):
+        return "wgmma"
+    return "fma"
+
+
+def _count(name: str, route: str) -> None:
+    LAUNCHES[name] += 1
+    ROUTES[name][route] += 1
+
+
+def _pick_route(route, q, k, v, do) -> str:
+    """``route`` None applies ``bwd_route``; a named route (measurements
+    only: chip_smoke.py times the fma kernel beside the wgmma one) must be
+    one that can take the call."""
+    rule = bwd_route(q, k, v, do)
+    if route is None or route == rule:
+        return rule
+    if route == "fma":
+        return route
+    raise ValueError(f"route {route!r} does not take {q.dtype} head_dim {q.shape[-1]}")
 
 
 def _nvcc() -> str:
@@ -191,47 +237,70 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, tq, tk, h, hkv, d,
              float(scale), int(causal), _DTYPES[q.dtype], _stream(q))
     _check(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", "fma")
     return out, lse
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K2: (dk, dv) in k's layout and dtype, summed over each kv head's
-    query group."""
+def _bwd_inputs(q, k, v, do, lse, delta):
     check_flash_shapes(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO {do.dtype} {tuple(do.shape)} does not match q")
     _contig(q=q, k=k, v=v, do=do)
-    b, tq, h, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    b, tq, h, _ = q.shape
     _rows_f32("lse", lse, b, h, tq, q.device)
     _rows_f32("delta", delta, b, h, tq, q.device)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float, route=None):
+    """K2: (dk, dv) in k's layout and dtype, summed over each kv head's
+    query group. The kernel is ``bwd_route``'s."""
+    _bwd_inputs(q, k, v, do, lse, delta)
+    route = _pick_route(route, q, k, v, do)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _fn("flash_bwd_dkv", "oim_flash_bwd_dkv",
-             [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P])
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-             _ptr(dv), b, tq, tk, h, hkv, d, float(scale), int(causal),
-             _DTYPES[q.dtype], _stream(q))
+    args = [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+            b, tq, tk, h, hkv, d, float(scale), int(causal)]
+    if route == "wgmma":
+        fn = _fn("flash_bwd_dkv", "oim_flash_bwd_dkv_wgmma", [_P] * 8 + [_I] * 6 + [_F, _I, _P])
+        err = fn(*args, _stream(q))
+    else:
+        fn = _fn("flash_bwd_dkv", "oim_flash_bwd_dkv", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P])
+        err = fn(*args, _DTYPES[q.dtype], _stream(q))
     _check(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", route)
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K3: dq in q's layout and dtype."""
-    check_flash_shapes(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"dO {do.dtype} {tuple(do.shape)} does not match q")
-    _contig(q=q, k=k, v=v, do=do)
+def kernel_info(name: str, route: str, head_dim: int) -> dict:
+    """What the card gives K2 or K3's kernel on ``route`` ("wgmma" at
+    ``head_dim`` 64 or 128, "fma" at bf16): registers per thread, local
+    memory bytes per thread (spills), dynamic shared memory per block and
+    resident blocks per SM, from the CUDA runtime. Launches nothing."""
+    if name not in ("flash_bwd_dkv", "flash_bwd_dq") or route not in ("wgmma", "fma"):
+        raise ValueError(f"no route {route!r} of {name!r}")
+    out = (ctypes.c_int * 4)()
+    err = _fn(name, f"oim_{name}_info", [_I, _I, _P])(int(route == "wgmma"), head_dim, out)
+    _check(err, f"{name} info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float, route=None):
+    """K3: dq in q's layout and dtype. The kernel is ``bwd_route``'s."""
+    _bwd_inputs(q, k, v, do, lse, delta)
+    route = _pick_route(route, q, k, v, do)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    _rows_f32("lse", lse, b, h, tq, q.device)
-    _rows_f32("delta", delta, b, h, tq, q.device)
     dq = torch.empty_like(q)
-    fn = _fn("flash_bwd_dq", "oim_flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P])
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-             b, tq, tk, h, hkv, d, float(scale), int(causal), _DTYPES[q.dtype], _stream(q))
+    args = [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+            b, tq, tk, h, hkv, d, float(scale), int(causal)]
+    if route == "wgmma":
+        fn = _fn("flash_bwd_dq", "oim_flash_bwd_dq_wgmma", [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+        err = fn(*args, _stream(q))
+    else:
+        fn = _fn("flash_bwd_dq", "oim_flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P])
+        err = fn(*args, _DTYPES[q.dtype], _stream(q))
     _check(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", route)
     return dq

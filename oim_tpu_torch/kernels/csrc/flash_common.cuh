@@ -97,4 +97,24 @@ __host__ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// What the card gives `kernel` launched with `threads` threads and `smem`
+// bytes of dynamic shared memory: out = {registers per thread, local
+// memory bytes per thread (spills and stack), dynamic shared bytes per
+// block, resident blocks per SM}. Returns the CUDA status.
+template <typename Kernel>
+__host__ int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
+}
+
 }  // namespace oimflash

@@ -80,9 +80,12 @@ def mha_reference(q, k, v, causal: bool = True, scale: float | None = None):
 # ------------------------------------------------------- plain versions ----
 #
 # Each repeats its kernel's arithmetic in torch: f32 scores, NEG_INF mask
-# with probabilities re-zeroed, l clamped at 1e-30, and the forward's
-# probabilities rounded to V's dtype before the PV product. They are the
-# CPU path and the check the kernels are held against on the card.
+# with probabilities re-zeroed, l clamped at 1e-30, the forward's
+# probabilities rounded to V's dtype before the PV product, and the
+# backward's P and dS rounded to the inputs' dtype before the products
+# that take them (dV, dK, dQ), where the tensor-core K2/K3 round them. At
+# f32 every such rounding is the identity. They are the CPU path and the
+# check the kernels are held against on the card.
 
 
 def _grouped(q, k, v):
@@ -133,9 +136,15 @@ def flash_forward_plain(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
+def _operand(x, dtype):
+    """x as an operand of a product at ``dtype``'s precision: rounded to
+    it and lifted back to f32 (exactly x when dtype is f32)."""
+    return x.to(dtype).float()
+
+
 def _recompute(qg, kg, vg, do, lse, delta, causal, scale):
     """P and dS for the backward: P = exp(s - lse) (masked entries zero),
-    dS = P * (dO V^T - delta) * scale, all in f32."""
+    dS = P * (dO V^T - delta) * scale, all in f32 (dS from P unrounded)."""
     s = (qg.float() @ kg.float().transpose(-1, -2)) * scale
     p = torch.exp(s - _rows(lse, qg)[..., None])
     if causal:
@@ -151,6 +160,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
     qg, kg, vg = _grouped(q, k, v)
     dog = _grouped(do, k, v)[0].float()
     p, ds = _recompute(qg, kg, vg, dog, lse, delta, causal, scale)
+    p, ds = _operand(p, q.dtype), _operand(ds, q.dtype)
     dv = (p.transpose(-1, -2) @ dog).sum(dim=2)         # [B, Hkv, Tk, D]
     dk = (ds.transpose(-1, -2) @ qg.float()).sum(dim=2)
     return (dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
@@ -163,7 +173,7 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
     qg, kg, vg = _grouped(q, k, v)
     dog = _grouped(do, k, v)[0].float()
     _, ds = _recompute(qg, kg, vg, dog, lse, delta, causal, scale)
-    dq = ds @ kg.float()                                  # [B, Hkv, G, Tq, D]
+    dq = _operand(ds, q.dtype) @ kg.float()               # [B, Hkv, G, Tq, D]
     return dq.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(q.dtype)
 
 
