@@ -16,25 +16,27 @@ Phases, in order; any failure exits nonzero:
    plain PyTorch version on the same inputs, at the main path's shapes and
    on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
    with fully masked rows, lengths not a multiple of the tile, a delta that
-   carries an lse cotangent, a bf16 head_dim that K2/K3 serve by the fma
-   route); each K2/K3 launch must take the route ``kernels.bwd_route``
-   names. Its time beside its plain version's, its bound, and
-   scaled_dot_product_attention with an explicit bottom-right mask as a
-   yardstick the port never calls; K2 and K3 also timed on their fma route
-   (the first port's kernels) on the same inputs.
+   carries an lse cotangent, a bf16 head_dim that the kernels serve by the
+   fma route); each K1 launch must take the route ``kernels.fwd_route``
+   names, each K2/K3 launch the one ``kernels.bwd_route`` names. Its time
+   beside its plain version's, its bound, and scaled_dot_product_attention
+   with an explicit bottom-right mask as a yardstick the port never calls;
+   each kernel also timed on its fma route (the first port's kernels) on
+   the same inputs, and each route's registers, spills, shared memory and
+   blocks per SM printed.
 4. agreement: llama.tiny's loss and gradients on the card (kernels) held
    against the same model on the CPU (plain versions).
 5. main path: the CLI's Trainer on llama3-8b at full width, cut to
    LAYERS layers, B=BATCH, T=SEQ, for STEPS steps. Every loss finite,
    the first near ln(vocab), each kernel's launch count equal to
-   n_layers x steps, and every K2 and K3 launch on the wgmma route.
+   n_layers x steps, and every K1, K2 and K3 launch on the wgmma route.
 6. the kernels line (JSON), the card line, and the last line
    ``{"ok": true, "device": {...}}``. Beside the contract's keys each
    kernel record has ``routes`` (the main path's launches by kernel route,
-   e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, and for K2/K3
-   ``fma_route_ms`` (the CUDA-core kernel on the same inputs) and
-   ``resources`` (registers, spills, shared memory and blocks per SM of
-   the route the main path took, from the CUDA runtime).
+   e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, ``fma_route_ms`` (the
+   CUDA-core kernel on the same inputs) and ``resources`` (registers,
+   spills, shared memory and blocks per SM of the route the main path
+   took, from the CUDA runtime).
 
 It refuses to run without a CUDA device, and outside a checkout of the
 repository (it imports the port from the directory it sits in).
@@ -174,15 +176,17 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
         ref_dk, ref_dv = A.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal, scale)
         ref_dq = A.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal, scale)
         route = kernels.bwd_route(q, k, v, do)
-        before = {n: dict(kernels.ROUTES[n]) for n in ("flash_bwd_dkv", "flash_bwd_dq")}
+        rule = {"flash_fwd": kernels.fwd_route(q, k, v),
+                "flash_bwd_dkv": route, "flash_bwd_dq": route}
+        before = {n: dict(kernels.ROUTES[n]) for n in rule}
         out, lse = kernels.flash_fwd(q, k, v, causal, scale)
         dk, dv = kernels.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale)
         dq = kernels.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
         torch.cuda.synchronize()
         for n, seen in before.items():
             took = [r for r, c in kernels.ROUTES[n].items() if c != seen[r]]
-            if took != [route]:
-                errors.append(f"{n} took route {took}, the rule says {route}")
+            if took != [rule[n]]:
+                errors.append(f"{n} took route {took}, the rule says {rule[n]}")
         rel = BF16_REL_TOL if dtype == torch.bfloat16 else 0.0
 
         def tol(ref):
@@ -190,7 +194,7 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
 
         tag = f"b{b} tq{tq} tk{tk} h{h}/{hkv} d{d} {'causal' if causal else 'full'} " \
               f"{str(dtype).removeprefix('torch.')}{' lse-cotangent' if lse_cotangent else ''}" \
-              f"  K2/K3 route {route}"
+              f"  K1 route {rule['flash_fwd']}, K2/K3 route {route}"
         say(f" case {tag}")
         errs = {
             "flash_fwd": max(check("K1 out", out, ref_out, tol(ref_out), errors),
@@ -244,12 +248,13 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
     # The first port's CUDA-core kernels on the same inputs, beside the
     # tensor-core route the rule picks here.
     earlier = {
+        "flash_fwd": lambda: kernels.flash_fwd(q, k, v, True, scale, route="fma"),
         "flash_bwd_dkv": lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale,
                                                        route="fma"),
         "flash_bwd_dq": lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale,
                                                      route="fma"),
     }
-    main_route = kernels.bwd_route(q, k, v, do)
+    main_route = kernels.bwd_route(q, k, v, do)  # K1's too: one rule
     resources = {}
     for name in earlier:
         for r, hd in (("wgmma", 128), ("wgmma", 64), ("fma", d)):
@@ -266,14 +271,13 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
         plain_ms = cuda_ms(plain, ITERS // 4)
         ms2 = cuda_ms(kern, ITERS)  # kernel, plain, kernel: a drift shows
         library_ms = cuda_ms(lib, ITERS)
-        fma_ms = cuda_ms(earlier[name], ITERS // 2) if name in earlier else None
+        fma_ms = cuda_ms(earlier[name], ITERS // 2)
         bound_ms, bound_by = bound(flops, nbytes)
         best = min(ms, ms2)
         say(f"  {name:<14s} kernel {ms:.3f}/{ms2:.3f} ms  plain {plain_ms:.3f} ms  "
             f"library {library_ms:.3f} ms  bound {bound_ms:.4f} ms ({bound_by}; "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
-            f"{flops / (best * 1e-3) / 1e12:.1f} TFLOP/s"
-            + (f"  fma route {fma_ms:.3f} ms" if fma_ms is not None else ""))
+            f"{flops / (best * 1e-3) / 1e12:.1f} TFLOP/s  fma route {fma_ms:.3f} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": f"oim_tpu_torch/kernels/csrc/{kernels.SOURCES[name]}",
@@ -281,7 +285,7 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
             "ms": best, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "routes": None,
             "tflops": flops / (best * 1e-3) / 1e12, "fma_route_ms": fma_ms,
-            "resources": resources[name][main_route] if name in resources else None,
+            "resources": resources[name][main_route],
             "library": ("scaled_dot_product_attention forward, explicit bottom-right mask"
                         if name == "flash_fwd" else
                         "scaled_dot_product_attention backward (dq, dk and dv in one call), "
@@ -351,7 +355,7 @@ def phase_main_path(profile: bool) -> dict:
     mcfg = trainer.cfg.model_config()
     say(f"  losses {losses}")
     say(f"  launches {launches}  (want {layers} x {steps} = {layers * steps} each)")
-    say(f"  routes {routes}  (want every K2/K3 launch on wgmma)")
+    say(f"  routes {routes}  (want every launch on wgmma)")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"main path: losses not finite or missing: {losses}")
     if abs(losses[0] - math.log(mcfg.vocab)) > 1.0:
@@ -360,7 +364,7 @@ def phase_main_path(profile: bool) -> dict:
         if launches[name] != layers * steps:
             fail(f"main path: {name} launched {launches[name]} times, "
                  f"want {layers * steps}")
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for name, _ in KERNELS:
         if routes[name]["wgmma"] != layers * steps:
             fail(f"main path: {name} took routes {routes[name]}, want all "
                  f"{layers * steps} on wgmma")

@@ -13,13 +13,13 @@ if the launch returns a CUDA error, and counts its launches in
 ``LAUNCHES`` (only where it launches). There is no fallback: a tensor the
 kernel does not take raises.
 
-Routes. K2 (``flash_bwd_dkv``) and K3 (``flash_bwd_dq``) each have two
-kernels in their source: a tensor-core one ("wgmma") and the CUDA-core one
-of the first port ("fma"). ``bwd_route`` picks one by dtype and shape
-alone, before the launch; it is a rule, never a ``try``, so a failed build
-or launch still raises. ``ROUTES[name][route]`` counts the launches each
-route took, beside ``LAUNCHES[name]``. K1 (``flash_fwd``) has one route,
-"fma".
+Routes. K1 (``flash_fwd``), K2 (``flash_bwd_dkv``) and K3
+(``flash_bwd_dq``) each have two kernels in their source: a tensor-core one
+("wgmma") and the CUDA-core one of the first port ("fma"). ``fwd_route``
+(K1) and ``bwd_route`` (K2, K3) pick one by dtype, head_dim and pointer
+alignment alone, before the launch; they are one rule, never a ``try``, so
+a failed build or launch still raises. ``ROUTES[name][route]`` counts the
+launches each route took, beside ``LAUNCHES[name]``.
 
 Nothing here imports or builds at module import time; the CPU tests import
 this module and never reach a build.
@@ -54,10 +54,8 @@ _HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 # Launch counts per kernel, and per kernel and route; chip_smoke.py zeroes
 # them around the main path.
 LAUNCHES = {name: 0 for name in SOURCES}
-ROUTES = {"flash_fwd": {"fma": 0},
-          "flash_bwd_dkv": {"wgmma": 0, "fma": 0},
-          "flash_bwd_dq": {"wgmma": 0, "fma": 0}}
-WGMMA_HEAD_DIMS = (64, 128)  # the head_dims the tensor-core K2/K3 take
+ROUTES = {name: {"wgmma": 0, "fma": 0} for name in SOURCES}
+WGMMA_HEAD_DIMS = (64, 128)  # the head_dims the tensor-core kernels take
 
 MAX_HEAD_DIM = 128  # kMaxD in flash_common.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DType in flash_common.cuh
@@ -73,18 +71,28 @@ def reset_launches() -> None:
             ROUTES[name][route] = 0
 
 
-def bwd_route(q, k, v, do) -> str:
-    """The kernel a CUDA call of K2 or K3 takes, by dtype and shape alone:
-    "wgmma" (tensor cores) for bf16 with head_dim 64 or 128, every data
-    pointer 16-byte aligned (the kernel copies 16-byte chunks); "fma" (the
-    CUDA-core kernel) for everything else: f32 at any head_dim, bf16 at any
-    other head_dim. Sequence lengths, batch and head counts never change
-    the route: both kernels mask ragged tiles. A pure function of the
-    tensors' metadata; it launches nothing."""
+def _route(q, *others) -> str:
+    """The one route rule of K1-K3: "wgmma" (tensor cores) for bf16 with
+    head_dim 64 or 128, every data pointer 16-byte aligned (the kernels
+    copy 16-byte chunks); "fma" (the CUDA-core kernel) for everything else:
+    f32 at any head_dim, bf16 at any other head_dim or off a 16-byte
+    boundary. Sequence lengths, batch and head counts never change the
+    route: both kernels mask ragged tiles. A pure function of the tensors'
+    metadata; it launches nothing."""
     if (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))):
+            and all(t.data_ptr() % 16 == 0 for t in (q, *others))):
         return "wgmma"
     return "fma"
+
+
+def fwd_route(q, k, v) -> str:
+    """The kernel a CUDA call of K1 takes (``_route``'s rule)."""
+    return _route(q, k, v)
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The kernel a CUDA call of K2 or K3 takes (``_route``'s rule)."""
+    return _route(q, k, v, do)
 
 
 def _count(name: str, route: str) -> None:
@@ -92,11 +100,11 @@ def _count(name: str, route: str) -> None:
     ROUTES[name][route] += 1
 
 
-def _pick_route(route, q, k, v, do) -> str:
-    """``route`` None applies ``bwd_route``; a named route (measurements
-    only: chip_smoke.py times the fma kernel beside the wgmma one) must be
-    one that can take the call."""
-    rule = bwd_route(q, k, v, do)
+def _pick_route(route, q, *others) -> str:
+    """``route`` None applies the rule (``_route``); a named route
+    (measurements only: chip_smoke.py times the fma kernel beside the
+    wgmma one) must be one that can take the call."""
+    rule = _route(q, *others)
     if route is None or route == rule:
         return rule
     if route == "fma":
@@ -225,19 +233,26 @@ def _rows_f32(name, t, b, h, tq, device) -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def flash_fwd(q, k, v, causal: bool, scale: float):
-    """K1: (out [B,Tq,H,D] in q's dtype, lse [B*H, Tq] f32)."""
+def flash_fwd(q, k, v, causal: bool, scale: float, route=None):
+    """K1: (out [B,Tq,H,D] in q's dtype, lse [B*H, Tq] f32). The kernel is
+    ``fwd_route``'s."""
     check_flash_shapes(q, k, v)
     _contig(q=q, k=k, v=v)
+    route = _pick_route(route, q, k, v)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    fn = _fn("flash_fwd", "oim_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P])
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, tq, tk, h, hkv, d,
-             float(scale), int(causal), _DTYPES[q.dtype], _stream(q))
+    args = [_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, tq, tk, h, hkv, d,
+            float(scale), int(causal)]
+    if route == "wgmma":
+        fn = _fn("flash_fwd", "oim_flash_fwd_wgmma", [_P] * 5 + [_I] * 6 + [_F, _I, _P])
+        err = fn(*args, _stream(q))
+    else:
+        fn = _fn("flash_fwd", "oim_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P])
+        err = fn(*args, _DTYPES[q.dtype], _stream(q))
     _check(err, "flash_fwd")
-    _count("flash_fwd", "fma")
+    _count("flash_fwd", route)
     return out, lse
 
 
@@ -274,11 +289,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float, route=Non
 
 
 def kernel_info(name: str, route: str, head_dim: int) -> dict:
-    """What the card gives K2 or K3's kernel on ``route`` ("wgmma" at
+    """What the card gives the kernel of ``name`` on ``route`` ("wgmma" at
     ``head_dim`` 64 or 128, "fma" at bf16): registers per thread, local
     memory bytes per thread (spills), dynamic shared memory per block and
     resident blocks per SM, from the CUDA runtime. Launches nothing."""
-    if name not in ("flash_bwd_dkv", "flash_bwd_dq") or route not in ("wgmma", "fma"):
+    if name not in SOURCES or route not in ("wgmma", "fma"):
         raise ValueError(f"no route {route!r} of {name!r}")
     out = (ctypes.c_int * 4)()
     err = _fn(name, f"oim_{name}_info", [_I, _I, _P])(int(route == "wgmma"), head_dim, out)

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the tensor-core route of K2
-// (flash_bwd_dkv.cu) and K3 (flash_bwd_dq.cu): 16-byte cp.async with zero
-// fill, the 128-byte swizzled tile layout that wgmma reads, shared-memory
-// matrix descriptors, and the three wgmma shapes the two kernels issue.
+// Hopper (sm_90a) building blocks of the tensor-core route of K1
+// (flash_fwd.cu), K2 (flash_bwd_dkv.cu) and K3 (flash_bwd_dq.cu): 16-byte
+// cp.async with zero fill, the 128-byte swizzled tile layout that wgmma
+// reads, shared-memory matrix descriptors, and the three wgmma shapes the
+// kernels launch.
 //
 // Tile layout. A [rows][D] bf16 tile (rows a multiple of 8, D = 64 or 128)
 // is stored as D/64 panels of [rows][64]: each panel row is 128 bytes, 8

@@ -1,14 +1,18 @@
-"""The backward kernels' arithmetic and routing (K2 dK/dV, K3 dQ), on the CPU.
+"""The flash kernels' arithmetic and routing (K1 forward, K2 dK/dV, K3 dQ),
+on the CPU.
 
 The tensor-core route of K2/K3 rounds P and dS to the inputs' dtype before
 the products that take them; the plain versions round at the same points.
 Here the plain versions, at bf16, are held against the JAX backward
 kernels in interpret mode (which keep P and dS in f32) on the same bf16
 inputs, at the tolerance chip_smoke.py holds the card to: 2^-6 x the
-largest JAX value. The rounding is shown to be the identity at f32, and the
-route rule (``kernels.bwd_route``) is checked as a pure function: which
-dtype, head_dim and lengths go to which kernel, and that a CPU tensor
-reaches neither.
+largest JAX value. The plain K1 at bf16 is held against the JAX forward
+kernel the same way (out at 2^-6 x max|JAX|, lse at 1e-4, and exactly
+-1e30 on rows that see no key). The rounding is shown to be the identity
+at f32, and the route rule (``kernels.fwd_route`` for K1,
+``kernels.bwd_route`` for K2/K3) is checked as a pure function: which
+dtype, head_dim, lengths and alignment go to which kernel, and that a CPU
+tensor reaches none.
 """
 
 import importlib
@@ -71,6 +75,43 @@ def test_plain_bwd_at_bf16_matches_jax_kernels(b, tq, tk, h, hkv, d, causal, gls
         err = float(np.abs(t.float().numpy() - want).max())
         tol = BF16_REL_TOL * float(np.abs(want).max())
         assert err <= tol, f"{name}: {err} > {tol}"
+
+
+FWD_BF16_CASES = [
+    # (b, tq, tk, h, hkv, d, causal)
+    (1, 64, 64, 2, 2, 128, True),      # group 1, head_dim 128 (the main path's)
+    (1, 64, 64, 4, 1, 64, False),      # group 4, full
+    (2, 32, 96, 4, 1, 128, True),      # group 4, tq < tk
+    (1, 64, 128, 2, 2, 64, False),     # group 1, full, tq < tk
+    (1, 96, 64, 4, 1, 128, True),      # tq > tk: rows that see no key
+    (1, 128, 64, 2, 2, 64, True),      # the same at head_dim 64, a whole tile blind
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,hkv,d,causal", FWD_BF16_CASES)
+def test_plain_fwd_at_bf16_matches_jax_kernel(b, tq, tk, h, hkv, d, causal):
+    """The plain K1 at bf16 (P rounded to bf16 before PV, l from f32 p)
+    against the JAX forward kernel in interpret mode on the same bf16
+    inputs, at the card's tolerances; rows that see no key carry lse
+    exactly -1e30 and out exactly 0 in both."""
+    (jq, jk, jv, _), (tq_, tk_, tv_, _) = _bf16_inputs(b, tq, tk, h, hkv, d, seed=tq + tk + d)
+    scale = d ** -0.5
+    jout, jlse = jattn._flash_forward(jq, jk, jv, causal, scale, BLOCK, BLOCK, True)
+    out, lse = tattn.flash_forward_plain(tq_, tk_, tv_, causal, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, tq, h, d)
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, tq)
+    want = np.asarray(jout.astype(jnp.float32))
+    err = float(np.abs(out.float().numpy() - want).max())
+    tol = BF16_REL_TOL * float(np.abs(want).max())
+    assert err <= tol, f"out: {err} > {tol}"
+    jl = np.asarray(jlse)[..., 0]
+    assert float(np.abs(lse.numpy() - jl).max()) <= 1e-4
+    blind = max(0, tq - tk) if causal else 0  # rows placed before key 0
+    if blind:
+        assert np.all(jl.reshape(b, h, tq)[..., :blind] == np.float32(-1e30))
+        assert torch.all(lse.reshape(b, h, tq)[..., :blind] == -1e30)
+        assert float(out[:, :blind].float().abs().max()) == 0.0
+    assert bool(lse.reshape(b, h, tq)[..., blind:].isfinite().all())
 
 
 def _unrounded(q, k, v, do, lse, delta, causal, scale):
@@ -139,6 +180,28 @@ def test_route_rule_by_dtype_and_shape(dtype, d, tq, tk, route):
     assert kernels.bwd_route(q, k, v, do) == route
 
 
+@pytest.mark.parametrize("dtype,d,tq,tk,route", ROUTE_CASES)
+def test_fwd_route_rule_by_dtype_and_shape(dtype, d, tq, tk, route):
+    """K1 follows the same rule as K2/K3 on q, k and v alone."""
+    q = torch.zeros(1, tq, 4, d, dtype=dtype)
+    k, v = torch.zeros(1, tk, 2, d, dtype=dtype), torch.zeros(1, tk, 2, d, dtype=dtype)
+    assert kernels.fwd_route(q, k, v) == route
+    assert kernels._pick_route(None, q, k, v) == route
+    assert kernels._pick_route("fma", q, k, v) == "fma"
+
+
+def test_fwd_route_sends_unaligned_data_to_fma():
+    """Any of q, k, v off a 16-byte boundary sends K1 to the fma kernel."""
+    q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    off = torch.zeros(1 * 8 * 2 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 2, 128)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert kernels.fwd_route(q, q, q) == "wgmma"
+    for args in ((off, q, q), (q, off, q), (q, q, off)):
+        assert kernels.fwd_route(*args) == "fma"
+    with pytest.raises(ValueError, match="does not take"):
+        kernels._pick_route("wgmma", off, q, q)
+
+
 def test_route_rule_sends_unaligned_data_to_fma():
     """The wgmma kernels copy 16-byte chunks: a tensor that starts off a
     16-byte boundary goes to the fma kernel."""
@@ -157,23 +220,25 @@ def test_named_route_must_take_the_call():
         kernels._pick_route("wgmma", q, q, q, q)
 
 
-@pytest.mark.parametrize("name,route", [("flash_fwd", "fma"), ("flash_bwd_dq", "tf32")])
+@pytest.mark.parametrize("name,route", [("flash_fwd", "tf32"), ("flash_bwd_dq", "tf32")])
 def test_kernel_info_refuses_what_has_no_route(name, route):
-    """Only K2 and K3 have routes to describe; the refusal comes before
-    any build (there is no nvcc here)."""
+    """Each kernel has a "wgmma" and an "fma" route and nothing else; the
+    refusal comes before any build (there is no nvcc here)."""
     with pytest.raises(ValueError, match="no route"):
         kernels.kernel_info(name, route, 128)
 
 
-@pytest.mark.parametrize("fn", [kernels.flash_bwd_dkv, kernels.flash_bwd_dq])
+@pytest.mark.parametrize("fn", [kernels.flash_bwd_dkv, kernels.flash_bwd_dq, kernels.flash_fwd])
 def test_cpu_tensors_reach_no_kernel(fn):
     """A CPU tensor is refused by the wrappers before any route is taken."""
     q = torch.zeros(1, 64, 4, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
     rows = torch.zeros(4, 64)
     kernels.reset_launches()
+    args = ((q, k, k, True, 128 ** -0.5) if fn is kernels.flash_fwd else
+            (q, k, k, q, rows, rows, True, 128 ** -0.5))
     with pytest.raises(ValueError, match="CUDA"):
-        fn(q, k, k, q, rows, rows, True, 128 ** -0.5)
+        fn(*args)
     assert all(c == 0 for r in kernels.ROUTES.values() for c in r.values())
     assert all(c == 0 for c in kernels.LAUNCHES.values())
 
