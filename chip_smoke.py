@@ -2,8 +2,9 @@
 NVIDIA H100.
 
     python3 chip_smoke.py              # the whole check, one card
-    python3 chip_smoke.py --profile    # also a torch.profiler breakdown of
-                                       # one step into chiprun_out/
+    python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
+                                       # one training step and one decode
+                                       # step into chiprun_out/
 
 Phases, in order; any failure exits nonzero:
 
@@ -30,7 +31,32 @@ Phases, in order; any failure exits nonzero:
    LAYERS layers, B=BATCH, T=SEQ, for STEPS steps. Every loss finite,
    the first near ln(vocab), each kernel's launch count equal to
    n_layers x steps, and every K1, K2 and K3 launch on the wgmma route.
-6. the kernels line (JSON), the card line, and the last line
+6. serving agreement (llama.tiny, f32, TF32 off): ``prefill_into_pages``,
+   ``decode_step`` and ``verify_step`` logits on the card held against the
+   CPU; the engine's greedy streams on the card equal to solo
+   ``generate()`` on the card; a self-draft speculating engine's greedy
+   streams equal to the plain engine's; a host-tier demote -> promote
+   round trip of a bf16 page exact to the bit.
+7. serving main path: ``ServeEngine`` on llama3-8b at full width and full
+   depth (32 layers, bf16, weights from ``llama.init`` on the card), 12
+   requests from a seeded numpy generator (prompts of 17..1500 tokens,
+   four sharing a 512-token prefix, half greedy and half sampled, one
+   cancelled after 8 tokens). It fails unless every request ends as it
+   must, the prefix store serves 3 hits (3 x 512 tokens), a request
+   promoted back from the host tier repeats its first stream, and the
+   pool is empty after drain and eviction, and an 8-row paged batch's
+   first-decode logits lie within SERVE_LOGIT_REL x max|logit| of solo
+   ``cached_forward``; then a self-draft speculating engine must accept
+   tokens (> 1 token per target step). It prints the first token of one
+   request on an idle engine (miss and host-tier hit), the burst's
+   first-token and inter-token percentiles as smoke readings (12
+   requests are not a load), the 8-row decode step's time beside its
+   bound, solo prefill times by bucket, peak memory, greedy agreement
+   with solo ``generate()`` (reported, not required), and the ``serve``
+   JSON line.
+   ``--profile`` adds a torch.profiler breakdown of one 8-row decode step
+   (``chiprun_out/chip_smoke_serve_profile.json``).
+8. the serve line and the kernels line (JSON), the card line, and the last line
    ``{"ok": true, "device": {...}}``. Beside the contract's keys each
    kernel record has ``routes`` (the main path's launches by kernel route,
    e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, ``fma_route_ms`` (the
@@ -51,6 +77,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -434,10 +462,501 @@ def profile_step(trainer) -> dict:
     return result
 
 
+# -- serving (phases 6-7) ------------------------------------------------
+
+SERVE_TINY_TOL = 1e-4        # f32 logits, card against CPU, TF32 off
+# bf16 first-decode logits of the paged batch against solo cached_forward,
+# as max|diff| / max|logit|. Solo at batch 2 against batch 1 (the same
+# dense path at another product shape) reads up to ~0.021 on the H100 and
+# the paged batch up to ~0.019; a page, offset or mask fault reads O(1).
+SERVE_LOGIT_REL = 2.0 ** -4
+SERVE_LENGTHS = (17, 48, 64, 200, 333, 700, 1000, 1500)
+SERVE_PREFIX, SERVE_TAILS = 512, (130, 7, 40, 95)
+SERVE_CANCEL, SERVE_CANCEL_AFTER = "len700", 8
+SERVE_ALONE, SERVE_PROMOTED = "prefix+130", "prefix+7"
+PREFILL_BUCKETS = (64, 512, 1024, 2048)
+SERVE_ENGINE = dict(max_batch=8, max_seq=2048, queue_depth=16, prefix_block=16,
+                    prefix_cache_bytes=1 << 30, kv_host_bytes=1 << 30)
+RESULT_TIMEOUT = 600.0
+
+
+def pct(xs, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def first_divergence(a, b) -> int:
+    """How many leading tokens two streams share."""
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def run_requests(eng, reqs):
+    """Submit every request at once and collect the streams; fails on
+    anything but a full-length finish."""
+    handles = [eng.submit(p, max_new=n, temperature=t, seed=s) for p, n, t, s in reqs]
+    outs = [h.result(timeout=RESULT_TIMEOUT) for h in handles]
+    for (p, n, _, _), h, out in zip(reqs, handles, outs):
+        if h.finish_reason != "length" or len(out) != n:
+            fail(f"serving: request of {len(p)} tokens ended {h.finish_reason!r} after "
+                 f"{len(out)} of {n} tokens; engine error: {eng.error}")
+    return outs
+
+
+def phase_serve_agreement(device="cuda"):
+    """Phase 6: llama.tiny (f32) through the serving path on the card
+    against the CPU and against itself."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import ServeEngine, kvtier
+
+    cfg = llama.tiny(vocab=64, dim=32, n_layers=2)
+    host = llama.to_numpy(llama.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    page, g = 4, torch.Generator().manual_seed(1)
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in (9, 5)]
+    cand = torch.randint(0, cfg.vocab, (2, 4), generator=g)
+    pos = torch.tensor([9, 5])
+
+    def steps(dev):
+        p, pool = llama.from_numpy(host, dev), gen.init_page_pool(cfg, 9, page, device=dev)
+        outs = []
+        for row, prompt in enumerate(prompts):
+            padded = torch.zeros(1, 16, dtype=torch.long)
+            padded[0, :len(prompt)] = prompt
+            outs.append(gen.prefill_into_pages(p, padded.to(dev), len(prompt), pool,
+                                               tables[row].to(dev), 0, cfg, page)[0])
+        outs.append(gen.decode_step(p, cand[:, 0].to(dev), pool, tables.to(dev),
+                                    pos.to(dev), cfg, page)[0])
+        outs.append(gen.verify_step(p, cand.to(dev), pool, tables.to(dev),
+                                    (pos + 1).to(dev), cfg, page)[0])
+        return [o.cpu() for o in outs]
+
+    errors = []
+    for name, a, b in zip(("prefill_into_pages row 0", "prefill_into_pages row 1",
+                           "decode_step", "verify_step"), steps(device), steps("cpu")):
+        check(name, a, b, SERVE_TINY_TOL, errors)
+    if errors:
+        fail("serving steps on the card disagree with the CPU: " + "; ".join(errors))
+
+    params = llama.from_numpy(host, device)
+    rs = np.random.RandomState(3)
+    shared = rs.randint(0, cfg.vocab, 8).tolist()
+    reqs = [(rs.randint(0, cfg.vocab, n).tolist(), 12, 0.0, i)
+            for i, n in enumerate((3, 17, 1, 30))]
+    reqs += [(shared + [i], 10, 0.0, 9) for i in range(3)]
+    engine_kw = dict(max_batch=4, max_seq=64, prefix_block=4, device=device)
+
+    def run(eng):
+        # The shared-prefix requests one at a time: the 2nd and 3rd hit.
+        return run_requests(eng, reqs[:4]) + [run_requests(eng, [r])[0] for r in reqs[4:]]
+
+    eng = ServeEngine(params, cfg, **engine_kw)
+    plain = run(eng)
+    hits = eng.stats()["prefix_hits"]
+    eng.stop()
+    solo = [gen.generate(params, torch.tensor([p], device=device), n, cfg,
+                         max_seq=64)[0, len(p):].tolist() for p, n, _, _ in reqs]
+    eng = ServeEngine(params, cfg, draft_params=params, draft_cfg=cfg, spec_tokens=3,
+                      **engine_kw)
+    spec = run(eng)
+    spec_stats = eng.stats()
+    eng.stop()
+    say(f"  engine greedy streams equal to solo generate() on the card: "
+        f"{sum(a == b for a, b in zip(plain, solo))}/{len(reqs)}  (prefix hits {hits})")
+    say(f"  self-draft spec engine greedy streams equal to the plain engine's: "
+        f"{sum(a == b for a, b in zip(spec, plain))}/{len(reqs)}  "
+        f"(accepted {spec_stats['spec_accepted']} of {spec_stats['spec_proposed']})")
+    if plain != solo or hits != 2:
+        fail(f"serving: engine greedy streams differ from solo generate() or the prefix "
+             f"store missed ({hits} hits, want 2): {plain} vs {solo}")
+    if spec != plain or not spec_stats["spec_accepted"]:
+        fail(f"serving: spec streams differ from plain or accepted nothing: {spec} vs {plain}")
+
+    gb = torch.Generator(device=device).manual_seed(2)
+    pool = {n: torch.randn(2, 6, 16, 8, 128, generator=gb, device=device).to(torch.bfloat16)
+            for n in ("k", "v")}
+    before = {n: t[:, 3].cpu().view(torch.int16) for n, t in pool.items()}
+    k, v = kvtier.page_kv(pool, 3)
+    kvtier.stage_page(pool, 5, k, v)
+    exact = (k.tobytes() == before["k"].numpy().tobytes()
+             and v.tobytes() == before["v"].numpy().tobytes()
+             and all(torch.equal(pool[n][:, 5].cpu().view(torch.int16), before[n])
+                     for n in ("k", "v")))
+    say(f"  host tier: bf16 page demoted (pinned D2H) and promoted (pinned H2D): "
+        f"{'bit-exact' if exact else 'DIFFERS'}")
+    if not exact:
+        fail("serving: the host-tier round trip changed a page's bytes")
+
+
+def serve_traffic(vocab: int, seed: int = 0) -> list[dict]:
+    """The main path's 12 requests: 8 prompts of SERVE_LENGTHS tokens and 4
+    sharing one SERVE_PREFIX-token prefix; every other one sampled."""
+    rs = np.random.RandomState(seed)
+    reqs = [{"name": f"len{n}", "prompt": rs.randint(0, vocab, n).tolist(),
+             "max_new": 128 if n == 1500 else 64,
+             "temperature": 0.0 if i % 2 == 0 else 0.8, "seed": 100 + i}
+            for i, n in enumerate(SERVE_LENGTHS)]
+    prefix = rs.randint(0, vocab, SERVE_PREFIX).tolist()
+    reqs += [{"name": f"prefix+{t}", "prompt": prefix + rs.randint(0, vocab, t).tolist(),
+              "max_new": 64, "temperature": 0.8 if j in (0, 3) else 0.0, "seed": 200 + j,
+              "shared": True}
+             for j, t in enumerate(SERVE_TAILS)]
+    return reqs
+
+
+def _submit(eng, r):
+    return eng.submit(r["prompt"], max_new=r["max_new"], temperature=r["temperature"],
+                      seed=r["seed"])
+
+
+def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
+    """Phase 7: the engine at the cell's width and depth, then the
+    measurements, then speculation."""
+    import gc
+    import threading
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.serve import ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    eng = ServeEngine(params, cfg, device=device, **SERVE_ENGINE)
+    reqs = serve_traffic(cfg.vocab)
+    by = {r["name"]: r for r in reqs}
+    t0 = time.monotonic()
+    alone = by[SERVE_ALONE]
+    alone["handle"] = _submit(eng, alone)
+    alone["out"] = alone["handle"].result(timeout=RESULT_TIMEOUT)
+    rest = [r for r in reqs if r is not alone]
+    for r in rest:
+        r["handle"] = _submit(eng, r)
+
+    def cancel_after(r):
+        out = []
+        for tok in r["handle"].tokens(timeout=RESULT_TIMEOUT):
+            out.append(tok)
+            if len(out) == SERVE_CANCEL_AFTER:
+                r["handle"].cancel()
+        r["out"] = out
+
+    watcher = threading.Thread(target=cancel_after, args=(by[SERVE_CANCEL],))
+    watcher.start()
+    for r in rest:
+        if r["name"] != SERVE_CANCEL:
+            r["out"] = r["handle"].result(timeout=RESULT_TIMEOUT)
+    watcher.join(RESULT_TIMEOUT)
+    wall = time.monotonic() - t0
+    stats = eng.stats()
+    if eng.error:
+        fail(f"serving: the engine thread died:\n{eng.error}")
+    for r in reqs:
+        h, want = r["handle"], ("cancelled" if r["name"] == SERVE_CANCEL else "length")
+        ok = h.finish_reason == want and (want == "cancelled" or len(r["out"]) == r["max_new"])
+        say(f"  {r['name']:<11s} prompt {len(r['prompt']):5d}  "
+            f"{'sampled t=0.8' if r['temperature'] else 'greedy       '}  "
+            f"{len(r['out']):3d}/{r['max_new']} tokens  {h.finish_reason:<9s}  "
+            f"prefix {h.stats['prefix_tokens']:4d}  first token "
+            f"{h.stats['first_token_s'] * 1e3:8.1f} ms")
+        if not ok:
+            fail(f"serving: {r['name']} ended {h.finish_reason!r} with {len(r['out'])} "
+                 f"tokens, want {want!r} with {r['max_new']}")
+    say(f"  prefix hits {stats['prefix_hits']}, prefill tokens from the store "
+        f"{stats['prefill_tokens_cached']}, computed {stats['prefill_tokens_computed']}; "
+        f"{stats['decode_tokens']} decode tokens in {stats['target_steps']} steps, "
+        f"wall {wall:.2f} s")
+    n_hits = len(SERVE_TAILS) - 1
+    if (stats["prefix_hits"], stats["prefill_tokens_cached"]) != (n_hits, n_hits * SERVE_PREFIX):
+        fail(f"serving: want {n_hits} prefix hits saving {n_hits * SERVE_PREFIX} tokens, got "
+             f"{stats['prefix_hits']} and {stats['prefill_tokens_cached']}")
+
+    freed = eng.evict_prefix_store()  # the engine is idle: every request ended
+    host = eng.host_stats()
+    again = by[SERVE_PROMOTED]
+    h = _submit(eng, again)
+    out = h.result(timeout=RESULT_TIMEOUT)
+    host_after = eng.host_stats()
+    promoted = host_after["promotions"] - host["promotions"]
+    say(f"  host tier: evicting the store freed {freed} pages into {host['entries']} host "
+        f"blocks ({host['bytes'] / 2**20:.0f} MiB); {SERVE_PROMOTED} again: {promoted} "
+        f"blocks promoted, prefix {h.stats['prefix_tokens']} tokens, first token "
+        f"{h.stats['first_token_s'] * 1e3:.1f} ms, stream "
+        f"{'equal to' if out == again['out'] else 'DIFFERENT from'} its first run")
+    if (out != again["out"] or h.stats["prefix_tokens"] != SERVE_PREFIX
+            or promoted < SERVE_PREFIX // SERVE_ENGINE["prefix_block"]):
+        fail("serving: the request promoted from the host tier did not repeat its first run")
+    eng.stop(drain=True)
+    eng.evict_prefix_store()
+    eng.evict_host_tier()
+    used = eng.pool_stats()["used_pages"]
+    say(f"  after drain and eviction: {used} pages used")
+    if used:
+        fail(f"serving: {used} pages leaked past drain and eviction")
+
+    # One burst of 12 requests is a functional smoke, not a load: its
+    # percentiles (a few samples, queue order decides them) are smoke
+    # readings, kept apart from the measurements and not for comparison.
+    misses = [r["handle"].stats["first_token_s"] * 1e3 for r in rest if not r.get("shared")]
+    hits = [r["handle"].stats["first_token_s"] * 1e3 for r in rest if r.get("shared")]
+    gaps = [g * 1e3 for r in reqs for g in r["handle"].stats["inter_token_s"]]
+    result = {
+        "model": "llama3-8b" if cfg.dim == 4096 else f"dim {cfg.dim}",
+        "layers": cfg.n_layers, "requests": len(reqs), "engine": SERVE_ENGINE,
+        "wall_s": wall, "prefix_hits": stats["prefix_hits"],
+        "prefill_tokens_cached": stats["prefill_tokens_cached"],
+        "decode_tokens": stats["decode_tokens"], "target_steps": stats["target_steps"],
+        "first_token_alone_ms": {
+            "miss": alone["handle"].stats["first_token_s"] * 1e3,
+            "host_promoted_hit": h.stats["first_token_s"] * 1e3},
+        "burst_smoke_not_for_comparison": {
+            "first_token_miss_p50_ms": pct(misses, 0.5), "n_miss": len(misses),
+            "first_token_hit_p50_ms": pct(hits, 0.5), "n_hit": len(hits),
+            "inter_token_p50_ms": pct(gaps, 0.5), "inter_token_p99_ms": pct(gaps, 0.99),
+            "n_gaps": len(gaps)},
+    }
+    smoke = result["burst_smoke_not_for_comparison"]
+    say(f"  first token, one request on an idle engine: miss ({len(alone['prompt'])} tokens) "
+        f"{result['first_token_alone_ms']['miss']:.1f} ms, host-tier hit "
+        f"{result['first_token_alone_ms']['host_promoted_hit']:.1f} ms")
+    say(f"  burst smoke readings (12 requests at once; not a load measurement): first "
+        f"token miss p50 {smoke['first_token_miss_p50_ms']:.1f} ms over {len(misses)}, "
+        f"hit p50 {smoke['first_token_hit_p50_ms']:.1f} ms over {len(hits)} (queue wait "
+        f"included); inter-token p50 {smoke['inter_token_p50_ms']:.2f} ms, p99 "
+        f"{smoke['inter_token_p99_ms']:.2f} ms over {len(gaps)} gaps")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    result.update(serve_measure(cfg, params, reqs, device, profile))
+
+    spec_names = [r["name"] for r in reqs if not r["temperature"] and not r.get("shared")]
+    eng = ServeEngine(params, cfg, device=device, max_batch=8, max_seq=2048, queue_depth=16,
+                      draft_params=params, draft_cfg=cfg, spec_tokens=4)
+    outs = run_requests(eng, [(by[n]["prompt"], by[n]["max_new"], 0.0, 0) for n in spec_names])
+    st = eng.stats()
+    eng.stop()
+    # Tokens a live row gains per target forward: 1 for plain decode.
+    tpts = st["decode_tokens"] / max(st["decode_row_steps"], 1)
+    same = [first_divergence(o, by[n]["out"]) for n, o in zip(spec_names, outs)]
+    say(f"  speculation (self-draft, spec_tokens 4, {len(spec_names)} greedy requests): "
+        f"acceptance {st['spec_accept_rate']}, {tpts:.2f} tokens per row per target step "
+        f"({st['decode_tokens']} tokens in {st['target_steps']} steps, "
+        f"{st['decode_row_steps']} row-steps); tokens equal to the plain engine's before "
+        f"the first divergence: {same}")
+    if not (st["spec_accept_rate"] or 0) > 0 or not tpts > 1:
+        fail(f"serving: speculation accepted nothing ({st})")
+    result["spec"] = {"accept_rate": st["spec_accept_rate"], "tokens_per_target_step": tpts,
+                      "equal_to_plain_prefix": same}
+    del eng
+    gc.collect()
+    result["kernel_launches"] = dict(kernels.LAUNCHES)
+    result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  peak memory {result['peak_mem_gb']:.1f} GB; kernel launches on the "
+        f"serving path {result['kernel_launches']} (no kernel of the port is on it)")
+    return result
+
+
+def serve_measure(cfg, params, reqs, device, profile) -> dict:
+    """Solo generate() against the engine's greedy streams; an 8-row paged
+    batch (the 8 prompts of SERVE_LENGTHS): first-decode logits against
+    solo, the decode step's time and bound, solo prefill by bucket, and
+    (``profile``) one profiled decode step."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.train.state import tree_leaves
+
+    agree = {}
+    for r in reqs:
+        if r["temperature"] == 0 and r["name"] != SERVE_CANCEL:
+            solo = gen.generate(params, torch.tensor([r["prompt"]], device=device),
+                                r["max_new"], cfg)[0, len(r["prompt"]):].tolist()
+            agree[r["name"]] = first_divergence(solo, r["out"])
+    say(f"  greedy tokens equal to solo generate() before the first divergence: {agree} "
+        f"(reported: bf16 products at other shapes round differently)")
+
+    page, rows = SERVE_ENGINE["prefix_block"], [r for r in reqs if not r.get("shared")]
+    n_blocks = SERVE_ENGINE["max_seq"] // page
+    pool = gen.init_page_pool(cfg, len(rows) * n_blocks + 1, page, device=device)
+    tables = torch.zeros(len(rows), n_blocks, dtype=torch.long)
+    firsts = []
+    for b, r in enumerate(rows):
+        n = len(r["prompt"])
+        tables[b, :-(-(n + 1) // page)] = torch.arange(-(-(n + 1) // page)) + 1 + b * n_blocks
+        padded = torch.zeros(1, max(8, 1 << (n - 1).bit_length()), dtype=torch.long)
+        padded[0, :n] = torch.tensor(r["prompt"])
+        last, _ = gen.prefill_into_pages(params, padded.to(device), n, pool,
+                                         tables[b].to(device), 0, cfg, page)
+        firsts.append(int(last.argmax()))
+    tables = tables.to(device)
+    tokens = torch.tensor(firsts, device=device)
+    pos = torch.tensor([len(r["prompt"]) for r in rows], device=device)
+    logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
+    errs, floor = {}, {}
+
+    def solo_decode(prompt, tok, batch):
+        n = len(prompt)
+        cache = gen.init_cache(cfg, batch, n + 1, device=device)
+        gen.cached_forward(params, torch.tensor([prompt] * batch, device=device), cache,
+                           0, cfg)
+        return gen.cached_forward(params, tok.expand(batch, 1), cache, n, cfg)[0][0, -1]
+
+    for b, r in enumerate(rows):
+        want = solo_decode(r["prompt"], tokens[b:b + 1, None], 1)
+        # The noise floor: the same dense path with the prompt twice in
+        # the batch (other product shapes, so other bf16 roundings).
+        twin = solo_decode(r["prompt"], tokens[b:b + 1, None], 2)
+        errs[r["name"]] = float((logits[b] - want).abs().max() / want.abs().max())
+        floor[r["name"]] = float((twin - want).abs().max() / want.abs().max())
+    say(f"  first decode step, 8 paged rows against solo cached_forward: max|diff| / "
+        f"max|logit| {({k: round(v, 5) for k, v in errs.items()})} (limit "
+        f"{SERVE_LOGIT_REL:.4f}); solo at batch 2 against batch 1, the same "
+        f"measure: {({k: round(v, 5) for k, v in floor.items()})}")
+    bad = {k: v for k, v in errs.items() if not v <= SERVE_LOGIT_REL}
+    if bad:
+        fail(f"serving: the paged batch's first-decode logits differ from solo "
+             f"cached_forward beyond {SERVE_LOGIT_REL} x max|logit|: {bad}")
+
+    temps = torch.tensor([r["temperature"] for r in rows], device=device)
+    uniforms = torch.full((len(rows),), 0.5, device=device)
+
+    def step():
+        return gen.sample(gen.decode_step(params, tokens, pool, tables, pos, cfg, page)[0],
+                          temps, uniforms)
+
+    step_ms = cuda_ms(step, 10)
+    # The bytes the step must read: every weight but the embedding table,
+    # of which the lookup reads one row per token, and the K/V the rows'
+    # positions hold (with the one each writes).
+    embed = params["embed"]
+    weight_bytes = (sum(t.numel() * t.element_size() for t in tree_leaves(params))
+                    - embed.numel() * embed.element_size()
+                    + len(rows) * cfg.dim * embed.element_size())
+    kv_bytes = int(sum(int(p) + 1 for p in pos) * 2 * cfg.n_layers * cfg.kv_dim
+                   * cfg.dtype.itemsize)
+    bound = (weight_bytes + kv_bytes) / PEAK_HBM_BYTES * 1e3
+    say(f"  decode step, 8 rows at {[int(p) for p in pos]} (mean context "
+        f"{float(pos.float().mean()):.0f}): {step_ms:.2f} ms, "
+        f"{len(rows) / step_ms * 1e3:.0f} tokens/s; bound {bound:.2f} ms (bytes: "
+        f"{weight_bytes / 1e9:.3f} GB of weights read (8 embedding rows) + "
+        f"{kv_bytes / 1e9:.3f} GB K/V at 3.35e12 B/s), {step_ms / bound:.1f}x the bound")
+    profiled = profile_decode(step) if profile else None
+    prefill = {}
+    for T in PREFILL_BUCKETS:
+        toks = torch.randint(0, cfg.vocab, (1, T), device=device)
+        table = tables[0].clone()
+        table[:T // page] = torch.arange(T // page, device=device) + 1
+        prefill[T] = cuda_ms(lambda: gen.prefill_into_pages(
+            params, toks, T, pool, table, 0, cfg, page), 3)
+    say("  solo prefill: " + ", ".join(f"{T} tokens {ms:.1f} ms ({T / ms * 1e3:.0f} tokens/s)"
+                                       for T, ms in prefill.items()))
+    out = {"greedy_equal_prefix": agree, "first_decode_logit_rel_err": errs,
+           "first_decode_logit_rel_err_batch2_solo": floor,
+           "decode_step_ms": step_ms, "decode_tokens_per_s": len(rows) / step_ms * 1e3,
+           "decode_bound_ms": bound, "decode_positions": [int(p) for p in pos],
+           "prefill_ms": prefill}
+    if profiled is not None:
+        out["profile"] = profiled
+        # The profiled window's wall carries the profiler's host work; the
+        # same busy time over the step's CUDA-event time is the idle share
+        # of an unprofiled step.
+        out["decode_idle_share"] = max(0.0, 1 - profiled["busy_ms"] / step_ms)
+        say(f"  decode step idle share without the profiler: device busy "
+            f"{profiled['busy_ms']:.2f} of {step_ms:.2f} ms -> {out['decode_idle_share']:.3f}; "
+            f"{step_ms * 1e3 / max(profiled['aten_ops'], 1):.1f} us of step per aten op")
+    return out
+
+
+SERVE_CATEGORIES = (
+    ("matmuls (projections, lm_head)", ("aten::mm", "aten::addmm")),
+    ("page-table gather and copies", ("aten::index", "aten::index_put_",
+                                      "aten::_index_put_impl_", "aten::copy_",
+                                      "aten::clone", "aten::contiguous")),
+    ("cache attention (scores, mask, softmax, PV)", ("aten::bmm", "aten::_softmax",
+                                                     "aten::masked_fill_",
+                                                     "aten::masked_fill")),
+)
+
+
+def profile_decode(step) -> dict:
+    """One 8-row decode step (with sampling) under torch.profiler: device ms
+    by category, each kernel charged to the op that launched it (sampling:
+    everything under the sampling range), and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from oim_tpu_torch.models import generate as gen
+
+    torch.cuda.synchronize()
+    sample = gen.sample
+
+    def traced_sample(*a):
+        with record_function("sampling"):
+            return sample(*a)
+
+    gen.sample = traced_sample
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            step().cpu()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        gen.sample = sample
+    # The sampling range shows on the device timeline too, as an
+    # annotation row: not a kernel, so left out of the busy time.
+    kernels_ = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+                for ev in prof.key_averages()
+                if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
+                and ev.key != "sampling"]
+    busy = sum(k[1] for k in kernels_)
+    cats: dict[str, float] = {}
+    for ev in prof.events():
+        ms = getattr(ev, "self_device_time_total", 0) / 1e3
+        if str(ev.device_type).endswith("CUDA") or ms <= 0:
+            continue
+        cat, p = None, ev
+        while p is not None and cat is None:
+            cat = "sampling" if p.name == "sampling" else None
+            p = p.cpu_parent
+        if cat is None:
+            cat = next((c for c, ops in SERVE_CATEGORIES if ev.name in ops),
+                       "elementwise and other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    attributed = sum(cats.values())
+    if busy > attributed + 1e-3:
+        cats["not attributed to an op"] = busy - attributed
+    idle = max(0.0, 1 - busy / wall_ms) if wall_ms else None
+    launches = sum(k[2] for k in kernels_)
+    ops = sum(1 for ev in prof.events()
+              if ev.cpu_parent is None and ev.name.startswith("aten::"))
+    say(f"  profiled decode step: wall {wall_ms:.2f} ms (the profiler's own host work "
+        f"included), device busy {busy:.2f} ms, idle share {idle:.3f}; {launches} kernel "
+        f"launches from {ops} top-level aten ops")
+    for cat, ms in sorted(cats.items(), key=lambda c: -c[1]):
+        say(f"    {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}  {cat}")
+    for key, ms, count in sorted(kernels_, key=lambda k: -k[1])[:12]:
+        say(f"    {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    result = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle,
+              "kernel_launches": launches, "aten_ops": ops,
+              "categories": cats, "kernels": kernels_}
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "chip_smoke_serve_profile.json").write_text(json.dumps(result, indent=1))
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more main-path step (torch.profiler)")
+                    help="profile one more training step and one decode step "
+                         "(torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -453,6 +972,7 @@ def main() -> int:
         fail(f"imported oim_tpu_torch from {oim_tpu_torch.__file__}, not from {ROOT}", 3)
     from oim_tpu_torch import kernels
     from oim_tpu_torch.models import llama
+    from oim_tpu_torch.train.state import tree_leaves
 
     t_start = time.monotonic()
     say("== 1. card")
@@ -495,10 +1015,32 @@ def main() -> int:
         rec["launches"] = main["launches"][rec["name"]]
         rec["routes"] = main["routes"][rec["name"]]
 
-    say("== 6. summary")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the trainer's weights and moments
+
+    say("== 6. serving: llama.tiny on the card against the CPU and against itself")
+    phase_serve_agreement()
+
+    say("== 7. serving main path: ServeEngine on llama3-8b, 32 layers, bf16")
+    t0 = time.monotonic()
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    say(f"  llama.init on the card: {llama.num_params(cfg) / 1e9:.3f}e9 params, "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB, "
+        f"{time.monotonic() - t0:.1f} s")
+    serve = phase_serve_main(cfg, params, "cuda", args.profile)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say("== 8. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
+    say(json.dumps({"serve": {k: v for k, v in serve.items() if k != "profile"},
+                    "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""Models (``oim_tpu/models``): the llama family's dense path."""
+"""Models (``oim_tpu/models``): the llama family's dense path, and its
+KV-cached decoding in ``models.generate``."""
 
 from oim_tpu_torch.models import llama
 

@@ -1,1 +1,24 @@
-"""Serving (``oim_tpu/serve``): so far only the packed-weights blob."""
+"""Serving (``oim_tpu/serve``): the packed-weights blob and the
+continuous-batching engine over a paged KV cache.
+
+* ``weights``     the ``OIMW0001`` blob (pack / unpack).
+* ``engine``      the slot-based continuous-batching scheduler: mid-flight
+  admission, lockstep decode over a paged KV pool (``pagepool``), prompt
+  prefix reuse (``prefixcache``) with a host-RAM tier (``kvtier``),
+  bounded-queue backpressure and graceful drain.
+* ``spec``        speculative decoding: acceptance math and the adaptive
+  valve.
+
+Not ported yet: the gRPC service, registration, weight publish/restore,
+KV volumes and tensor-parallel serving.
+"""
+
+from oim_tpu_torch.serve.engine import (  # noqa: F401
+    Draining,
+    GenHandle,
+    QueueFull,
+    ServeEngine,
+)
+from oim_tpu_torch.serve.pagepool import PagePool  # noqa: F401
+from oim_tpu_torch.serve.spec import AcceptanceValve, accept_tokens  # noqa: F401
+from oim_tpu_torch.serve.weights import pack_params, unpack_params  # noqa: F401

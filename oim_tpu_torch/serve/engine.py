@@ -1,0 +1,1093 @@
+"""Continuous-batching decode engine (``oim_tpu/serve/engine.py``): the
+serving tier's scheduler.
+
+KV storage is a PAGED POOL (``serve/pagepool.py``): one [L, n_pages,
+page_tokens] device pool shared by every live request, addressed through
+per-slot page tables. Admission reserves only the pages a request can use,
+ceil((prompt + max_new - 1) / page_tokens); when the pool cannot cover the
+next admission, the request WAITS at the head of the bounded queue until
+retirements return pages (backpressure, never an out-of-memory error).
+
+A request is admitted into a free batch row MID-FLIGHT: its prefill
+(``models/generate.py prefill_into_pages``, batch 1, writing through the
+slot's page table) runs between decode steps of the residents, then the
+whole batch advances in lockstep through ONE decode step
+(``decode_step``, per-row positions and page tables). Retirement is per
+slot: an EOS token, the request's max-tokens budget or a cancel returns
+the slot's pages.
+
+Prompt-prefix KV reuse (``serve/prefixcache.py``): a retiring slot donates
+its prompt's full-block pages to a content-addressed store by REFERENCE;
+an admission that matches m blocks writes the store's page ids into its
+own table and prefills only the tail. With ``kv_host_bytes`` an evicted
+store-only page is copied to a host-RAM LRU (``serve/kvtier.py``) and a
+later hit copies it back into a fresh page.
+
+Speculative decoding (``serve/spec.py``): with a draft model, a decode
+round is draft-propose (K+1 draft ``decode_step``s over the draft's own
+page pool) plus target-verify (ONE ``verify_step`` over the K proposals)
+plus acceptance; each slot advances 1..K+1 tokens per target forward. An
+adaptive valve drops to plain decode when acceptance stops paying.
+
+What the port keeps of the reference, and what it changes:
+* The device programs are plain functions (``decode_program``,
+  ``prefill_program``, ``propose_program``, ``verify_program``; the
+  draft's prefill is ``prefill_into_pages`` itself); the pools are updated in place, the counterpart of
+  the reference's donated buffers. Step operands stay on the device
+  between steps: one [B] token fetch per step is the only sync.
+* Randomness is one ``torch.Generator`` per sampled request on the
+  engine's device, seeded with the request's seed: one draw after the
+  prefill and one per decode step, exactly as ``generate()`` draws, so a
+  request's stream does not depend on its batch-mates and equals solo
+  ``generate()`` given the same logits. A speculating engine's sampled
+  rows draw K+1 uniforms a round instead (``spec.accept_tokens``): their
+  streams are distribution-exact, not solo reproductions.
+* The engine thread runs under ``torch.inference_mode()``.
+* Not ported: metrics, events, tracing and fault points (``stats()``
+  carries the counts); tensor-parallel serving (``shard > 1``,
+  ``member_hbm_budget``), the fleet tier (``kv_fetch``) and the
+  prefill/decode roles, which the constructor refuses with
+  ``NotImplementedError``.
+
+Invariants (``tests/test_torch_serve.py``): greedy streams equal solo
+``generate()``; a retired slot leaks nothing into its next occupant; a
+full admission queue refuses (``QueueFull``) and an exhausted pool queues;
+cancel evicts the slot at the next step boundary and ``stop(drain=True)``
+finishes residents, fails the queue as "drained", and leaks no page.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+import time
+import traceback
+from typing import Any
+
+import numpy as np
+import torch
+
+from oim_tpu_torch.common import prefixhash
+from oim_tpu_torch.common.logging import from_context
+from oim_tpu_torch.models import generate as gen
+from oim_tpu_torch.models.llama import Config, check_supported
+from oim_tpu_torch.serve.kvtier import HostTier, page_kv, stage_page
+from oim_tpu_torch.serve.pagepool import PagePool
+from oim_tpu_torch.serve.prefixcache import PrefixStore
+from oim_tpu_torch.serve.spec import DRAFT_KEY_FOLD, AcceptanceValve, accept_tokens
+
+
+class QueueFull(Exception):
+    """The bounded admission queue is full: backpressure, never silent
+    queueing."""
+
+
+class Draining(Exception):
+    """The engine is draining/stopped and admits nothing new."""
+
+
+_DONE = object()  # sentinel closing a request's token stream
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt: list[int]
+    max_new: int
+    temperature: float
+    seed: int
+    eos: int
+    out: "queue.Queue[Any]" = dataclasses.field(
+        default_factory=lambda: queue.Queue())
+    cancelled: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    finish_reason: str = ""
+    submitted_at: float = 0.0
+    admitted_at: float = 0.0
+    finished_at: float = 0.0
+    emitted: int = 0
+    # Host clock at each emitted token (first-token and inter-token
+    # latency, where the reference observes its histograms).
+    token_times: list[float] = dataclasses.field(default_factory=list)
+    # Prompt tokens whose K/V came from the prefix cache (0 = the whole
+    # prompt was prefilled): the per-request hit record.
+    prefix_tokens: int = 0
+
+
+class GenHandle:
+    """Caller-side view of one submitted request: a token stream, a cancel
+    switch, and its post-mortem stats."""
+
+    def __init__(self, req: _Request):
+        self._req = req
+
+    def tokens(self, timeout: float | None = None):
+        """Yield token ids as the batch produces them; returns when the
+        request finishes (see ``finish_reason``). ``timeout`` bounds the
+        wait for EACH token, raising ``queue.Empty`` when it lapses."""
+        while True:
+            item = self._req.out.get(timeout=timeout)
+            if item is _DONE:
+                return
+            yield item
+
+    def result(self, timeout: float | None = None) -> list[int]:
+        return list(self.tokens(timeout=timeout))
+
+    def cancel(self) -> None:
+        """Ask the engine to evict this request's slot at the next step
+        boundary (idempotent; also unblocks a queued request)."""
+        self._req.cancelled.set()
+
+    @property
+    def finish_reason(self) -> str:
+        return self._req.finish_reason
+
+    @property
+    def stats(self) -> dict:
+        r = self._req
+        times = list(r.token_times)
+        return {
+            "queue_wait_s": max(r.admitted_at - r.submitted_at, 0.0)
+            if r.admitted_at else 0.0,
+            "tokens": r.emitted,
+            "finish_reason": r.finish_reason,
+            "prefix_tokens": r.prefix_tokens,
+            "first_token_s": times[0] - r.submitted_at if times else None,
+            "inter_token_s": [b - a for a, b in zip(times, times[1:])],
+        }
+
+
+# -- the device programs (the reference's _target_programs and
+# _spec_programs, as plain functions) --------------------------------------
+
+
+def decode_program(params, pool, tokens, pos, temps, uniforms, tables,
+                   cfg: Config, page: int, max_seq: int):
+    """One lockstep decode step with sampling. Returns the step's next
+    operands: (tokens [B], positions [B]). Positions advance for every row;
+    idle rows' positions clamp at ``max_seq`` (a live row retires before
+    it could reach the clamp)."""
+    logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
+    return gen.sample(logits, temps, uniforms), torch.clamp(pos + 1, max=max_seq)
+
+
+def prefill_program(params, pool, tokens, n_tokens: int, table, start: int,
+                    temp, uniform, cfg: Config, page: int):
+    """A slot's prefill (the whole prompt, or the tail after a prefix hit)
+    and the first token sampled from its last position. Returns [1]."""
+    last, _ = gen.prefill_into_pages(params, tokens, n_tokens, pool, table,
+                                     start, cfg, page)
+    return gen.sample(last[None], temp, uniform)
+
+
+def propose_program(dparams, dpool, tokens, pos, temps, uniforms, tables,
+                    dcfg: Config, page: int, max_seq: int, K: int):
+    """K+1 draft decode steps: each feeds the previous token, writes its
+    K/V through the draft tables and samples the next proposal with
+    ``uniforms[:, i]`` (the draft generators' draws). The EXTRA step
+    ingests the last proposal so its K/V lands at pos+K: after an
+    all-accept round the next round starts at pos+K+1 and would otherwise
+    leave a hole in the draft's context. Returns (proposals [B, K], their
+    draft logits [B, K, V])."""
+    toks, logits = [], []
+    tok = tokens
+    for i in range(K + 1):
+        lg, _ = gen.decode_step(dparams, tok, dpool, tables, pos, dcfg, page)
+        tok = gen.sample(lg, temps, uniforms[:, i])
+        pos = torch.clamp(pos + 1, max=max_seq)
+        if i < K:
+            toks.append(tok)
+            logits.append(lg)
+    return torch.stack(toks, dim=1), torch.stack(logits, dim=1)
+
+
+def verify_program(params, pool, tokens, pos, temps, uniforms, tables,
+                   draft_toks, draft_logits, spec_mask, cfg: Config,
+                   page: int, max_seq: int):
+    """The target's verify forward and the acceptance. Returns (out
+    [B, K+1], n_emit [B], the last emitted token [B], positions [B]): the
+    device state advances past every emitted token (a row the host
+    truncates retires)."""
+    seq = torch.cat([tokens[:, None], draft_toks], dim=1)  # [B, K+1]
+    logits, _ = gen.verify_step(params, seq, pool, tables, pos, cfg, page)
+    out, n_emit = accept_tokens(logits, draft_toks, draft_logits, temps,
+                                uniforms, spec_mask)
+    rows = torch.arange(out.shape[0], device=out.device)
+    return out, n_emit, out[rows, n_emit - 1], torch.clamp(pos + n_emit, max=max_seq)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed) & (2 ** 63 - 1))
+
+
+class ServeEngine:
+    # Smallest prefill bucket: prompts are padded up to the next power of
+    # two >= this (pad K/V never lands: prefill_into_pages skips the pad
+    # positions).
+    MIN_PREFILL_BUCKET = 8
+
+    def __init__(
+        self,
+        params,
+        cfg: Config,
+        max_batch: int = 8,
+        max_seq: int = 256,
+        queue_depth: int = 64,
+        default_max_new: int = 64,
+        prefix_cache_bytes: int = 64 << 20,
+        prefix_block: int = 16,
+        kv_page_tokens: int = 0,
+        kv_pool_tokens: int = 0,
+        kv_host_bytes: int = 0,
+        kv_fetch=None,
+        draft_params=None,
+        draft_cfg: Config | None = None,
+        spec_tokens: int = 0,
+        spec_pool_tokens: int = 0,
+        spec_accept_floor: float = 0.3,
+        spec_window_rounds: int = 64,
+        spec_reprobe_rounds: int = 256,
+        shard: int = 1,
+        member_hbm_budget: int = 0,
+        role: str = "mixed",
+        prefill_chunk: int = 0,
+        device="cuda",
+    ):
+        if int(shard) > 1 or member_hbm_budget:
+            raise NotImplementedError(
+                "tensor-parallel serving (shard > 1, member_hbm_budget) is "
+                "not ported yet")
+        if kv_fetch is not None:
+            raise NotImplementedError(
+                "peer KV fetch (kv_fetch) is not ported yet")
+        if role != "mixed":
+            raise NotImplementedError(
+                f"role {role!r}: the prefill/decode roles are not ported yet")
+        check_supported(cfg)
+        if draft_cfg is not None:
+            check_supported(draft_cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "device 'cuda' requested but no CUDA device is available "
+                    "(pass device='cpu' to run on the CPU)")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        if max_batch < 1 or max_seq < 2:
+            raise ValueError(f"need max_batch >= 1 and max_seq >= 2, got "
+                             f"{max_batch}x{max_seq}")
+        # Speculative decoding needs BOTH halves: a draft model and a
+        # proposal depth.
+        if (draft_params is None) != (spec_tokens < 1):
+            raise ValueError(
+                "speculative decoding needs draft_params AND "
+                f"spec_tokens >= 1 together (got draft_params="
+                f"{'set' if draft_params is not None else 'None'}, "
+                f"spec_tokens={spec_tokens})")
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab ({draft_cfg.vocab}) must equal the "
+                    f"target vocab ({cfg.vocab}): the acceptance ratio "
+                    f"test compares distributions over one vocabulary")
+        self.role = role
+        # Chunked prefill: long prompt tails prefill in slices of this many
+        # tokens, one decode step over the residents between slices.
+        self.prefill_chunk = max(0, int(prefill_chunk))
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.queue_depth = queue_depth
+        self.default_max_new = default_max_new
+        self.prefix_block = max(1, int(prefix_block))
+        prefix_on = prefix_cache_bytes > 0 and int(prefix_block) >= 1
+        # Pages default to the prefix-block size so a prefix block IS a
+        # page; the pool defaults to the dense max_batch x max_seq tokens.
+        self.page_tokens = int(kv_page_tokens) or self.prefix_block
+        if self.page_tokens < 1:
+            raise ValueError(
+                f"kv_page_tokens must be >= 1, got {self.page_tokens}")
+        if prefix_on and self.page_tokens != self.prefix_block:
+            raise ValueError(
+                f"zero-copy prefix sharing needs kv_page_tokens "
+                f"({self.page_tokens}) == prefix_block "
+                f"({self.prefix_block}); set them equal or disable the "
+                f"prefix cache (prefix_cache_bytes=0)")
+        self.n_blocks = -(-max_seq // self.page_tokens)
+        pool_tokens = int(kv_pool_tokens) or max_batch * max_seq
+        if pool_tokens < self.page_tokens:
+            raise ValueError(
+                f"kv_pool_tokens ({pool_tokens}) is smaller than one "
+                f"{self.page_tokens}-token page")
+        n_pages = pool_tokens // self.page_tokens
+        page_bytes = (2 * cfg.n_layers * self.page_tokens * cfg.n_kv_heads
+                      * cfg.head_dim * cfg.dtype.itemsize)
+        self._pagepool = PagePool(n_pages, self.page_tokens, page_bytes)
+        self.kv_host_bytes = max(0, int(kv_host_bytes))
+        self._host_tier = (HostTier(self.kv_host_bytes)
+                           if prefix_on and self.kv_host_bytes else None)
+        self._prefix = (
+            PrefixStore(prefix_cache_bytes, self.prefix_block, self._pagepool,
+                        demote=(self._demote_page
+                                if self._host_tier is not None else None))
+            if prefix_on else None)
+        if self._host_tier is not None:
+            self._pagepool.register_tier("host", self._host_tier.stats)
+        self.params = _to_device(params, self.device)
+        # +1 physical page: id 0 is the reserved scratch page every
+        # unmapped table entry points at.
+        self._cache = gen.init_page_pool(cfg, n_pages + 1, self.page_tokens,
+                                         device=self.device)
+
+        self.spec_tokens = int(spec_tokens) if draft_params is not None else 0
+        if self.spec_tokens:
+            dcfg = draft_cfg
+            self._draft_cfg = dcfg
+            self._draft_params = _to_device(draft_params, self.device)
+            draft_pool_tokens = int(spec_pool_tokens) or pool_tokens
+            if draft_pool_tokens < self.page_tokens:
+                raise ValueError(
+                    f"spec_pool_tokens ({draft_pool_tokens}) is smaller "
+                    f"than one {self.page_tokens}-token page")
+            draft_page_bytes = (2 * dcfg.n_layers * self.page_tokens
+                                * dcfg.n_kv_heads * dcfg.head_dim
+                                * dcfg.dtype.itemsize)
+            n_draft_pages = draft_pool_tokens // self.page_tokens
+            self._draft_pagepool = PagePool(
+                n_draft_pages, self.page_tokens, draft_page_bytes)
+            self._draft_cache = gen.init_page_pool(
+                dcfg, n_draft_pages + 1, self.page_tokens, device=self.device)
+            self._valve = AcceptanceValve(
+                floor=spec_accept_floor, window_rounds=spec_window_rounds,
+                reprobe_rounds=spec_reprobe_rounds)
+
+        # Per-slot host state (the scheduler's view; device state is the
+        # page pool plus what the last step returned).
+        self._slots: list[_Request | None] = [None] * max_batch
+        self._tokens = np.zeros(max_batch, np.int64)
+        self._pos = np.zeros(max_batch, np.int64)
+        self._temps = np.zeros(max_batch, np.float32)
+        # The sampled requests' generators, per slot (None: greedy or idle;
+        # such rows draw nothing).
+        self._gens: list[torch.Generator | None] = [None] * max_batch
+        self._draft_gens: list[torch.Generator | None] = [None] * max_batch
+        # Page tables: host-authored only, uploaded lazily; every admission
+        # and retirement invalidates the device copy, so a freed page can
+        # never be re-allocated while a stale device table still routes an
+        # idle row's writes at it. Unmapped entries are 0 = scratch.
+        self._tables = np.zeros((max_batch, self.n_blocks), np.int64)
+        self._tables_dev = None
+        self._slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+        # Draft-side slot state: a row with draft pages is a SPEC row; a
+        # row whose draft allocation failed (or admitted while the valve
+        # was closed) decodes at plain semantics through the same verify
+        # (spec_mask False).
+        self._spec_row = [False] * max_batch
+        self._draft_tables = np.zeros((max_batch, self.n_blocks), np.int64)
+        self._draft_tables_dev = None
+        self._spec_mask_dev = None
+        self._draft_slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_fallbacks = 0
+        self._target_steps = 0
+        self._decode_tokens = 0
+        self._row_steps = 0  # live rows summed over target steps
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefill_cached = 0
+        self._prefill_computed = 0
+        self._pool_blocked_episodes = 0
+        self._pool_blocked = False
+        # Device-resident step operands (tokens, pos, temps): the decode
+        # loop feeds each step the previous step's outputs. None = the
+        # host mirrors are fresher (an admission wrote a row).
+        self._dev: tuple | None = None
+        self._zero_draws: dict[int, torch.Tensor] = {}
+        self._pending: collections.deque[_Request] = collections.deque()
+        self._admitting: _Request | None = None
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._stopping = False
+        self._draining = False
+        self.finished_total = 0
+        # The engine thread's traceback if it died ("error" requests).
+        self.error: str | None = None
+        self._thread = threading.Thread(
+            target=self._run, name="oim-serve-engine", daemon=True)
+        self._thread.start()
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, prompt, max_new: int = 0, temperature: float = 0.0,
+               seed: int = 0, eos: int = -1) -> GenHandle:
+        """Queue one request; returns immediately with its handle. Raises
+        ``QueueFull`` (bounded queue) or ``Draining`` (engine stopping),
+        and ``ValueError`` for an inadmissible request."""
+        prompt = [int(t) for t in prompt]
+        max_new = int(max_new) or self.default_max_new
+        temperature = float(temperature)
+        if not prompt:
+            raise ValueError("empty prompt")
+        if temperature < 0:
+            raise ValueError(
+                f"temperature must be >= 0, got {temperature}")
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        if len(prompt) + max_new > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) "
+                f"exceeds the engine's max_seq {self.max_seq}")
+        need = self._blocks_needed(len(prompt), max_new)
+        if need > self._pagepool.n_pages:
+            # A request the whole pool can never hold would queue forever.
+            raise ValueError(
+                f"request needs {need} KV pages "
+                f"({self.page_tokens} tokens each) but the pool holds "
+                f"{self._pagepool.n_pages}; raise kv_pool_tokens or "
+                f"lower max_new_tokens")
+        req = _Request(prompt=prompt, max_new=max_new, temperature=temperature,
+                       seed=int(seed), eos=int(eos),
+                       submitted_at=time.monotonic())
+        with self._lock:
+            if self._stopping or self._draining:
+                raise Draining("engine is draining; not accepting requests")
+            if len(self._pending) >= self.queue_depth:
+                raise QueueFull(
+                    f"admission queue full ({self.queue_depth} waiting)")
+            self._pending.append(req)
+            self._work.notify()
+        return GenHandle(req)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
+        """Shut the engine down. ``drain=True`` finishes every RESIDENT
+        request first; queued requests finish as "drained" either way."""
+        with self._lock:
+            self._draining = True
+            if not drain:
+                self._stopping = True
+            self._work.notify()
+        self._thread.join(timeout=timeout)
+
+    @property
+    def active_slots(self) -> int:
+        with self._lock:
+            return sum(s is not None for s in self._slots)
+
+    @property
+    def queue_len(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def stats(self) -> dict:
+        """One consistent load snapshot, with the counts the reference
+        keeps in its metrics."""
+        with self._lock:
+            active = sum(s is not None for s in self._slots)
+            snap = {
+                "free_slots": self.max_batch - active,
+                "active_slots": active,
+                "queue_depth": len(self._pending),
+                "queue_capacity": self.queue_depth,
+                "max_batch": self.max_batch,
+                "ready": not (self._draining or self._stopping),
+                "target_steps": self._target_steps,
+                "decode_tokens": self._decode_tokens,
+                "decode_row_steps": self._row_steps,
+                "role": self.role,
+                "finished_total": self.finished_total,
+                "prefix_hits": self._prefix_hits,
+                "prefix_misses": self._prefix_misses,
+                "prefill_tokens_cached": self._prefill_cached,
+                "prefill_tokens_computed": self._prefill_computed,
+                "pool_blocked_episodes": self._pool_blocked_episodes,
+            }
+            if self.spec_tokens:
+                proposed, accepted = self._spec_proposed, self._spec_accepted
+                snap.update({
+                    "spec_tokens": self.spec_tokens,
+                    "spec_on": self._valve.open,
+                    "spec_rounds": self._spec_rounds,
+                    "spec_proposed": proposed,
+                    "spec_accepted": accepted,
+                    "spec_accept_rate": (
+                        round(accepted / proposed, 4) if proposed else None),
+                    "spec_accept_rate_rolling": (
+                        round(r, 4) if (r := self._valve.rate()) is not None
+                        else None),
+                    "spec_fallbacks": self._spec_fallbacks,
+                })
+            return snap
+
+    def hot_prefixes(self, n: int = 16) -> list[str]:
+        """The ``n`` hottest cached chain hashes (MRU first); empty when
+        the cache is disabled."""
+        if self._prefix is None:
+            return []
+        return self._prefix.hot(n)
+
+    def host_stats(self) -> dict:
+        """Host-tier census; zeros when tiering is off."""
+        if self._host_tier is None:
+            return {"entries": 0, "bytes": 0, "capacity_bytes": 0,
+                    "demotions": 0, "promotions": 0}
+        return self._host_tier.stats()
+
+    def evict_prefix_store(self) -> int:
+        """Drop every prefix-store reference NOW (store-only pages demote
+        into the host tier first when tiering is on). The demotion reads
+        the device pool, so call it only on an idle or stopped engine.
+        Returns pages freed."""
+        if self._prefix is None:
+            return 0
+        return self._prefix.evict_all()
+
+    def evict_host_tier(self) -> int:
+        """Drop every demoted block NOW. Returns blocks dropped."""
+        if self._host_tier is None:
+            return 0
+        return self._host_tier.evict_all()
+
+    def prefix_stats(self) -> dict:
+        """Prefix-store census; zeros when disabled."""
+        if self._prefix is None:
+            return {"entries": 0, "bytes": 0, "capacity_bytes": 0,
+                    "block": self.prefix_block}
+        return self._prefix.stats()
+
+    def pool_stats(self) -> dict:
+        """Page-pool census: totals, occupancy, sharing, the peak, and
+        ``dense_equiv_pages`` (what a max_batch x max_seq dense cache would
+        reserve in page units)."""
+        s = self._pagepool.stats()
+        s["dense_equiv_pages"] = self.max_batch * self.n_blocks
+        return s
+
+    def spec_stats(self) -> dict:
+        """Speculation census: the draft pool's occupancy plus the valve
+        state; zeros when speculation is not configured."""
+        if not self.spec_tokens:
+            return {"enabled": False, "spec_tokens": 0,
+                    "draft_total_pages": 0, "draft_used_pages": 0,
+                    "draft_free_pages": 0, "draft_peak_used_pages": 0,
+                    "spec_on": False}
+        s = self._draft_pagepool.stats()
+        return {
+            "enabled": True,
+            "spec_tokens": self.spec_tokens,
+            "draft_total_pages": s["total_pages"],
+            "draft_used_pages": s["used_pages"],
+            "draft_free_pages": s["free_pages"],
+            "draft_peak_used_pages": s["peak_used_pages"],
+            "spec_on": self._valve.open,
+        }
+
+    def _blocks_needed(self, n_prompt: int, max_new: int) -> int:
+        """Pages an admission reserves: the positions the request can
+        write, prompt [0, n) plus decode [n, n + max_new - 1) (the final
+        token is emitted, never written back)."""
+        tokens = max(1, n_prompt + max_new - 1)
+        return -(-tokens // self.page_tokens)
+
+    # -- engine loop --------------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.inference_mode():
+                while True:
+                    with self._lock:
+                        while (not self._pending
+                               and not any(s is not None for s in self._slots)
+                               and not (self._stopping or self._draining)):
+                            self._work.wait()
+                        if self._stopping or self._draining:
+                            self._fail_pending_locked("drained")
+                        stop_now = self._stopping
+                        done = (self._stopping or self._draining) and not any(
+                            s is not None for s in self._slots)
+                    if done:
+                        return
+                    if stop_now:
+                        self._evict_all("drained")
+                        return
+                    self._admit()
+                    if any(s is not None for s in self._slots):
+                        self._decode_once()
+        except Exception as err:  # noqa: BLE001 - the loop IS the engine
+            self.error = traceback.format_exc()
+            from_context().error("serve engine died; failing all requests",
+                                 error=repr(err), traceback=self.error)
+            self._evict_all("error")
+            if self._admitting is not None:
+                self._finish(self._admitting, "error")
+            with self._lock:
+                self._stopping = True
+                self._fail_pending_locked("error")
+
+    def _fail_pending_locked(self, reason: str) -> None:
+        while self._pending:
+            self._finish(self._pending.popleft(), reason)
+
+    # -- KV tiering ----------------------------------------------------------
+
+    def _demote_page(self, key: str, page: int) -> None:
+        """PrefixStore demote hook: copy the evicting store-only page into
+        the host tier."""
+        k, v = page_kv(self._cache, page)
+        self._host_tier.put(key, k, v)
+
+    def _alloc_one(self) -> int | None:
+        """One fresh page for a promotion, shedding cold store references
+        first under pressure."""
+        pages = self._pagepool.alloc(1)
+        if pages is None and self._prefix is not None:
+            self._prefix.release(1)
+            pages = self._pagepool.alloc(1)
+        return pages[0] if pages else None
+
+    def _install_block(self, key: str, page: int, shared: list[int]) -> None:
+        """Index one freshly staged page: the store takes its own ref, the
+        page's alloc-time ref becomes this admission's pin."""
+        self._prefix.install(key, page)
+        shared.append(page)
+
+    def _promote_tail(self, chain: list[str], m: int, shared: list[int]) -> int:
+        """Extend the device match with host-tier blocks: copy each
+        consecutive demoted block into a fresh page (the host entry pops
+        once the bytes are back). Stops at the first gap or on pool
+        pressure; returns the new matched depth."""
+        if self._host_tier is None:
+            return m
+        while m < len(chain):
+            got = self._host_tier.get(chain[m])
+            if got is None:
+                break
+            page = self._alloc_one()
+            if page is None:
+                break
+            stage_page(self._cache, page, got[0], got[1])
+            self._host_tier.pop(chain[m])
+            self._install_block(chain[m], page, shared)
+            m += 1
+        return m
+
+    def _evict_all(self, reason: str) -> None:
+        for i, req in enumerate(self._slots):
+            if req is not None:
+                # Hard eviction: no prefix donation, but every page returns.
+                self._release_slot(i, req, retain=False)
+                with self._lock:
+                    self._slots[i] = None
+                self._finish(req, reason)
+
+    def _finish(self, req: _Request, reason: str) -> None:
+        req.finish_reason = reason
+        req.finished_at = time.monotonic()
+        req.out.put(_DONE)
+        self.finished_total += 1
+
+    def _emit(self, req: _Request, token: int) -> None:
+        req.token_times.append(time.monotonic())
+        if req.emitted:
+            self._decode_tokens += 1
+        req.emitted += 1
+        req.out.put(int(token))
+
+    def _bucket(self, n: int) -> int:
+        b = self.MIN_PREFILL_BUCKET
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never a view of it: the host
+        mirrors keep changing)."""
+        return torch.tensor(arr, device=self.device)
+
+    def _draws(self, gens, n: int) -> torch.Tensor:
+        """[B, n] U[0,1) draws: n from each sampled row's generator, zeros
+        for the rows without one (greedy or idle)."""
+        if n not in self._zero_draws:
+            self._zero_draws[n] = torch.zeros(n, device=self.device)
+        zero = self._zero_draws[n]
+        if not any(g is not None for g in gens):
+            return zero.expand(len(gens), n)
+        return torch.stack([zero if g is None else
+                            torch.rand(n, generator=g, device=self.device)
+                            for g in gens])
+
+    def _sync_host(self) -> None:
+        """Pull the device-resident step operands back into the host
+        mirrors before an admission writes a row; the next step uploads
+        the merged state once."""
+        if self._dev is None:
+            return
+        d_tokens, d_pos, _ = self._dev
+        self._tokens = d_tokens.cpu().numpy().copy()
+        self._pos = d_pos.cpu().numpy().copy()
+        self._dev = None
+
+    def _admit(self) -> None:
+        """Insert queued requests into free slots (prefill between decode
+        steps). Admission reserves the request's pages first; an exhausted
+        pool leaves the request AT THE HEAD of the queue and returns. The
+        head is PEEKED, not popped, until its pages are mapped."""
+        while True:
+            with self._lock:
+                free = next(
+                    (i for i, s in enumerate(self._slots) if s is None), None)
+                if free is None or not self._pending:
+                    return
+                req = self._pending[0]
+                cancelled = req.cancelled.is_set()
+                if cancelled:
+                    self._pending.popleft()
+            if cancelled:
+                self._finish(req, "cancelled")
+                continue
+            n = len(req.prompt)
+            m, shared = 0, []
+            if self._prefix is not None:
+                chain = prefixhash.usable_hashes(req.prompt, self.prefix_block)
+                m = self._prefix.match(chain)
+                if m:
+                    got = self._prefix.gather(chain[:m])
+                    if got is None:
+                        m = 0  # a link evicted between match and gather
+                    else:
+                        shared = got
+                        # Pin the shared pages NOW, before any eviction.
+                        self._pagepool.ref(shared)
+                if m < len(chain):
+                    m = self._promote_tail(chain, m, shared)
+            if not self._map_slot(req, free, n, m, shared):
+                return  # still the queue head; retried next loop pass
+            spec_row = self._map_draft_slot(req, free, n)
+            with self._lock:
+                self._pending.popleft()
+            self._admitting = req  # failed with the engine if it dies here
+            req.admitted_at = time.monotonic()
+            gen_ = (_generator(req.seed, self.device)
+                    if req.temperature > 0 else None)
+            tok = self._prefill_slot(req, free, n, m, gen_)
+            if spec_row:
+                self._draft_prefill_slot(req, free, n)
+            self._sync_host()  # merge device state before writing the row
+            self._tokens[free] = tok
+            self._pos[free] = n
+            self._temps[free] = req.temperature
+            self._gens[free] = gen_
+            self._spec_row[free] = spec_row
+            with self._lock:
+                self._slots[free] = req
+            self._admitting = None
+            self._emit(req, tok)
+            self._retire_if_done(free, req, tok)
+
+    def _map_slot(self, req: _Request, slot: int, n: int,
+                  m: int, shared: list[int]) -> bool:
+        """Build slot ``slot``'s page table: ``m`` shared prefix pages
+        (pinned by the caller) then fresh private pages for the tail and
+        decode blocks. On pool pressure the prefix store releases
+        unreferenced pages first; if the pool still cannot cover the
+        request, every pin is undone and False backpressures."""
+        need = self._blocks_needed(n, req.max_new)
+        private = self._pagepool.alloc(need - m)
+        if private is None and self._prefix is not None:
+            deficit = (need - m) - self._pagepool.free_pages
+            self._prefix.release(deficit)
+            private = self._pagepool.alloc(need - m)
+        if private is None:
+            if shared:
+                self._pagepool.unref(shared)
+            if not self._pool_blocked:
+                self._pool_blocked = True
+                self._pool_blocked_episodes += 1
+            return False
+        self._pool_blocked = False
+        pages = shared + private
+        self._slot_pages[slot] = pages
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(pages)] = pages
+        self._tables_dev = None
+        return True
+
+    def _map_draft_slot(self, req: _Request, slot: int, n: int) -> bool:
+        """Reserve the request's draft pages (the target's footprint
+        math). False (plain decode for this request) when speculation is
+        off, the valve is closed, or the draft pool can't cover it."""
+        if not self.spec_tokens or not self._valve.open:
+            return False
+        pages = self._draft_pagepool.alloc(self._blocks_needed(n, req.max_new))
+        if pages is None:
+            return False
+        self._draft_slot_pages[slot] = pages
+        self._draft_tables[slot, :] = 0
+        self._draft_tables[slot, :len(pages)] = pages
+        self._draft_tables_dev = None
+        self._spec_mask_dev = None
+        return True
+
+    def _draft_prefill_slot(self, req: _Request, slot: int, n: int) -> None:
+        """Fill the draft's cache with the whole prompt (the draft keeps no
+        prefix store; its logits are discarded, since a round's first input
+        is always the TARGET's last emission) and start the row's draft
+        generator."""
+        padded = np.zeros((1, self._bucket(n)), np.int64)
+        padded[0, :n] = req.prompt
+        gen.prefill_into_pages(
+            self._draft_params, self._upload(padded), n, self._draft_cache,
+            self._upload(self._draft_tables[slot]), 0, self._draft_cfg,
+            self.page_tokens)
+        if req.temperature > 0:
+            self._draft_gens[slot] = _generator(req.seed ^ DRAFT_KEY_FOLD,
+                                                self.device)
+
+    def _release_draft(self, slot: int) -> None:
+        """Return a slot's draft pages and zero its draft table."""
+        pages = self._draft_slot_pages[slot]
+        if pages:
+            self._draft_pagepool.unref(pages)
+        self._draft_slot_pages[slot] = []
+        self._draft_tables[slot, :] = 0
+        self._draft_tables_dev = None
+        self._spec_row[slot] = False
+        self._spec_mask_dev = None
+        self._draft_gens[slot] = None
+
+    def _first_token(self, req, tail, table, start, gen_) -> int:
+        padded = np.zeros((1, self._bucket(len(tail))), np.int64)
+        padded[0, :len(tail)] = tail
+        temp = torch.full((1,), req.temperature, device=self.device)
+        tok = prefill_program(
+            self.params, self._cache, self._upload(padded), len(tail), table,
+            start, temp, self._draws([gen_], 1)[:, 0], self.cfg, self.page_tokens)
+        return int(tok[0])
+
+    def _prefill_slot(self, req: _Request, slot: int, n: int, m: int, gen_) -> int:
+        """One request's prefill through slot ``slot``'s page table: the
+        first ``m`` blocks are shared store pages read in place, the tail
+        lands in the slot's private pages. Returns the first token."""
+        P = m * self.prefix_block
+        tail = req.prompt[P:]
+        if self.prefill_chunk and len(tail) > self.prefill_chunk:
+            tok = self._prefill_chunked(req, slot, m, gen_)
+        else:
+            tok = self._first_token(req, tail, self._upload(self._tables[slot]),
+                                    P, gen_)
+        if self._prefix is not None:
+            if P:
+                req.prefix_tokens = P
+                self._prefix_hits += 1
+                self._prefill_cached += P
+            else:
+                self._prefix_misses += 1
+        self._prefill_computed += n - P
+        return tok
+
+    def _prefill_chunked(self, req: _Request, slot: int, m: int, gen_) -> int:
+        """The prompt tail in ``prefill_chunk``-token slices, one decode
+        round over the RESIDENT slots between slices. Every slice runs the
+        same prefill at a shifted ``start``; only the last samples.
+
+        While slices interleave with decode, this slot's table row is
+        ZEROED (the prefill runs through a device copy of the row): the
+        row is not in _slots yet, so lockstep decode treats it as idle,
+        and an idle row's write must land on scratch page 0, never in the
+        freshly mapped pages (some of them SHARED store pages)."""
+        P = m * self.prefix_block
+        tail = req.prompt[P:]
+        chunk = self.prefill_chunk
+        table_row = self._tables[slot].copy()
+        self._tables[slot, :] = 0
+        self._tables_dev = None
+        draft_row = None
+        if self.spec_tokens:
+            draft_row = self._draft_tables[slot].copy()
+            self._draft_tables[slot, :] = 0
+            self._draft_tables_dev = None
+        table_dev = self._upload(table_row)
+        for off in range(0, len(tail), chunk):
+            piece = tail[off:off + chunk]
+            if off + chunk < len(tail):
+                padded = np.zeros((1, self._bucket(len(piece))), np.int64)
+                padded[0, :len(piece)] = piece
+                gen.prefill_into_pages(
+                    self.params, self._upload(padded), len(piece), self._cache,
+                    table_dev, P + off, self.cfg, self.page_tokens)
+                with self._lock:
+                    resident = any(r is not None for r in self._slots)
+                if resident:
+                    self._decode_once()
+            else:
+                tok = self._first_token(req, piece, table_dev, P + off, gen_)
+        self._tables[slot, :] = table_row
+        self._tables_dev = None
+        if draft_row is not None:
+            self._draft_tables[slot, :] = draft_row
+            self._draft_tables_dev = None
+        return tok
+
+    def _release_slot(self, slot: int, req: _Request,
+                      retain: bool = True) -> None:
+        """Return a retiring slot's pages. With ``retain``, first donate
+        the prompt's FULL blocks to the prefix store BY REFERENCE, then
+        drop the slot's own references. The table row zeroes so the idle
+        row writes scratch page 0. Retained bytes are a pure function of
+        the prompt's tokens: decode only writes positions >= len(prompt),
+        which live in later pages."""
+        pages = self._slot_pages[slot]
+        if retain and self._prefix is not None and pages:
+            hashes = prefixhash.chain_hashes(req.prompt, self.prefix_block)
+            if hashes:
+                self._prefix.retain(hashes, pages[:len(hashes)])
+        if pages:
+            self._pagepool.unref(pages)
+        self._slot_pages[slot] = []
+        self._tables[slot, :] = 0
+        self._tables_dev = None
+        self._gens[slot] = None
+        if self.spec_tokens:
+            self._release_draft(slot)
+
+    def _retire_if_done(self, slot: int, req: _Request, token: int) -> bool:
+        if req.cancelled.is_set():
+            reason = "cancelled"
+        elif req.eos >= 0 and token == req.eos:
+            reason = "eos"
+        elif req.emitted >= req.max_new:
+            reason = "length"
+        else:
+            return False
+        self._release_slot(slot, req)
+        with self._lock:
+            self._slots[slot] = None
+        self._finish(req, reason)
+        return True
+
+    def _cancel_slot(self, slot: int, req: _Request) -> None:
+        self._release_slot(slot, req)
+        with self._lock:
+            self._slots[slot] = None
+        self._finish(req, "cancelled")
+
+    def _decode_once(self) -> None:
+        """One decode round over every resident slot: a speculative round
+        when a draft is configured, the valve is open and a live slot holds
+        a draft cache; one plain lockstep step otherwise (a closed valve's
+        plain rounds tick the re-probe cooldown)."""
+        if self.spec_tokens:
+            if self._valve.open:
+                with self._lock:
+                    any_spec = any(r is not None and self._spec_row[i]
+                                   for i, r in enumerate(self._slots))
+                if any_spec:
+                    self._spec_once()
+                    return
+            elif self._valve.tick_plain():
+                from_context().info("speculation re-probing after cooldown",
+                                    reprobe_rounds=self._valve.reprobe_rounds)
+        self._plain_once()
+
+    def _operands(self):
+        if self._dev is None:
+            self._dev = (self._upload(self._tokens), self._upload(self._pos),
+                         self._upload(self._temps))
+        if self._tables_dev is None:
+            self._tables_dev = self._upload(self._tables)
+        return self._dev
+
+    def _spec_once(self) -> None:
+        """One speculative round: the draft proposes K tokens per row, the
+        target verifies all K in ONE forward, and each live row emits its
+        accepted prefix plus one target-supplied token. Rows without a
+        draft slot ride the same programs at plain-decode semantics."""
+        K = self.spec_tokens
+        d_tokens, d_pos, d_temps = self._operands()
+        if self._draft_tables_dev is None:
+            self._draft_tables_dev = self._upload(self._draft_tables)
+        with self._lock:
+            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+            spec_rows = list(self._spec_row)
+        if self._spec_mask_dev is None:
+            self._spec_mask_dev = torch.tensor(spec_rows, device=self.device)
+        draft_toks, draft_logits = propose_program(
+            self._draft_params, self._draft_cache, d_tokens, d_pos, d_temps,
+            self._draws(self._draft_gens, K + 1), self._draft_tables_dev,
+            self._draft_cfg, self.page_tokens, self.max_seq, K)
+        out, n_emit, tok, pos = verify_program(
+            self.params, self._cache, d_tokens, d_pos, d_temps,
+            self._draws(self._gens, K + 1), self._tables_dev, draft_toks,
+            draft_logits, self._spec_mask_dev, self.cfg, self.page_tokens,
+            self.max_seq)
+        self._dev = (tok, pos, d_temps)
+        fetched = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
+        out, n_emit = fetched[:, :-1], fetched[:, -1]  # the per-round sync
+        self._target_steps += 1
+        self._row_steps += len(live)
+        self._spec_rounds += 1
+        proposed = K * sum(spec_rows)
+        accepted = sum(int(n_emit[i]) - 1 for i, _ in live if spec_rows[i])
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        if self._valve.observe(proposed, accepted):
+            # The draft stopped predicting this traffic: fall back to plain
+            # decode, release the live rows' draft pages now, re-probe
+            # after the cooldown.
+            self._spec_fallbacks += 1
+            from_context().info("speculation fell back to plain decode",
+                                accept_floor=self._valve.floor)
+            for i, _ in live:
+                if spec_rows[i]:
+                    self._release_draft(i)
+        for i, req in live:
+            if req.cancelled.is_set():
+                self._cancel_slot(i, req)
+                continue
+            # The device advanced past every token of the round; the host
+            # emits what the request's budget admits and stops at the
+            # first EOS.
+            count = min(int(n_emit[i]), req.max_new - req.emitted)
+            for t in out[i, :count]:
+                self._emit(req, int(t))
+                if self._retire_if_done(i, req, int(t)):
+                    break
+
+    def _plain_once(self) -> None:
+        """One lockstep decode step over every resident slot; idle rows
+        compute a discarded token. Each step's outputs ARE the next step's
+        operands, so steady-state decode costs one step plus one [B] token
+        fetch."""
+        d_tokens, d_pos, d_temps = self._operands()
+        tok, pos = decode_program(
+            self.params, self._cache, d_tokens, d_pos, d_temps,
+            self._draws(self._gens, 1)[:, 0], self._tables_dev, self.cfg,
+            self.page_tokens, self.max_seq)
+        self._dev = (tok, pos, d_temps)
+        tok = tok.cpu().numpy()  # the only per-step sync
+        self._target_steps += 1
+        with self._lock:
+            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+        self._row_steps += len(live)
+        for i, req in live:
+            if req.cancelled.is_set():
+                self._cancel_slot(i, req)
+                continue
+            self._emit(req, int(tok[i]))
+            self._retire_if_done(i, req, int(tok[i]))
