@@ -56,9 +56,29 @@ Phases, in order; any failure exits nonzero:
    JSON line.
    ``--profile`` adds a torch.profiler breakdown of one 8-row decode step
    (``chiprun_out/chip_smoke_serve_profile.json``).
-8. the serve line and the kernels line (JSON), the card line, and the last line
-   ``{"ok": true, "device": {...}}``. Beside the contract's keys each
-   kernel record has ``routes`` (the main path's launches by kernel route,
+8. OIM-fed training: a 4 GiB int32 token volume (FED_TOKENS tokens from a
+   seeded generator) written as .npy to a temporary directory and staged
+   through ``CUDABackend`` (64 MiB chunks, an 8 GiB stage cache). First
+   two chunks of it are staged into a block freed while queued work on
+   the current stream still writes it, and must land intact. It fails
+   unless the stage ends READY with the device's allocation growing by at
+   most the volume + 2 chunks, the staged tensor equals the file byte for
+   byte, a restage after unstage is served from the cache (no plane call,
+   the same storage), a stage unstaged after FED_CANCEL_AT landed bytes
+   ends FAILED "unmapped during staging", and after eviction
+   ``memory_allocated`` is back where the phase began; then the Trainer
+   of phase 5 runs STEPS steps on ``volume_token_batches`` of the staged
+   volume, with phase 5's checks (finite losses, the first near
+   ln(vocab), K1-K3 at LAYERS x STEPS launches each, all on ``wgmma``).
+   It prints the stage's time, GB/s and breakdown (disk_s, h2d_s,
+   dispatch_s), two yardsticks timed in the same run (a pinned 64 MiB
+   copy to the card, ``read_into`` of the file alone) and the stage's
+   bound from them, the cache-hit time, and step_s and MFU beside phase
+   5's; then the ``oim_fed`` JSON line.
+9. the main-path, serve and oim_fed lines and the kernels line (JSON), the
+   card line, and the last line ``{"ok": true, "device": {...}}``. Beside
+   the contract's keys each kernel record has ``oim_fed_launches`` (phase
+   8's launches), ``routes`` (the main path's launches by kernel route,
    e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, ``fma_route_ms`` (the
    CUDA-core kernel on the same inputs) and ``resources`` (registers,
    spills, shared memory and blocks per SM of the route the main path
@@ -73,6 +93,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -952,6 +973,279 @@ def profile_decode(step) -> dict:
     return result
 
 
+# -- OIM-fed training (phase 8) ------------------------------------------
+
+FED_TOKENS = 1 << 30          # int32 tokens: a 4 GiB, ~1 B-token pretraining shard
+FED_CHUNK = 64 << 20          # the backend's staging chunk
+FED_CACHE = 8 << 30           # stage-cache capacity (the 1 GiB default would skip it)
+FED_BLOCK = 1 << 26           # tokens per block written and compared (256 MiB)
+FED_CANCEL_AT = 1 << 30       # landed bytes at which phase 8 unstages a stage
+
+
+def write_token_volume(path: str, n_tokens: int, vocab: int, seed: int = 0) -> None:
+    """An int32 .npy of n_tokens in [0, vocab) from a seeded generator,
+    written block by block and synced to the disk, so that no writeback of
+    its pages runs beside the reads timed after it (they stay cached)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<i4", "fortran_order": False, "shape": (n_tokens,)})
+        for a in range(0, n_tokens, FED_BLOCK):
+            rng.integers(0, vocab, min(FED_BLOCK, n_tokens - a), dtype=np.int32).tofile(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def check_volume_bytes(arr, path: str) -> None:
+    """The staged tensor against the file, block by block on the card."""
+    import torch
+
+    mm = np.load(path, mmap_mode="r")
+    if tuple(arr.shape) != mm.shape or arr.dtype != torch.int32:
+        fail(f"oim-fed: staged {tuple(arr.shape)} {arr.dtype}, the file holds "
+             f"{mm.shape} {mm.dtype}")
+    for a in range(0, mm.shape[0], FED_BLOCK):
+        want = torch.from_numpy(np.array(mm[a:a + FED_BLOCK])).to(arr.device)
+        got = arr[a:a + FED_BLOCK]
+        if not torch.equal(got, want):
+            first = a + int((got != want).nonzero()[0, 0])
+            fail(f"oim-fed: staged token {first} is {int(arr[first])}, the file has "
+                 f"{int(mm[first])}")
+
+
+def stage_yardsticks(path: str, nbytes: int) -> dict:
+    """The two halves of a stage timed alone in this run: one pinned
+    FED_CHUNK copy to the card (CUDA events), and the file read in
+    FED_CHUNK pieces by ``read_into`` (host clock)."""
+    import torch
+
+    from oim_tpu_torch.data import staging
+
+    pinned = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(FED_CHUNK, dtype=torch.uint8, device="cuda")
+    h2d_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), 20, warmup=2)
+    payload = os.path.getsize(path) - nbytes
+    buf = staging.alloc_pinned(FED_CHUNK, pin=False)
+    t0 = time.monotonic()
+    for off in range(0, nbytes, FED_CHUNK):
+        staging.read_into(path, buf[:min(FED_CHUNK, nbytes - off)], offset=payload + off)
+    read_s = time.monotonic() - t0
+    del dev
+    return {"h2d_gbps": FED_CHUNK / (h2d_ms * 1e-3) / 1e9, "read_gbps": nbytes / read_s / 1e9}
+
+
+def check_stage_after_queued_work(path: str, nbytes: int) -> dict:
+    """Stage two chunks of the volume into a block that was freed while
+    kernels queued on the current stream still wrote it: the caching
+    allocator hands such a block straight back on the same stream, so the
+    copies land correctly only if the copy stream waits on that stream.
+
+    Two things synchronise the host with the device and would hide the
+    hazard, so both are done once first: a page-locked allocation (a
+    first stage of the same bytes fills the host cache, as a stage beside
+    a running trainer finds it) and the first launch of a kernel (CUDA
+    loads modules lazily: the first ``fill_`` would wait out the queued
+    work before the copies are enqueued)."""
+    import torch
+
+    from oim_tpu_torch.data import plane
+
+    n = 2 * FED_CHUNK
+    payload = os.path.getsize(path) - nbytes
+    src = plane.ExtentSource([plane.Extent("file", path, payload, n)])
+    want = torch.from_numpy(np.fromfile(path, np.uint8, count=n, offset=payload)).cuda()
+    warm = plane.stage_source(src, dtype=torch.uint8, shape=(n,), device="cuda",
+                              chunk_bytes=FED_CHUNK)
+    del warm
+    torch.cuda.synchronize()
+    block = torch.empty(n, dtype=torch.uint8, device="cuda")
+    ptr = block.data_ptr()
+    block.fill_(0xAB)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s of queued work on the current stream
+    block.fill_(0xAB)                 # then a write to the block...
+    del block                         # ...freed while both are still queued
+    arr = plane.stage_source(src, dtype=torch.uint8, shape=(n,), device="cuda",
+                             chunk_bytes=FED_CHUNK)
+    reused = arr.data_ptr() == ptr
+    torch.cuda.synchronize()
+    equal = torch.equal(arr, want)
+    say(f"  stage into a block freed under queued work: block reused {reused}, staged "
+        f"bytes equal to the file {equal}")
+    if not reused:
+        fail("oim-fed: the allocator did not hand the freed block to the stage, so the "
+             "queued-work check did not reach its case")
+    if not equal:
+        fail("oim-fed: a stage into a block freed under queued work lost its bytes to "
+             "that work (the copy stream did not wait on the current stream)")
+    return {"queued_work_block_reused": reused, "queued_work_bytes_equal": equal}
+
+
+def phase_oim_fed(synthetic_step_s: float) -> dict:
+    """Phase 8: a token volume staged from disk through CUDABackend, checked,
+    restaged from the cache, cancelled and freed, then fed to the trainer."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
+    from oim_tpu_torch.data import plane, staging
+    from oim_tpu_torch.data.feeds import volume_token_batches
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.spec import ArraySpec, FileParams
+    from oim_tpu_torch.train import TrainConfig, Trainer
+
+    vocab = llama.LLAMA3_8B.vocab
+    nbytes = FED_TOKENS * 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+    out: dict = {"tokens": FED_TOKENS, "volume_bytes": nbytes, "chunk_bytes": FED_CHUNK,
+                 "host_copy": "direct: page-locked reader buffer -> device"}
+
+    def run_stage(backend, volume_id: str, params) -> tuple:
+        vol = StagedVolume(volume_id, b"", ArraySpec())
+        t0 = time.monotonic()
+        backend.stage(vol, "file", params)
+        vol.wait()
+        return vol, time.monotonic() - t0
+
+    with tempfile.TemporaryDirectory(prefix="oim-fed-") as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < nbytes + (1 << 30):
+            fail(f"oim-fed: the temp disk at {tmp} has {free / 2**30:.1f} GiB free, the "
+                 f"volume needs {nbytes / 2**30:.0f} GiB (+1): cut FED_TOKENS")
+        path = os.path.join(tmp, "tokens.npy")
+        t0 = time.monotonic()
+        write_token_volume(path, FED_TOKENS, vocab)
+        out["write_s"] = time.monotonic() - t0
+        say(f"  wrote {FED_TOKENS} int32 tokens in [0, {vocab}) ({nbytes / 2**30:.0f} GiB .npy) "
+            f"in {out['write_s']:.1f} s; {free / 2**30:.0f} GiB were free")
+        out.update(check_stage_after_queued_work(path, nbytes))
+
+        # -- cold stage --
+        params = FileParams(path, "npy")
+        backend = CUDABackend(cache_bytes=FED_CACHE, chunk_bytes=FED_CHUNK)
+        calls = plane.STAGE_CALLS
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.max_memory_allocated()
+        vol, stage_s = run_stage(backend, "oim-fed", params)
+        if vol.state != StageState.READY:
+            fail(f"oim-fed: the cold stage ended {vol.state}: {vol.error}")
+        growth = torch.cuda.max_memory_allocated() - before
+        out.update(stage_s=stage_s, stage_gbps=nbytes / stage_s / 1e9,
+                   breakdown=dict(plane.LAST_STAGE_BREAKDOWN), read_path=staging.read_path(),
+                   stage_peak_model_bytes=plane.LAST_STAGE_PEAK, device_growth_bytes=growth,
+                   plane_calls=plane.STAGE_CALLS - calls)
+        bd = out["breakdown"]
+        say(f"  cold stage: {stage_s:.3f} s, {out['stage_gbps']:.2f} GB/s; breakdown disk_s "
+            f"{bd['disk_s']:.3f} (a page-cache read: the file was just written; "
+            f"{out['read_path']}), h2d_s {bd['h2d_s']:.3f}, dispatch_s {bd['dispatch_s']:.3f}")
+        say(f"  device bytes: plane model {out['stage_peak_model_bytes']}, growth of "
+            f"max_memory_allocated {growth} (volume {nbytes}, limit volume + 2 chunks)")
+        if growth > nbytes + 2 * FED_CHUNK or out["plane_calls"] != 1:
+            fail(f"oim-fed: device growth {growth} > volume + 2 chunks, or "
+                 f"{out['plane_calls']} plane calls for one stage")
+        yard = stage_yardsticks(path, nbytes)
+        halves = (nbytes / (yard["read_gbps"] * 1e9), nbytes / (yard["h2d_gbps"] * 1e9))
+        out.update(yard, bound_s=max(halves), faster_half_s=min(halves),
+                   stage_over_bound=stage_s / max(halves))
+        say(f"  yardsticks, same run: pinned {FED_CHUNK >> 20} MiB H2D {yard['h2d_gbps']:.2f} "
+            f"GB/s (CUDA events); read_into of the file {yard['read_gbps']:.2f} GB/s")
+        say(f"  stage bound {out['bound_s']:.3f} s (the slower half, read or H2D, alone; "
+            f"the faster half takes {out['faster_half_s']:.3f} s): stage / bound "
+            f"{out['stage_over_bound']:.2f}")
+
+        # -- bytes --
+        t0 = time.monotonic()
+        check_volume_bytes(vol.array, path)
+        say(f"  staged tensor equal to the file, byte for byte ({time.monotonic() - t0:.1f} s)")
+
+        # -- cache hit --
+        ptr = vol.array.data_ptr()
+        backend.unstage(vol)
+        calls = plane.STAGE_CALLS
+        hit, out["cache_hit_s"] = run_stage(backend, "oim-fed", params)
+        same = hit.array is not None and hit.array.data_ptr() == ptr
+        say(f"  restage after unstage: {out['cache_hit_s'] * 1e3:.2f} ms, plane calls "
+            f"{plane.STAGE_CALLS - calls}, same storage {same}")
+        if hit.state != StageState.READY or plane.STAGE_CALLS != calls or not same:
+            fail("oim-fed: the restage was not served from the stage cache")
+        backend.unstage(hit)
+
+        # -- cancel, then free --
+        other = CUDABackend(cache_bytes=FED_CACHE, chunk_bytes=FED_CHUNK, keep_cached=False)
+        cvol = StagedVolume("oim-fed-2", b"", ArraySpec())
+        other.stage(cvol, "file", params)
+        while cvol.state == StageState.STAGING and cvol.bytes_staged < FED_CANCEL_AT:
+            time.sleep(0.0005)
+        out["cancel_at_bytes"] = cvol.bytes_staged
+        other.unstage(cvol)
+        cvol.wait()
+        if cvol.state != StageState.FAILED or cvol.error != "unmapped during staging":
+            fail(f"oim-fed: a stage unstaged at {out['cancel_at_bytes']} bytes ended "
+                 f"{cvol.state} {cvol.error!r}")
+        freed = backend.cache.evict_idle()
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        say(f"  unstaged at {out['cancel_at_bytes']} landed bytes: FAILED "
+            f"{cvol.error!r}; evicting the cache freed {freed} bytes; memory_allocated "
+            f"{after} against {base_alloc} before the phase")
+        if after != base_alloc:
+            fail(f"oim-fed: {after - base_alloc} device bytes held after unstage, cancel "
+                 f"and eviction")
+
+        # -- train on the volume --
+        vol, out["restage_s"] = run_stage(backend, "oim-fed", params)
+        if vol.state != StageState.READY:
+            fail(f"oim-fed: the restage ended {vol.state}: {vol.error}")
+    cfg = TrainConfig(model="llama3-8b", model_overrides={"n_layers": LAYERS},
+                      batch_size=BATCH, seq_len=SEQ, warmup_steps=2, total_steps=STEPS,
+                      log_every=1)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.init()
+    feed = volume_token_batches(vol.array, cfg)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    trainer.run(steps=STEPS, data=feed)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    steady = hist[1:] if len(hist) > 1 else hist
+    step_s = sum(r["step_s"] for r in steady) / len(steady)
+    mfu = sum(r["mfu"] for r in steady) / len(steady)
+    feed_wait = sum(r["feed_wait_s"] for r in steady) / len(steady)
+    say(f"  losses {losses}")
+    say(f"  launches {launches}, routes {routes}  (want {LAYERS} x {STEPS} each, all wgmma)")
+    say(f"  step_s {step_s:.4f} (steps 2..{STEPS}), MFU {mfu:.4f}; phase 5's synthetic-batch "
+        f"step_s {synthetic_step_s:.4f}; feed wait {feed_wait * 1e3:.3f} ms a step (a "
+        f"gather of {BATCH} x {SEQ + 1} int32 on the card); wall {wall:.1f} s")
+    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"oim-fed: losses not finite or missing: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0:
+        fail(f"oim-fed: first loss {losses[0]} not near ln(vocab) {math.log(vocab):.3f}")
+    for name, _ in KERNELS:
+        if launches[name] != LAYERS * STEPS or routes[name]["wgmma"] != LAYERS * STEPS:
+            fail(f"oim-fed: {name} launched {launches[name]} times ({routes[name]}), want "
+                 f"{LAYERS * STEPS} on wgmma")
+    out.update(launches=launches, routes=routes, losses=losses, step_s=step_s, mfu=mfu,
+               feed_wait_s=feed_wait, synthetic_step_s=synthetic_step_s)
+    del trainer, feed
+    backend.unstage(vol)
+    backend.cache.evict_idle()
+    del vol
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1035,12 +1329,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    say("== 8. summary")
+    say("== 8. OIM-fed training: a volume staged through CUDABackend feeds the trainer")
+    fed = phase_oim_fed(main["step_s"])
+    for rec in records:
+        rec["oim_fed_launches"] = fed["launches"][rec["name"]]
+
+    say("== 9. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
     say(json.dumps({"serve": {k: v for k, v in serve.items() if k != "profile"},
                     "card": card}))
+    say(json.dumps({"oim_fed": fed, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,12 @@
+"""The controller's data plane (``oim_tpu/controller``): backends that
+stage volumes into host memory (``MallocBackend``) or a CUDA device
+(``CUDABackend``), with the content-addressed stage cache. The gRPC
+``Controller``/``ControllerService`` is not ported yet."""
+
+from oim_tpu_torch.controller.backend import StagedVolume, StageState, StagingBackend
+from oim_tpu_torch.controller.cuda_backend import CUDABackend
+from oim_tpu_torch.controller.malloc_backend import MallocBackend
+from oim_tpu_torch.controller.stagecache import StageCache
+
+__all__ = ["CUDABackend", "MallocBackend", "StageCache", "StageState", "StagedVolume",
+           "StagingBackend"]

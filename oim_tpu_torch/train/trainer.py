@@ -188,7 +188,11 @@ class Trainer:
         self.state = self.init_fn(rng, params)
 
     def place_batch(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
+        """Batch values onto the trainer's device: a tensor already there
+        passes through untouched (a feed gathered from a staged volume),
+        other tensors and numpy arrays are copied over."""
+        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                .to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
     def _sync(self) -> None:
