@@ -3,8 +3,9 @@ NVIDIA H100.
 
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
-                                       # one training step and one decode
-                                       # step into chiprun_out/
+                                       # one llama training step, one decode
+                                       # step and one ResNet step into
+                                       # chiprun_out/
 
 Phases, in order; any failure exits nonzero:
 
@@ -75,10 +76,32 @@ Phases, in order; any failure exits nonzero:
    copy to the card, ``read_into`` of the file alone) and the stage's
    bound from them, the cache-hit time, and step_s and MFU beside phase
    5's; then the ``oim_fed`` JSON line.
-9. the main-path, serve and oim_fed lines and the kernels line (JSON), the
-   card line, and the last line ``{"ok": true, "device": {...}}``. Beside
-   the contract's keys each kernel record has ``oim_fed_launches`` (phase
-   8's launches), ``routes`` (the main path's launches by kernel route,
+9. OIM-fed ResNet-50, bench.py's cell at full width (bench.py:333-342,
+   :426-500): 1024 seeded uint8 images [1024,224,224,3] written raw to a
+   temporary directory, staged through ``CUDABackend`` and checked byte
+   for byte; the Trainer on resnet50 (bf16, batch 128 sliced in place from
+   the staged tensor at bench.py's offsets, 1000 classes) for 8 steps with
+   a checkpoint every 4. It fails unless every loss is finite, the first
+   within 1.0 of ln 1000, every BN running statistic finite and moved, and
+   no K1-K3 kernel launched; then two eval batches in inference mode
+   (finite loss, accuracy in [0, 1], the BN state byte-identical after); a
+   fresh Trainer resumed from the step-4 checkpoint (the step-8 one
+   removed, a partial temporary one left) must restore every tensor byte
+   for byte and repeat steps 5-8's losses within RESNET_REL_TOL; one remat
+   step from a copy of the state must repeat the plain step's loss,
+   grad_norm and updated params within RESNET_REL_TOL and its gradients
+   within RESNET_GRAD_TOL (worst leaf); phase 5's llama with ``--remat`` must launch K1 2 x
+   layers x steps times and K2/K3 layers x steps, all on ``wgmma``, with
+   phase 5's losses within RESNET_REL_TOL. It prints step_s, images/s,
+   MFU, peak memory, the stage, checkpoint save and restore times, and the
+   ``resnet`` JSON line. ``--profile`` adds one profiled ResNet step by
+   category (``chiprun_out/chip_smoke_resnet_profile.json``).
+10. the main-path, serve, oim_fed and resnet lines and the kernels line
+   (JSON), the card line, and the last line ``{"ok": true, "device":
+   {...}}``. Beside the contract's keys each kernel record has
+   ``oim_fed_launches`` (phase 8's launches), ``resnet_launches`` and
+   ``llama_remat_launches`` (phase 9's), ``routes`` (the main path's
+   launches by kernel route,
    e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, ``fma_route_ms`` (the
    CUDA-core kernel on the same inputs) and ``resources`` (registers,
    spills, shared memory and blocks per SM of the route the main path
@@ -376,6 +399,12 @@ def phase_agreement():
         fail(f"llama.tiny on the card disagrees with the CPU: loss {loss_err}, grads {grad_err}")
 
 
+def main_path_argv() -> list[str]:
+    return ["--model", "llama3-8b", "--override", f"n_layers={LAYERS}",
+            "--steps", str(STEPS), "--batch-size", str(BATCH), "--seq-len", str(SEQ),
+            "--warmup-steps", "2", "--log-every", "1", "--log-level", "info"]
+
+
 def phase_main_path(profile: bool) -> dict:
     """Phase 5: the CLI's Trainer at llama3-8b width."""
     layers, steps, batch, seq = LAYERS, STEPS, BATCH, SEQ
@@ -385,9 +414,7 @@ def phase_main_path(profile: bool) -> dict:
     from oim_tpu_torch.cli import oim_trainer
     from oim_tpu_torch.models import llama
 
-    argv = ["--model", "llama3-8b", "--override", f"n_layers={layers}",
-            "--steps", str(steps), "--batch-size", str(batch), "--seq-len", str(seq),
-            "--warmup-steps", "2", "--log-every", "1", "--log-level", "info"]
+    argv = main_path_argv()
     say(f"  python -m oim_tpu_torch.cli.oim_trainer {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -906,6 +933,25 @@ SERVE_CATEGORIES = (
 )
 
 
+def device_ms_by_category(prof, ranges, categories, default) -> dict[str, float]:
+    """Device ms of every kernel, charged to the host op that launched it:
+    to the innermost enclosing ``record_function`` range named in
+    ``ranges``, else to the first category listing the op's name, else to
+    ``default``."""
+    cats: dict[str, float] = {}
+    for ev in prof.events():
+        ms = getattr(ev, "self_device_time_total", 0) / 1e3
+        if str(ev.device_type).endswith("CUDA") or ms <= 0:
+            continue
+        p = ev
+        while p is not None and p.name not in ranges:
+            p = p.cpu_parent
+        cat = p.name if p is not None else next(
+            (c for c, ops in categories if ev.name in ops), default)
+        cats[cat] = cats.get(cat, 0.0) + ms
+    return cats
+
+
 def profile_decode(step) -> dict:
     """One 8-row decode step (with sampling) under torch.profiler: device ms
     by category, each kernel charged to the op that launched it (sampling:
@@ -937,19 +983,8 @@ def profile_decode(step) -> dict:
                 if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
                 and ev.key != "sampling"]
     busy = sum(k[1] for k in kernels_)
-    cats: dict[str, float] = {}
-    for ev in prof.events():
-        ms = getattr(ev, "self_device_time_total", 0) / 1e3
-        if str(ev.device_type).endswith("CUDA") or ms <= 0:
-            continue
-        cat, p = None, ev
-        while p is not None and cat is None:
-            cat = "sampling" if p.name == "sampling" else None
-            p = p.cpu_parent
-        if cat is None:
-            cat = next((c for c, ops in SERVE_CATEGORIES if ev.name in ops),
-                       "elementwise and other")
-        cats[cat] = cats.get(cat, 0.0) + ms
+    cats = device_ms_by_category(prof, ("sampling",), SERVE_CATEGORIES,
+                                 "elementwise and other")
     attributed = sum(cats.values())
     if busy > attributed + 1e-3:
         cats["not attributed to an op"] = busy - attributed
@@ -1245,12 +1280,407 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# -- OIM-fed ResNet-50 (phase 9) ------------------------------------------
+
+# bench.py's OIM-fed cell (bench.py:333-342, :426-500): 1024 uint8 images
+# of 224x224x3 staged as one volume, batch 128 sliced from it in place,
+# 1000 classes, bf16. Nothing is cut.
+RESNET_IMAGES, RESNET_SIZE, RESNET_BATCH, RESNET_CLASSES = 1024, 224, 128, 1000
+RESNET_STEPS, RESNET_CKPT_EVERY = 8, 4
+# Resumed and remat losses against the first run's, relative: the same
+# bf16 arithmetic, but cuDNN's weight-gradient kernels may sum in another
+# order from call to call.
+RESNET_REL_TOL = 1e-3
+# The remat step's bf16 gradients against the plain step's, the worst
+# leaf's relative L2 (one bf16 rounding step is 2^-8 = 3.9e-3 of a value;
+# a block whose backward went wrong reads of order 1).
+RESNET_GRAD_TOL = 1e-2
+
+RESNET_CATEGORIES = (
+    ("convolution (cuDNN)", ("aten::cudnn_convolution", "aten::convolution_backward",
+                             "aten::_convolution", "aten::convolution")),
+    ("pooling, head and loss", ("aten::max_pool2d_with_indices",
+                                "aten::max_pool2d_with_indices_backward", "aten::mean",
+                                "aten::mm", "aten::addmm", "aten::logsumexp",
+                                "aten::gather", "aten::scatter", "aten::scatter_add")),
+)
+
+
+def clone_state(state):
+    """A deep copy of a TrainState on its device, params requiring grad."""
+    from oim_tpu_torch.train.state import OptState, TrainState, tree_leaves
+
+    def c(tree):
+        if isinstance(tree, dict):
+            return {k: c(v) for k, v in tree.items()}
+        return tree.detach().clone()
+
+    params = c(state.params)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = state.opt_state
+    return TrainState(step=state.step, params=params, extra=c(state.extra),
+                      opt_state=OptState(count=opt.count, mu=c(opt.mu), nu=c(opt.nu)))
+
+
+def state_differences(a, b) -> list[str]:
+    """Where two TrainStates differ in any byte (dtype, shape and strides
+    included), the steps and the optimizer's count too."""
+    import torch
+
+    from oim_tpu_torch.train.state import tree_leaves
+
+    diffs = [n for n, x, y in (("step", a.step, b.step),
+                               ("count", a.opt_state.count, b.opt_state.count)) if x != y]
+    for name, x, y in (("params", a.params, b.params), ("extra", a.extra, b.extra),
+                       ("mu", a.opt_state.mu, b.opt_state.mu),
+                       ("nu", a.opt_state.nu, b.opt_state.nu)):
+        xs, ys = list(tree_leaves(x)), list(tree_leaves(y))
+        if len(xs) != len(ys):
+            diffs.append(f"{name}: {len(xs)} leaves against {len(ys)}")
+            continue
+        for i, (s, t) in enumerate(zip(xs, ys)):
+            t = t.to(s.device)
+            if (s.dtype, s.shape, s.stride()) != (t.dtype, t.shape, t.stride()) or \
+                    not torch.equal(s.detach().contiguous().reshape(-1).view(torch.uint8),
+                                    t.detach().contiguous().reshape(-1).view(torch.uint8)):
+                diffs.append(f"{name} leaf {i}")
+    return diffs
+
+
+def phase_resnet(llama_main: dict, profile: bool) -> dict:
+    """Phase 9: bench.py's OIM-fed ResNet-50 through the port's Trainer:
+    stage, train with checkpoints, evaluate, resume, remat; then phase 5's
+    llama with remat."""
+    import dataclasses
+    import gc
+    import itertools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
+    from oim_tpu_torch.data.feeds import SeekableFeed
+    from oim_tpu_torch.models import resnet
+    from oim_tpu_torch.spec import ArraySpec, FileParams
+    from oim_tpu_torch.train import TrainConfig, Trainer
+    from oim_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
+    from oim_tpu_torch.train.state import tree_leaves
+    from oim_tpu_torch.train.trainer import flops_per_step
+
+    n, size, batch = RESNET_IMAGES, RESNET_SIZE, RESNET_BATCH
+    shape = (n, size, size, 3)
+    out: dict = {"model": "resnet50", "images": n, "image_size": size, "batch": batch,
+                 "classes": RESNET_CLASSES, "dtype": "bfloat16",
+                 "params": resnet.num_params(resnet.Config())}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="oim-resnet-") as tmp:
+        # -- stage the volume --
+        path = os.path.join(tmp, "images.raw")
+        host = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+        with open(path, "wb") as f:
+            host.tofile(f)
+            f.flush()
+            os.fsync(f.fileno())
+        backend = CUDABackend()
+        vol = StagedVolume("resnet-images", b"", ArraySpec(shape, "uint8"))
+        t0 = time.monotonic()
+        backend.stage(vol, "file", FileParams(path, "raw"))
+        vol.wait()
+        out["stage_s"] = time.monotonic() - t0
+        out["volume_bytes"] = host.nbytes
+        if vol.state != StageState.READY:
+            fail(f"resnet: the stage ended {vol.state}: {vol.error}")
+        images = vol.array
+        exact = (tuple(images.shape) == shape and images.dtype == torch.uint8
+                 and torch.equal(images, torch.from_numpy(host).to(images.device)))
+        say(f"  staged {n} uint8 images [{n},{size},{size},3] ({host.nbytes} bytes) in "
+            f"{out['stage_s']:.3f} s ({host.nbytes / out['stage_s'] / 1e9:.2f} GB/s); equal "
+            f"to the file byte for byte: {exact}")
+        if not exact:
+            fail("resnet: the staged images differ from the file")
+        del host
+        labels = torch.from_numpy(np.random.RandomState(0).randint(0, RESNET_CLASSES, n)).to(
+            images.device, torch.int32)
+
+        def batches(start):
+            """bench.py's one_step slices of the staged volume, batch start on."""
+            for i in itertools.count(start):
+                lo = (i * batch) % (n - batch + 1)
+                yield {"images": images[lo:lo + batch], "labels": labels[lo:lo + batch]}
+
+        # -- train, checkpointing every RESNET_CKPT_EVERY steps --
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        cfg = TrainConfig(model="resnet50", batch_size=batch, image_size=size,
+                          num_classes=RESNET_CLASSES, warmup_steps=2,
+                          total_steps=RESNET_STEPS, log_every=1, checkpoint_dir=ckpt_dir,
+                          checkpoint_every=RESNET_CKPT_EVERY)
+        trainer = Trainer(cfg, device="cuda")
+        trainer.init()
+        init_extra = [t.clone() for t in tree_leaves(trainer.state.extra)]
+        feed = SeekableFeed(batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        trainer.run(steps=RESNET_CKPT_EVERY, data=feed)
+        saved = clone_state(trainer.state)  # what the step-4 checkpoint holds
+        trainer.run(steps=RESNET_STEPS, data=feed)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = trainer.history
+        losses = [r["loss"] for r in hist]
+        steady = hist[1:]
+        step_s = sum(r["step_s"] for r in steady) / len(steady)
+        mfu = sum(r["mfu"] for r in steady) / len(steady)
+        extra = list(tree_leaves(trainer.state.extra))
+        moved = sum(not torch.equal(a, b) for a, b in zip(init_extra, extra))
+        finite = all(bool(t.isfinite().all()) for t in extra)
+        say(f"  losses {[round(x, 4) for x in losses]}  (ln {RESNET_CLASSES} = "
+            f"{math.log(RESNET_CLASSES):.3f})")
+        say(f"  BN running statistics: {moved} of {len(extra)} leaves moved from their init, "
+            f"all finite {finite}; K1-K3 launches {launches} (want 0)")
+        say(f"  step_s {step_s:.4f} (steps 2..{RESNET_STEPS}; step 1 {hist[0]['step_s']:.4f})  "
+            f"images/s {batch / step_s:.1f}  MFU {mfu:.4f} of 989e12 "
+            f"({flops_per_step(cfg) / 1e12:.3f} TFLOP a step: 3 x 4.1e9 x {batch})  "
+            f"peak mem {peak_gb:.2f} GB  wall {wall:.1f} s")
+        if len(losses) != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
+            fail(f"resnet: losses not finite or missing: {losses}")
+        if abs(losses[0] - math.log(RESNET_CLASSES)) > 1.0:
+            fail(f"resnet: first loss {losses[0]} not within 1.0 of ln {RESNET_CLASSES}")
+        if not finite or moved != len(extra):
+            fail(f"resnet: BN statistics not finite ({finite}) or {len(extra) - moved} "
+                 f"leaves never moved")
+        if any(launches.values()):
+            fail(f"resnet: the ResNet path launched attention kernels: {launches}")
+        out.update(losses=losses, step_s=step_s, images_per_s=batch / step_s, mfu=mfu,
+                   step1_s=hist[0]["step_s"], flops_per_step=flops_per_step(cfg),
+                   peak_mem_gb=peak_gb, train_wall_s=wall, launches=launches)
+
+        # -- eval --
+        before = [t.clone() for t in tree_leaves(trainer.state.extra)]
+        eval_loss = trainer.evaluate(batches(RESNET_STEPS), 2)
+        acc = trainer.last_eval_stats["accuracy"]
+        untouched = all(torch.equal(a, b) for a, b in
+                        zip(before, tree_leaves(trainer.state.extra)))
+        say(f"  eval, 2 batches in inference mode: loss {eval_loss:.4f}, accuracy {acc:.4f}; "
+            f"BN state byte-identical after: {untouched}")
+        if not (math.isfinite(eval_loss) and 0.0 <= acc <= 1.0 and untouched):
+            fail(f"resnet: eval loss {eval_loss}, accuracy {acc}, state untouched {untouched}")
+        out["eval"] = {"loss": eval_loss, "accuracy": acc}
+
+        # -- resume from step 4 --
+        # As if the run had been cut after its step-4 checkpoint, during
+        # the save of step 8: no step-8 directory, a partial temporary one.
+        shutil.rmtree(os.path.join(ckpt_dir, str(RESNET_STEPS)))
+        os.makedirs(os.path.join(ckpt_dir, f".tmp-{RESNET_STEPS}-0"))
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, str(RESNET_CKPT_EVERY), STATE_FILE))
+        resumed = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        start = resumed.init_or_resume()
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        diffs = state_differences(saved, resumed.state)
+        say(f"  resume: init_or_resume() -> {start} in {restore_s:.3f} s from a "
+            f"{ckpt_bytes / 1e6:.1f} MB checkpoint; restored state differs from the saved "
+            f"one in {len(diffs)} places {diffs[:5]}")
+        if start != RESNET_CKPT_EVERY or diffs:
+            fail(f"resnet: resumed at {start} (want {RESNET_CKPT_EVERY}), or the restored "
+                 f"state differs: {diffs[:10]}")
+        del saved
+        feed = SeekableFeed(batches)
+        feed.seek(start)
+        resumed.run(steps=RESNET_STEPS, data=feed)
+        rlosses = [r["loss"] for r in resumed.history]
+        rel = [abs(a - b) / abs(b) for a, b in zip(rlosses, losses[start:])]
+        say(f"  resumed steps {start + 1}..{RESNET_STEPS}: losses "
+            f"{[round(x, 4) for x in rlosses]}, largest relative difference from the first "
+            f"run {max(rel):.2e} (limit {RESNET_REL_TOL})")
+        if len(rlosses) != RESNET_STEPS - start or not max(rel) <= RESNET_REL_TOL:
+            fail(f"resnet: resumed losses {rlosses} against {losses[start:]}")
+        timing = Checkpointer(os.path.join(tmp, "timing"))
+        t0 = time.monotonic()
+        timing.save(RESNET_STEPS, resumed.state, wait=True)
+        save_s = time.monotonic() - t0
+        say(f"  checkpoint: {ckpt_bytes} bytes; save {save_s:.3f} s (snapshot to the host "
+            f"and write, fsync and rename), restore {restore_s:.3f} s")
+        out["checkpoint"] = {"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+                             "resumed_at": start, "resumed_losses": rlosses,
+                             "max_rel_diff": max(rel)}
+
+        # -- remat: one step from a copy of the same state, the same batch --
+        # Plain twice (the card's run-to-run spread), then remat. The loss
+        # is the forward's, which remat leaves alone; the gradients that
+        # reach the optimizer, their norm and the params after the update
+        # are what the recomputation could get wrong.
+        base = resumed.state
+        del trainer
+        one_batch = next(batches(RESNET_STEPS))
+        steps = {}
+        for name, remat in (("plain", False), ("plain again", False), ("remat", True)):
+            t = Trainer(dataclasses.replace(cfg, remat=remat, checkpoint_dir=""), device="cuda")
+            t.state = clone_state(base)
+            seen = []
+            update = t.tx.update
+
+            def keep_grads(grads, *rest, update=update, seen=seen):
+                seen.extend(tree_leaves(grads))
+                return update(grads, *rest)
+
+            t.tx.update = keep_grads
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t.state, stats = t.step_fn(t.state, one_batch)
+            loss = float(stats["loss"])
+            torch.cuda.synchronize()
+            steps[name] = {"loss": loss, "grad_norm": float(stats["grad_norm"]),
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "above_state_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                           "grads": [g.float().cpu() for g in seen],
+                           "params": [p.detach().float().cpu()
+                                      for p in tree_leaves(t.state.params)]}
+            del t, stats, seen
+        plain, again, rm = steps["plain"], steps["plain again"], steps["remat"]
+
+        def rel(a, b):
+            return abs(a - b) / abs(b)
+
+        def worst_leaf(key, run):
+            return max(float((x - y).norm() / y.norm()) for x, y in zip(run[key], plain[key]))
+
+        readings = {run: {"loss": rel(steps[run]["loss"], plain["loss"]),
+                          "grad_norm": rel(steps[run]["grad_norm"], plain["grad_norm"]),
+                          "grads": worst_leaf("grads", steps[run]),
+                          "params": worst_leaf("params", steps[run])}
+                    for run in ("plain again", "remat")}
+        say(f"  remat: one step from one state and batch: loss {rm['loss']:.6f} against "
+            f"{plain['loss']:.6f} without, grad_norm {rm['grad_norm']:.6f} against "
+            f"{plain['grad_norm']:.6f}; relative differences from the plain step (grads and "
+            f"params: the worst leaf, L2): remat {readings['remat']}, plain again "
+            f"{readings['plain again']}; peak memory {rm['peak_mem_gb']:.2f} GB against "
+            f"{plain['peak_mem_gb']:.2f} ({rm['above_state_gb']:.2f} against "
+            f"{plain['above_state_gb']:.2f} GB above the state)")
+        limits = {"loss": RESNET_REL_TOL, "grad_norm": RESNET_REL_TOL,
+                  "grads": RESNET_GRAD_TOL, "params": RESNET_REL_TOL}
+        over = {k: v for k, v in readings["remat"].items() if not v <= limits[k]}
+        if len(rm["grads"]) != len(plain["grads"]) or not rm["grads"] or over:
+            fail(f"resnet: the remat step differs from the plain one: {over} "
+                 f"(limits {limits}; {len(rm['grads'])} gradient leaves against "
+                 f"{len(plain['grads'])})")
+        out["remat"] = {"loss": rm["loss"], "plain_loss": plain["loss"],
+                        "grad_norm": rm["grad_norm"], "plain_grad_norm": plain["grad_norm"],
+                        "rel_diff": readings["remat"], "plain_again_rel_diff":
+                        readings["plain again"], "peak_mem_gb": rm["peak_mem_gb"],
+                        "plain_peak_mem_gb": plain["peak_mem_gb"],
+                        "above_state_gb": rm["above_state_gb"],
+                        "plain_above_state_gb": plain["above_state_gb"]}
+        del steps, plain, again, rm
+        if profile:
+            out["profile"] = profile_resnet_step(resumed, one_batch)
+        del resumed, base, feed, images, labels, one_batch
+        backend.unstage(vol)
+        del vol
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 5's llama with remat --
+    argv = main_path_argv() + ["--remat"]
+    say(f"  python -m oim_tpu_torch.cli.oim_trainer {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer = oim_trainer.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    llosses = [r["loss"] for r in trainer.history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(llosses, llama_main["losses"])]
+    want = {"flash_fwd": 2 * LAYERS * STEPS, "flash_bwd_dkv": LAYERS * STEPS,
+            "flash_bwd_dq": LAYERS * STEPS}
+    say(f"  losses {llosses}; largest relative difference from phase 5's {max(rel):.2e}")
+    say(f"  launches {launches} (want {want}: the forward runs again in the backward), "
+        f"routes {routes}")
+    say(f"  peak memory {peak_gb:.2f} GB against phase 5's {llama_main['peak_mem_gb']:.2f} GB")
+    if len(llosses) != STEPS or not max(rel) <= RESNET_REL_TOL:
+        fail(f"llama remat: losses {llosses} against phase 5's {llama_main['losses']}")
+    for name, count in want.items():
+        if launches[name] != count or routes[name]["wgmma"] != count:
+            fail(f"llama remat: {name} launched {launches[name]} times ({routes[name]}), "
+                 f"want {count} on wgmma")
+    out["llama_remat"] = {"losses": llosses, "max_rel_diff": max(rel), "launches": launches,
+                          "routes": routes, "peak_mem_gb": peak_gb,
+                          "plain_peak_mem_gb": llama_main["peak_mem_gb"]}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_resnet_step(trainer, batch) -> dict:
+    """One more ResNet step under torch.profiler: device ms by category
+    (convolutions, batch norm and elementwise, the optimizer, the rest),
+    the top kernels and the idle share; written to
+    chiprun_out/chip_smoke_resnet_profile.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    update = trainer.tx.update
+
+    def traced_update(*a):
+        with record_function("optimizer (AdamW)"):
+            return update(*a)
+
+    trainer.tx.update = traced_update
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            trainer.state, stats = trainer.step_fn(trainer.state, batch)
+            float(stats["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        trainer.tx.update = update
+    kernels_ = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+                for ev in prof.key_averages()
+                if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
+                and not ev.key.startswith("optimizer")]
+    busy = sum(k[1] for k in kernels_)
+    cats = device_ms_by_category(prof, ("optimizer (AdamW)",), RESNET_CATEGORIES,
+                                 "batch norm, ReLU and elementwise")
+    attributed = sum(cats.values())
+    if busy > attributed + 1e-3:
+        cats["not attributed to an op"] = busy - attributed
+    idle = max(0.0, 1 - busy / wall_ms)
+    launches = sum(k[2] for k in kernels_)
+    say(f"  profiled ResNet step: wall {wall_ms:.1f} ms (the profiler's host work included), "
+        f"device busy {busy:.1f} ms, idle share {idle:.3f}; {launches} kernel launches")
+    for cat, ms in sorted(cats.items(), key=lambda c: -c[1]):
+        say(f"    {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}  {cat}")
+    for key, ms, count in sorted(kernels_, key=lambda k: -k[1])[:12]:
+        say(f"    {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    result = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle,
+              "kernel_launches": launches, "categories": cats, "kernels": kernels_}
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "chip_smoke_resnet_profile.json").write_text(json.dumps(result, indent=1))
+    return result
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more training step and one decode step "
-                         "(torch.profiler)")
+                    help="profile one more llama training step, one decode step "
+                         "and one ResNet step (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -1334,13 +1764,21 @@ def main() -> int:
     for rec in records:
         rec["oim_fed_launches"] = fed["launches"][rec["name"]]
 
-    say("== 9. summary")
+    say("== 9. OIM-fed ResNet-50: bench.py's cell through the trainer")
+    res = phase_resnet(main, args.profile)
+    for rec in records:
+        rec["resnet_launches"] = res["launches"][rec["name"]]
+        rec["llama_remat_launches"] = res["llama_remat"]["launches"][rec["name"]]
+
+    say("== 10. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
     say(json.dumps({"serve": {k: v for k, v in serve.items() if k != "profile"},
                     "card": card}))
     say(json.dumps({"oim_fed": fed, "card": card}))
+    say(json.dumps({"resnet": {k: v for k, v in res.items() if k != "profile"},
+                    "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,24 +1,42 @@
-"""oim-trainer for the port: llama training on synthetic batches, on one
-CUDA device (``oim_tpu/cli/oim_trainer.py``'s synthetic path).
+"""oim-trainer for the port: llama or ResNet-50 training on synthetic
+batches, on one CUDA device (``oim_tpu/cli/oim_trainer.py``'s synthetic
+path), with evaluation, checkpoint/resume, remat and a profiler trace.
 
     python -m oim_tpu_torch.cli.oim_trainer --model llama3-8b \\
         --override n_layers=2 --steps 5 --batch-size 2 --seq-len 2048
+    python -m oim_tpu_torch.cli.oim_trainer --model resnet50 --steps 20 \\
+        --batch-size 128 --checkpoint-dir ckpt --checkpoint-every 10 \\
+        --eval-every 10 --eval-steps 2
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the same step
-with the kernels' plain versions. The OIM-fed feed, webdataset input,
-checkpointing and multi-GPU meshes are not ported yet.
+with the kernels' plain versions. Checkpoints are the port's own format,
+not orbax's: the JAX trainer cannot resume from them, nor this one from
+the JAX trainer's. The feeder, registry and volume flags (the OIM-fed
+feed), webdataset input and multi-GPU meshes are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from oim_tpu_torch.common import logging as oimlog
+from oim_tpu_torch.common.profiling import profile_trace
+from oim_tpu_torch.data.augment import augment_batches
 from oim_tpu_torch.train import TrainConfig, Trainer
+from oim_tpu_torch.train.trainer import synthetic_batches
+
+# The JAX CLI's augmentation seed for shuffle seed 0 on process 0:
+# (shuffle_seed + 1) * 1_000_003 + process_index.
+AUGMENT_SEED = 1_000_003
 
 
 def _parse_value(val: str):
+    low = val.lower()
+    if low in ("true", "false"):
+        # A string "false" would be truthy in a bool field.
+        return low == "true"
     for cast in (int, float):
         try:
             return cast(val)
@@ -29,19 +47,40 @@ def _parse_value(val: str):
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("oim-trainer (torch)")
-    p.add_argument("--model", default="llama-tiny", choices=("llama-tiny", "llama3-8b"))
+    p.add_argument("--model", default="llama-tiny",
+                   choices=("llama-tiny", "llama3-8b", "resnet50"))
     p.add_argument("--override", "--model-override", dest="override", action="append",
                    default=[], metavar="KEY=VALUE",
                    help="override a model-config field (repeatable), e.g. "
-                        "--override n_layers=2; ints/floats parsed")
+                        "--override n_layers=2; ints/floats/booleans parsed")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute activations in the backward pass "
+                        "(fit bigger models/batches in memory)")
+    p.add_argument("--remat-policy", default="",
+                   choices=("", "dots", "dots_with_no_batch_dims", "nothing"),
+                   help="what remat may SAVE: 'dots' keeps matmul outputs and "
+                        "recomputes only elementwise work (llama only)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation microbatches per update")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup-steps", type=int, default=100)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="run a forward-only eval pass every N steps on a "
+                        "held-out synthetic stream")
+    p.add_argument("--eval-steps", type=int, default=8, help="batches per eval pass")
+    p.add_argument("--augment", action="store_true",
+                   help="host-side random flip + crop on image batches")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace of the train loop into "
+                        "this directory")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
@@ -58,26 +97,40 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             raise SystemExit(f"--override {item!r}: expected KEY=VALUE")
         overrides[key] = _parse_value(val)
     return TrainConfig(
-        model=args.model, accum_steps=args.accum_steps, batch_size=args.batch_size,
-        seq_len=args.seq_len, lr=args.lr, warmup_steps=args.warmup_steps,
-        total_steps=args.steps, log_every=args.log_every, seed=args.seed, model_overrides=overrides)
+        model=args.model, remat=args.remat, remat_policy=args.remat_policy,
+        accum_steps=args.accum_steps, batch_size=args.batch_size, seq_len=args.seq_len,
+        image_size=args.image_size, num_classes=args.num_classes, lr=args.lr,
+        warmup_steps=args.warmup_steps, total_steps=args.steps, log_every=args.log_every,
+        checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+        eval_every=args.eval_every, eval_steps=args.eval_steps, seed=args.seed,
+        model_overrides=overrides)
 
 
 def run(argv: list[str] | None = None) -> Trainer:
     """Parse flags, build the Trainer, run it; returns the Trainer (its
-    ``history`` holds every logged step)."""
+    ``history`` holds every logged step and eval pass)."""
     args = parse_args(argv)
     oimlog.set_global(oimlog.Logger(level=oimlog.parse_level(args.log_level),
                                     fmt=args.log_format))
-    trainer = Trainer(config_from_args(args), device=args.device)
-    trainer.run(steps=args.steps)
+    cfg = config_from_args(args)
+    trainer = Trainer(cfg, device=args.device)
+    data = eval_data = None
+    if args.augment:
+        if args.eval_every:
+            # The augmented stream is no longer the Trainer's own default,
+            # so the held-out stream is built here, as run() would.
+            eval_data = synthetic_batches(dataclasses.replace(cfg, seed=cfg.seed + 10_000))
+        data = augment_batches(synthetic_batches(cfg), seed=AUGMENT_SEED)
+    with profile_trace(args.profile):
+        trainer.run(steps=args.steps, data=data, eval_data=eval_data)
     return trainer
 
 
 def main(argv: list[str] | None = None) -> int:
     trainer = run(argv)
+    losses = [r["loss"] for r in trainer.history if "loss" in r]
     oimlog.from_context().info("done", steps=trainer.state.step,
-                               loss=trainer.history[-1]["loss"])
+                               loss=losses[-1] if losses else None)
     return 0
 
 

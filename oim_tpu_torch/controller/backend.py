@@ -106,19 +106,31 @@ _DTYPES = {
     "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
     "int16": torch.int16, "uint16": torch.uint16, "int32": torch.int32,
     "uint32": torch.uint32, "int64": torch.int64, "uint64": torch.uint64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "float32": torch.float32, "float64": torch.float64,
     "complex64": torch.complex64, "complex128": torch.complex128,
 }
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype named ``name``; ValueError for any other name."""
+    """The torch dtype of a numpy dtype name or spelling ("float32", "f4",
+    "<f4", "i4", "float"), resolved by ``np.dtype`` as the JAX package
+    does; "bfloat16" by name. ValueError for a name numpy does not know,
+    a dtype torch lacks and a non-native byte order."""
+    if name == "bfloat16":
+        return torch.bfloat16
     try:
-        return _DTYPES[name]
+        dtype = np.dtype(name)
+    except TypeError:
+        raise ValueError(f"dtype {name!r} has no torch dtype the port stages "
+                         "(numpy does not know the name)") from None
+    if not dtype.isnative:
+        raise ValueError(f"dtype {name!r} has no torch dtype the port stages: "
+                         f"{dtype.str} is not in native byte order")
+    try:
+        return _DTYPES[dtype.name]
     except KeyError:
         raise ValueError(f"dtype {name!r} has no torch dtype the port stages "
-                         f"(known: {', '.join(_DTYPES)})") from None
+                         f"(known: bfloat16, {', '.join(_DTYPES)})") from None
 
 
 def numpy_to_torch_dtype(dtype: np.dtype) -> torch.dtype:

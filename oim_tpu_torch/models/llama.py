@@ -8,10 +8,11 @@ default attention is ``ops.attention.attention``: the Hopper flash kernels
 on CUDA, their plain versions on the CPU. bf16 params and activations;
 logits, softmax statistics and loss in f32.
 
-Mixture-of-Experts, rematerialization, the pipelined losses and sequence
-parallelism are not ported yet: ``Config`` keeps their fields so configs
-compare field for field, and ``check_supported`` refuses a config that
-sets one.
+``remat`` recomputes each layer in the backward pass under
+``remat_policy`` (``models/remat.py``). Mixture-of-Experts, the pipelined
+losses and sequence parallelism are not ported yet: ``Config`` keeps the
+MoE fields so configs compare field for field, and ``check_supported``
+refuses a config that sets one.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from oim_tpu_torch.models import remat as rematlib
 from oim_tpu_torch.ops.attention import attention as default_attention
 from oim_tpu_torch.ops.losses import chunked_softmax_cross_entropy, softmax_cross_entropy
 from oim_tpu_torch.ops.norms import rmsnorm
@@ -41,13 +43,14 @@ class Config:
     max_seq: int = 8192
     rope_theta: float = 500000.0
     dtype: Any = torch.bfloat16
-    # Not ported yet (check_supported refuses non-defaults): MoE FFN,
-    # rematerialization.
+    # Not ported yet (check_supported refuses n_experts > 0): MoE FFN.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     moe_dispatch: str = "gather"
+    # Recompute each layer in the backward pass; the policy names what
+    # may be kept ("", "dots", "dots_with_no_batch_dims", "nothing").
     remat: bool = False
     remat_policy: str = ""
     # vocab_chunk > 0: the training loss never materializes [B, T, vocab].
@@ -81,8 +84,8 @@ def check_supported(cfg: Config) -> None:
     """Refuse what the port does not run yet, instead of ignoring it."""
     if cfg.n_experts:
         raise NotImplementedError("MoE (n_experts > 0) is not ported yet")
-    if cfg.remat or cfg.remat_policy:
-        raise NotImplementedError("remat is not ported yet")
+    if cfg.remat:
+        rematlib.check_policy(cfg.remat_policy)
 
 
 def _dense(rng: torch.Generator, shape, dtype, scale, device):
@@ -159,8 +162,12 @@ def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
     layers = params["layers"]
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer(x, {name: w[i] for name, w in layers.items()}, cfg,
-                      cos, sin, attn_fn)
+        layer = {name: w[i] for name, w in layers.items()}
+        if cfg.remat:
+            x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn,
+                                       policy=cfg.remat_policy)
+        else:
+            x, a = _layer(x, layer, cfg, cos, sin, attn_fn)
         aux = aux + a
     return rmsnorm(x, params["final_norm"]), aux
 

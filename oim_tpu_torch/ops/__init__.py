@@ -10,11 +10,16 @@ from oim_tpu_torch.ops.attention import (
     mha_reference,
     ref_attention_lse,
 )
-from oim_tpu_torch.ops.losses import chunked_softmax_cross_entropy, softmax_cross_entropy
+from oim_tpu_torch.ops.losses import (
+    accuracy,
+    chunked_softmax_cross_entropy,
+    softmax_cross_entropy,
+)
 from oim_tpu_torch.ops.norms import rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 __all__ = [
+    "accuracy",
     "apply_rope",
     "attention",
     "attention_with_lse",

@@ -38,6 +38,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return _masked_mean(nll, labels, ignore_index)
 
 
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean top-1 accuracy as an f32 scalar."""
+    return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
+
+
 def _chunk_bounds(vocab: int, vocab_chunk: int):
     """(start, stop) column ranges; the last chunk is narrower when the
     vocab is not a multiple of the chunk. The JAX package zero-pads

@@ -36,6 +36,9 @@ class TrainState:
     step: int
     params: dict
     opt_state: OptState
+    # The model's mutable state, carried by the step with no gradient
+    # through it: {} for llama, the BN running statistics for ResNet.
+    extra: dict = dataclasses.field(default_factory=dict)
 
 
 def tree_leaves(tree):

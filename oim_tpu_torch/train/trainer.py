@@ -1,15 +1,19 @@
-"""The trainer (``oim_tpu/train/trainer.py``): a single-device train step
-and the loop that logs loss, grad_norm, step_s and mfu.
+"""The trainer (``oim_tpu/train/trainer.py``): a single-device train step,
+its evaluation, and the loop that logs loss, grad_norm, step_s and mfu,
+evaluates and checkpoints.
 
-Ported so far: ``TrainConfig`` for the llama models, ``make_train_step``
-with rules "dp" on one device and gradient accumulation,
-``synthetic_batches`` (the same numpy stream as the JAX package),
-``flops_per_step``, ``peak_flops_per_device`` (keyed on the CUDA device
-name) and ``Trainer.run``. Checkpointing, meshes, remat, evaluation and
-profiling are not ported yet, and ``TrainConfig`` has no fields for them.
+Ported: ``TrainConfig`` for the llama models and resnet50 (with remat and
+its policies), ``make_train_step`` with rules "dp" on one device and
+gradient accumulation, ``synthetic_batches`` (the same numpy streams as
+the JAX package), ``flops_per_step``, ``peak_flops_per_device`` and
+``peak_hbm_bw_per_device`` (keyed on the CUDA device name), and
+``Trainer`` with ``init_or_resume``, ``evaluate`` and ``run``. Meshes
+(fsdp, tp_sp, pipe), MoE and the metrics gauges are not ported yet.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, then the optimizer's in-place update.
+Checkpoints are the port's own format (``train/checkpoint.py``), not
+orbax's.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
-from oim_tpu_torch.models import llama
+from oim_tpu_torch.models import llama, resnet
+from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
+from oim_tpu_torch.train.checkpoint import Checkpointer
 from oim_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -30,52 +37,89 @@ from oim_tpu_torch.train.state import (
     tree_unflatten,
 )
 
-# Peak dense bf16 FLOP/s per device for MFU accounting, matched against
-# torch.cuda.get_device_name() in order (NVIDIA data sheets; the PCIe
-# H100 before the SXM part, whose name it contains).
+# Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
+# roofline accounting, matched against torch.cuda.get_device_name() in
+# order (NVIDIA data sheets; the PCIe H100 before the SXM part, whose
+# name it contains).
 PEAK_FLOPS = (
     ("h100 pcie", 756e12),
     ("h100", 989e12),
     ("h200", 989e12),
 )
+PEAK_HBM_BW = (
+    ("h100 pcie", 2.0e12),
+    ("h100", 3.35e12),
+    ("h200", 4.8e12),
+)
 
 
-def peak_flops_per_device(device="cuda") -> float:
-    """Peak bf16 FLOP/s of ``device``; 0.0 for a CPU or an unknown card."""
+def _lookup_peak(table, device) -> float:
     device = torch.device(device)
     if device.type != "cuda":
         return 0.0
     name = torch.cuda.get_device_name(device).lower()
-    for key, val in PEAK_FLOPS:
+    for key, val in table:
         if key in name:
             return val
     return 0.0
 
 
+def peak_flops_per_device(device="cuda") -> float:
+    """Peak bf16 FLOP/s of ``device``; 0.0 for a CPU or an unknown card."""
+    return _lookup_peak(PEAK_FLOPS, device)
+
+
+def peak_hbm_bw_per_device(device="cuda") -> float:
+    """Peak HBM bytes/s of ``device``; 0.0 for a CPU or an unknown card.
+    A bandwidth-bound model (ResNet in bf16) is judged by this share."""
+    return _lookup_peak(PEAK_HBM_BW, device)
+
+
 @dataclasses.dataclass
 class TrainConfig:
-    model: str = "llama-tiny"  # llama-tiny | llama3-8b
+    model: str = "llama-tiny"  # llama-tiny | llama3-8b | resnet50
     rules: str = "dp"  # only "dp" on one device is ported
+    remat: bool = False  # recompute activations in bwd (fit big configs)
+    remat_policy: str = ""  # "", "dots", "dots_with_no_batch_dims", "nothing"
     accum_steps: int = 1  # gradient accumulation: split the batch, one update
     batch_size: int = 8
     seq_len: int = 128
+    image_size: int = 224
+    num_classes: int = 1000
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000
     weight_decay: float = 0.1
     log_every: int = 10
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    eval_every: int = 0  # run an eval pass every N steps (0 = off)
+    eval_steps: int = 8  # batches per eval pass
     seed: int = 0
     # dataclasses.replace overrides applied to the named model's config
     # (e.g. a tiny-depth llama3-8b for dryruns: full vocab, 2 layers).
     model_overrides: dict = dataclasses.field(default_factory=dict)
 
-    def model_config(self) -> llama.Config:
+    def model_config(self):
         if self.model == "llama-tiny":
             mcfg = llama.tiny()
         elif self.model == "llama3-8b":
             mcfg = llama.LLAMA3_8B
+        elif self.model == "resnet50":
+            mcfg = resnet.Config(num_classes=self.num_classes)
         else:
-            raise ValueError(f"unknown model {self.model!r} (ported: llama-tiny, llama3-8b)")
+            raise ValueError(f"unknown model {self.model!r} "
+                             "(ported: llama-tiny, llama3-8b, resnet50)")
+        if self.remat_policy and not self.remat:
+            raise ValueError(
+                "remat_policy without remat does nothing — pass remat=True "
+                "(--remat) to enable policy-limited rematerialization")
+        if self.remat:
+            mcfg = dataclasses.replace(mcfg, remat=True)
+            if self.remat_policy:
+                if not hasattr(mcfg, "remat_policy"):
+                    raise ValueError(f"model {self.model!r} does not support remat_policy")
+                mcfg = dataclasses.replace(mcfg, remat_policy=self.remat_policy)
         if self.model_overrides:
             mcfg = dataclasses.replace(mcfg, **self.model_overrides)
         return mcfg
@@ -83,52 +127,85 @@ class TrainConfig:
     def check_supported(self) -> None:
         if self.rules != "dp":
             raise NotImplementedError(f"rules {self.rules!r}: only 'dp' is ported")
-        llama.check_supported(self.model_config())
+        mcfg = self.model_config()
+        if self.model.startswith("llama"):
+            llama.check_supported(mcfg)
 
 
-def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable]:
-    """Returns (step_fn, init_fn).
+def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable, Callable]:
+    """Returns (step_fn, init_fn, eval_fn).
 
-    ``init_fn(rng, params=None)`` builds the TrainState: params drawn from
-    the torch.Generator ``rng`` on ``device``, or the given params.
-    ``step_fn(state, batch)`` runs one update in place and returns
-    (state, stats) with stats["loss"] and stats["grad_norm"] as f32
-    scalars on the device.
+    ``init_fn(rng, params=None, extra=None)`` builds the TrainState:
+    params (and the model's mutable state) drawn from the torch.Generator
+    ``rng`` on ``device``, or the given ones. ``step_fn(state, batch)``
+    runs one update in place and returns (state, stats) with
+    stats["loss"] and stats["grad_norm"] as f32 scalars on the device.
+    ``eval_fn(state, batch)`` is the forward-only stats: no gradient, no
+    update, the model in inference mode (ResNet: running BN statistics,
+    the state untouched, and its accuracy).
     """
     cfg.check_supported()
     mcfg = cfg.model_config()
     accum = max(1, cfg.accum_steps)
 
-    def init_fn(rng: torch.Generator | None, params=None) -> TrainState:
+    if cfg.model.startswith("llama"):
+        def init_params(rng):
+            return llama.init(rng, mcfg, device=device), {}
+
+        def loss_fn(params, extra, batch):
+            loss, stats = llama.loss_and_stats(params, batch["tokens"], mcfg)
+            return loss, extra, stats
+
+        def eval_stats(params, extra, batch):
+            loss, _, stats = loss_fn(params, extra, batch)
+            return {"loss": loss, **stats}
+    else:
+        def init_params(rng):
+            return resnet.init(rng, mcfg, device=device)
+
+        def loss_fn(params, extra, batch):
+            logits, new_extra = resnet.apply(params, extra, batch["images"], mcfg,
+                                             training=True)
+            return softmax_cross_entropy(logits, batch["labels"]), new_extra, {}
+
+        def eval_stats(params, extra, batch):
+            logits, _ = resnet.apply(params, extra, batch["images"], mcfg, training=False)
+            return {"loss": softmax_cross_entropy(logits, batch["labels"]),
+                    "accuracy": accuracy(logits, batch["labels"])}
+
+    def init_fn(rng: torch.Generator | None, params=None, extra=None) -> TrainState:
         if params is None:
-            params = llama.init(rng, mcfg, device=device)
+            params, extra = init_params(rng)
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        return TrainState(step=0, params=params, opt_state=tx.init(params))
+        return TrainState(step=0, params=params, opt_state=tx.init(params),
+                          extra={} if extra is None else extra)
 
-    def grads_of(params, tokens):
+    def grads_of(params, extra, batch):
         leaves = list(tree_leaves(params))
-        loss, stats = llama.loss_and_stats(params, tokens, mcfg)
+        loss, new_extra, stats = loss_fn(params, extra, batch)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), stats, grads
+        return loss.detach(), new_extra, stats, grads
 
     def step_fn(state: TrainState, batch: dict):
-        tokens = batch["tokens"]
         leaves = list(tree_leaves(state.params))
         if accum == 1:
-            loss, stats, grads = grads_of(state.params, tokens)
+            loss, extra, stats, grads = grads_of(state.params, state.extra, batch)
         else:
-            if tokens.shape[0] % accum:
-                raise ValueError(f"batch {tokens.shape[0]} not divisible by "
-                                 f"accum_steps {accum}")
+            n = next(iter(batch.values())).shape[0]
+            if n % accum:
+                raise ValueError(f"batch {n} not divisible by accum_steps {accum}")
             # Accumulate in f32 (a bf16 accumulator drops low bits every
-            # add), average, cast back to the param dtype.
+            # add), average, cast back to the param dtype. The model's
+            # state runs through the microbatches in order.
             gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                     for p in leaves]
             loss_sum = 0.0
             stats_sum: dict = {}
-            for mb in tokens.chunk(accum):
-                loss, mstats, grads = grads_of(state.params, mb)
+            extra = state.extra
+            for parts in zip(*(v.chunk(accum) for v in batch.values())):
+                loss, extra, mstats, grads = grads_of(state.params, extra,
+                                                      dict(zip(batch, parts)))
                 for a, g in zip(gsum, grads):
                     a += g.float()
                 loss_sum = loss_sum + loss
@@ -139,6 +216,7 @@ def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable]:
             stats = {k: v / accum for k, v in stats_sum.items()}
         grad_tree = tree_unflatten(state.params, grads)
         grad_norm = tx.update(grad_tree, state.opt_state, state.params)
+        state.extra = extra
         state.step += 1
         return state, {
             "loss": loss.float(),
@@ -146,7 +224,11 @@ def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable]:
             **{k: v.detach().float() for k, v in stats.items()},
         }
 
-    return step_fn, init_fn
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch: dict) -> dict:
+        return {k: v.float() for k, v in eval_stats(state.params, state.extra, batch).items()}
+
+    return step_fn, init_fn, eval_fn
 
 
 def synthetic_batches(cfg: TrainConfig) -> Iterator[dict]:
@@ -154,38 +236,64 @@ def synthetic_batches(cfg: TrainConfig) -> Iterator[dict]:
     rng = np.random.RandomState(cfg.seed)
     mcfg = cfg.model_config()
     while True:
-        yield {"tokens": rng.randint(
-            0, mcfg.vocab, (cfg.batch_size, cfg.seq_len + 1)).astype(np.int32)}
+        if cfg.model.startswith("llama"):
+            yield {"tokens": rng.randint(
+                0, mcfg.vocab, (cfg.batch_size, cfg.seq_len + 1)).astype(np.int32)}
+        else:
+            yield {
+                "images": rng.rand(
+                    cfg.batch_size, cfg.image_size, cfg.image_size, 3).astype(np.float32),
+                "labels": rng.randint(0, cfg.num_classes, (cfg.batch_size,)).astype(np.int32),
+            }
 
 
 def flops_per_step(cfg: TrainConfig) -> float:
-    mcfg = cfg.model_config()
-    return llama.num_flops_per_token(mcfg, cfg.seq_len) * cfg.batch_size * cfg.seq_len
+    if cfg.model.startswith("llama"):
+        mcfg = cfg.model_config()
+        return llama.num_flops_per_token(mcfg, cfg.seq_len) * cfg.batch_size * cfg.seq_len
+    # fwd+bwd ~= 3x fwd FLOPs.
+    return 3 * resnet.num_flops_per_image(cfg.image_size) * cfg.batch_size
 
 
 class Trainer:
-    """Owns the state and the step; run() drives the loop and logs."""
+    """Owns the state and the step; run() drives the loop, evaluates,
+    checkpoints and logs."""
 
     def __init__(self, cfg: TrainConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                               "available (pass device='cpu' to run on the CPU)")
+        self.device = require(device)
         self.tx = make_optimizer(lr=cfg.lr, warmup_steps=cfg.warmup_steps,
                                  total_steps=cfg.total_steps,
                                  weight_decay=cfg.weight_decay)
-        self.step_fn, self.init_fn = make_train_step(cfg, self.tx, self.device)
+        self.step_fn, self.init_fn, self.eval_fn = make_train_step(cfg, self.tx, self.device)
         self.state: TrainState | None = None
-        # One record per logged step: step, loss, grad_norm, step_s, mfu.
+        self.last_eval_stats: dict[str, float] = {}
+        # One record per logged step (step, loss, grad_norm, step_s, mfu,
+        # ...) and per eval pass (step, eval_loss, eval_<stat>).
         self.history: list[dict] = []
+        self.checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
 
-    def init(self, params=None) -> None:
-        """Fresh state from cfg.seed, or from the given params tree."""
+    def init(self, params=None, extra=None) -> None:
+        """Fresh state from cfg.seed, or from the given params tree (and
+        the model's mutable state: ResNet's BN statistics)."""
         rng = None
         if params is None:
             rng = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        self.state = self.init_fn(rng, params)
+        self.state = self.init_fn(rng, params, extra)
+
+    def init_or_resume(self) -> int:
+        """The latest checkpoint's state, or a fresh one; returns the step
+        resumed from (0 for a fresh start)."""
+        if self.checkpointer is not None:
+            latest = self.checkpointer.latest_step()
+            if latest is not None:
+                self.state = self.checkpointer.restore(latest, device=self.device)
+                for p in tree_leaves(self.state.params):
+                    p.requires_grad_(True)
+                from_context().info("resumed", step=latest, dir=self.cfg.checkpoint_dir)
+                return latest
+        self.init()
+        return 0
 
     def place_batch(self, batch: dict) -> dict:
         """Batch values onto the trainer's device: a tensor already there
@@ -199,15 +307,74 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, steps: int | None = None, data: Iterator[dict] | None = None) -> float:
+    def evaluate(self, data: Iterator[dict], n_batches: int | None = None) -> float:
+        """Forward-only mean loss over n_batches (inference-mode model). A
+        finite iterator that runs dry mid-pass ends the pass (mean over
+        what ran). Classifier models also report mean accuracy
+        (``last_eval_stats``)."""
+        n = n_batches or self.cfg.eval_steps
+        totals: dict[str, float] = {}
+        ran = 0
+        for _ in range(n):
+            try:
+                batch = next(data)
+            except StopIteration:
+                from_context().warning("eval data exhausted mid-pass", batches_run=ran)
+                break
+            for k, v in self.eval_fn(self.state, self.place_batch(batch)).items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+            ran += 1
+        if ran == 0:
+            # Zero batches is not a perfect loss: no plausible-looking 0.0.
+            return float("nan")
+        self.last_eval_stats = {k: v / ran for k, v in totals.items()}
+        return self.last_eval_stats["loss"]
+
+    def _fast_forward(self, data, start_step: int) -> None:
+        """Position a resumed feed at ``start_step``: ``seek`` where the feed
+        has it (``SeekableFeed``), else replay that many batches."""
+        seek = getattr(data, "seek", None)
+        if callable(seek):
+            seek(start_step)
+            return
+        try:
+            for _ in range(start_step):
+                next(data)
+        except StopIteration:
+            raise RuntimeError(
+                f"feed exhausted while fast-forwarding to resume step {start_step}: the "
+                "resumed feed must cover at least as many batches as the original run "
+                "consumed") from None
+
+    def run(self, steps: int | None = None, data: Iterator[dict] | None = None,
+            eval_data: Iterator[dict] | None = None) -> float:
         log = from_context()
         cfg = self.cfg
         steps = steps or cfg.total_steps
+        synthetic_default = None
         if data is None:
-            data = synthetic_batches(cfg)
+            data = synthetic_default = synthetic_batches(cfg)
+        eval_every = cfg.eval_every
+        if eval_every and eval_data is None:
+            if data is not synthetic_default:
+                # A synthetic fallback would report loss on noise while
+                # looking like a held-out loss: skip eval loudly instead.
+                log.warning("eval_every set but no eval_data supplied for a real feed; "
+                            "skipping eval (pass eval_data to run())")
+                eval_every = 0
+            else:
+                # A shifted seed never replays the training batches.
+                eval_data = synthetic_batches(dataclasses.replace(cfg, seed=cfg.seed + 10_000))
+        restored = False
         if self.state is None:
-            self.init()
-        start_step = self.state.step
+            start_step = self.init_or_resume()
+            restored = start_step > 0
+        else:
+            start_step = self.state.step
+        if restored and start_step < steps:
+            # Only when this call restored: an in-memory state carried
+            # across run() calls means the caller's feed is positioned.
+            self._fast_forward(data, start_step)
         fps = flops_per_step(cfg)
         peak = peak_flops_per_device(self.device)
         last_loss = float("nan")
@@ -245,4 +412,25 @@ class Trainer:
                 log.info("step", **{k: round(v, 4) if isinstance(v, float) else v
                                     for k, v in record.items()})
                 feed_wait = 0.0
+            if eval_every and (i + 1) % eval_every == 0:
+                eval_loss = self.evaluate(eval_data)
+                record = {"step": i + 1, "eval_loss": eval_loss,
+                          **{f"eval_{k}": v for k, v in self.last_eval_stats.items()
+                             if k != "loss"}}
+                self.history.append(record)
+                log.info("eval", **{k: round(v, 4) if isinstance(v, float) else v
+                                    for k, v in record.items()})
+                # Eval time stays out of the next step_s (and feed wait
+                # with it: both divide by the steps since the last log).
+                t_prev = time.monotonic()
+                last_logged = i + 1
+                feed_wait = 0.0
+            if self.checkpointer is not None and cfg.checkpoint_every \
+                    and (i + 1) % cfg.checkpoint_every == 0:
+                self.checkpointer.save(i + 1, self.state)
+                log.info("checkpoint", step=i + 1, dir=cfg.checkpoint_dir)
+        if self.checkpointer is not None:
+            # The final save; a no-op for a step already on disk (the
+            # loop's last one, or a resume at or past ``steps``).
+            self.checkpointer.save(self.state.step, self.state, wait=True)
         return last_loss

@@ -206,7 +206,8 @@ def test_fingerprint_follows_the_file(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["raw-uint8", "raw-int32-shaped", "raw-bfloat16",
-                                  "npy", "npy-float16-view"])
+                                  "npy", "npy-float16-view", "raw-f4", "raw-<f4",
+                                  "raw-i4"])
 def test_cuda_backend_bytes_equal_tpu_backend(tmp_path, case):
     rs = np.random.RandomState(4)
     raw_path = _raw(tmp_path, rs.bytes(4096))
@@ -218,6 +219,10 @@ def test_cuda_backend_bytes_equal_tpu_backend(tmp_path, case):
         "raw-bfloat16": ("raw", raw_path, "raw", (-1, 64), "bfloat16"),
         "npy": ("npy", str(npy), "npy", (), ""),
         "npy-float16-view": ("npy", str(npy), "npy", (32, -1), "float16"),
+        # numpy's spellings, resolved through np.dtype as JAX resolves them
+        "raw-f4": ("raw", raw_path, "raw", (-1,), "f4"),
+        "raw-<f4": ("raw", raw_path, "raw", (16, -1), "<f4"),
+        "raw-i4": ("raw", raw_path, "raw", (), "i4"),
     }[case]
     want = jax_stage("file", pb.FileParams(path=path, format=fmt),
                      pb.ArraySpec(shape=list(shape), dtype=dtype))
@@ -238,6 +243,21 @@ def test_cuda_backend_keeps_64_bit_bytes_where_jax_converts(tmp_path):
     vol = stage(CUDABackend(device="cpu"), "file", tspec.FileParams(*params))
     assert vol.array.dtype == torch.float64
     np.testing.assert_array_equal(vol.array.numpy(), arr)
+    np.testing.assert_allclose(vol.array.numpy(), want, rtol=1e-7)
+
+
+def test_float_spelling_stages_64_bit_bytes_where_jax_converts(tmp_path):
+    """"float" is numpy's float64: JAX (x64 off) stages its values as
+    float32, the port keeps the 64-bit bytes."""
+    arr = np.random.RandomState(7).randn(64, 8)
+    path = _raw(tmp_path, arr.tobytes())
+    want = jax_stage("file", pb.FileParams(path=path, format="raw"),
+                     pb.ArraySpec(shape=[64, -1], dtype="float"))
+    assert want.dtype == np.float32
+    vol = stage(CUDABackend(device="cpu"), "file", tspec.FileParams(path, "raw"),
+                tspec.ArraySpec((64, -1), "float"))
+    assert vol.state == StageState.READY, vol.error
+    assert vol.array.dtype == torch.float64 and _bytes_of(vol.array) == arr.tobytes()
     np.testing.assert_allclose(vol.array.numpy(), want, rtol=1e-7)
 
 
@@ -530,11 +550,17 @@ _ROOT = Path(__file__).resolve().parent.parent
 
 def test_data_plane_modules_import_only_stdlib_numpy_torch_and_the_port():
     """The card machine lists no grpc, protobuf, prometheus_client or
-    ml_dtypes; the data plane needs none of them, nor JAX."""
-    files = (sorted((_ROOT / "oim_tpu_torch" / "controller").glob("*.py"))
-             + sorted((_ROOT / "oim_tpu_torch" / "data").glob("*.py"))
-             + [_ROOT / "oim_tpu_torch" / "spec.py"])
-    assert len(files) >= 12
+    ml_dtypes; the data plane, the ResNet path and the trainer around it
+    (checkpoints, remat, profiling, augmentation, the CLI) need none of
+    them, nor JAX."""
+    port = _ROOT / "oim_tpu_torch"
+    files = (sorted((port / "controller").glob("*.py"))
+             + sorted((port / "data").glob("*.py"))
+             + sorted((port / "train").glob("*.py"))
+             + sorted((port / "common").glob("*.py"))
+             + [port / "spec.py", port / "models" / "resnet.py",
+                port / "models" / "remat.py", port / "cli" / "oim_trainer.py"])
+    assert len(files) >= 25
     allowed = set(sys.stdlib_module_names) | {"numpy", "torch", "oim_tpu_torch"}
     bad = []
     for path in files:

@@ -134,8 +134,7 @@ def test_peak_flops_table_is_keyed_on_the_cuda_device_name():
 
 
 def test_unported_trainer_options_refuse():
-    for kw in ({"rules": "fsdp"}, {"model": "resnet50"},
-               {"model_overrides": {"n_experts": 4}}, {"model_overrides": {"remat": True}}):
+    for kw in ({"rules": "fsdp"}, {"model_overrides": {"n_experts": 4}}):
         with pytest.raises((NotImplementedError, ValueError)):
             ttrainer.Trainer(ttrainer.TrainConfig(**kw), device="cpu")
 
