@@ -4,8 +4,8 @@ NVIDIA H100.
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
                                        # one llama training step, one decode
-                                       # step and one ResNet step into
-                                       # chiprun_out/
+                                       # step, one ResNet step and one MoE
+                                       # step into chiprun_out/
 
 Phases, in order; any failure exits nonzero:
 
@@ -15,13 +15,16 @@ Phases, in order; any failure exits nonzero:
    ``oim_tpu_torch/kernels/csrc`` (one nvcc per source, all at once), with
    ptxas's register and spill lines printed.
 3. kernels: each kernel (K1 forward, K2 dK/dV, K3 dQ) held against its
-   plain PyTorch version on the same inputs, at the main path's shapes and
+   plain PyTorch version on the same inputs, at the attention shape of
+   each training path the script drives (llama3-8b's, GQA group 4, for
+   phases 5, 8 and 9; the MoE flagship's, group 2, for phase 11; both bf16
+   causal at head_dim 128 and required to take the wgmma route) and
    on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
    with fully masked rows, lengths not a multiple of the tile, a delta that
    carries an lse cotangent, a bf16 head_dim that the kernels serve by the
    fma route); each K1 launch must take the route ``kernels.fwd_route``
    names, each K2/K3 launch the one ``kernels.bwd_route`` names. Its time
-   beside its plain version's, its bound, and scaled_dot_product_attention
+   (at llama3-8b's shape) beside its plain version's, its bound, and scaled_dot_product_attention
    with an explicit bottom-right mask as a yardstick the port never calls;
    each kernel also timed on its fma route (the first port's kernels) on
    the same inputs, and each route's registers, spills, shared memory and
@@ -96,11 +99,54 @@ Phases, in order; any failure exits nonzero:
    MFU, peak memory, the stage, checkpoint save and restore times, and the
    ``resnet`` JSON line. ``--profile`` adds one profiled ResNet step by
    category (``chiprun_out/chip_smoke_resnet_profile.json``).
-10. the main-path, serve, oim_fed and resnet lines and the kernels line
-   (JSON), the card line, and the last line ``{"ok": true, "device":
+10. MoE agreement (llama.tiny with 4 experts, f32, TF32 off): the card
+   against the CPU for ``loss_and_stats`` (loss and ``moe_drop_frac``)
+   and its gradients, ``moe.apply`` in both dispatch modes at capacity
+   factor 0.5 (drops) and at k=1 (out, [aux, dropped], gradients), greedy
+   ``generate()`` tokens and the paged steps' logits; it prints each
+   fixture's smallest top-k router margin (``moe.router_margin``), so that a
+   flipped route cannot pass as noise.
+11. MoE main path: the MoE flagship (``MOE_OVERRIDES``: scripts/
+   sweep_moe.py's config, 1.85e9 parameters, 1.04e9 active) at full width
+   and depth through the trainer CLI, B=BATCH, T=SEQ, bf16, gather
+   dispatch, MOE_STEPS steps. It fails unless every loss is finite, the
+   first within 1.0 of ln 32768, ``moe_drop_frac`` is reported every step
+   in [0, 1), and K1-K3 each launch 8 x MOE_STEPS times, all on ``wgmma``.
+   From one state and batch it then holds einsum dispatch against gather
+   layer by layer (each layer's FFN input from a gather forward through
+   both modes: out within BF16_REL_TOL x max|out|, [aux, dropped] equal;
+   the first layer's input and routes equal between the two models'
+   forwards; each layer's share of flipped top-k routes printed) and
+   takes one step plain, again plain (the card's spread), with einsum
+   dispatch (loss and grad_norm within MOE_DISPATCH_REL of gather, the
+   worst gradient leaf within MOE_DISPATCH_GRAD_REL) and with ``--remat
+   --remat-policy dots_with_no_batch_dims`` (phase 9's remat limits on
+   loss, grad_norm, gradients and params). It prints the parameter counts, step_s,
+   tokens/s, MFU on active FLOPs and peak memory. ``--profile`` adds one
+   profiled step (``chiprun_out/chip_smoke_moe_profile.json``).
+12. MoE serving: ``ServeEngine`` on the MoE flagship (full depth, bf16,
+   weights from ``llama.init`` on the card), 10 seeded greedy requests
+   (phase 7's 8 prompt lengths, two more sharing a 512-token prefix, the
+   second sent after the first retired). It fails unless every request
+   ends by length, the prefix store hits, and the pool is empty after
+   drain and eviction; then phase 7's measurements (greedy agreement with
+   solo ``generate()``, reported; the 8-row batch's first-decode logits
+   within SERVE_LOGIT_REL x max|logit| of solo ``cached_forward``, the
+   decode step's time beside its bound, which reads all four experts'
+   weights; solo prefill by bucket) and the decode rows' smallest router
+   margin. ``--profile`` adds one profiled decode step
+   (``chiprun_out/chip_smoke_moe_serve_profile.json``).
+13. oim-infer: the trainer CLI writes a llama-tiny-moe checkpoint on the
+   card, ``oim_infer.main`` restores it, and its greedy rows must equal
+   ``generate()`` on the restored params; a directory with no checkpoint
+   must exit nonzero.
+14. the main-path, serve, oim_fed, resnet and moe lines and the kernels
+   line (JSON), the card line, and the last line ``{"ok": true, "device":
    {...}}``. Beside the contract's keys each kernel record has
    ``oim_fed_launches`` (phase 8's launches), ``resnet_launches`` and
-   ``llama_remat_launches`` (phase 9's), ``routes`` (the main path's
+   ``llama_remat_launches`` (phase 9's), ``moe_launches`` and
+   ``moe_routes`` (phase 11's), ``max_abs_err_by_path`` (phase 3's
+   error at each path's shape; ``max_abs_err`` is the largest), ``routes`` (the main path's
    launches by kernel route,
    e.g. ``{"wgmma": 8, "fma": 0}``), ``tflops``, ``fma_route_ms`` (the
    CUDA-core kernel on the same inputs) and ``resources`` (registers,
@@ -114,6 +160,7 @@ repository (it imports the port from the directory it sits in).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -220,8 +267,11 @@ def attention_inputs(b, tq, tk, h, hkv, d, dtype, seed):
     return mk(b, tq, h, d), mk(b, tk, hkv, d), mk(b, tk, hkv, d), mk(b, tq, h, d)
 
 
-def phase_kernels(shape, odd_cases) -> list[dict]:
-    """Phase 3: returns one record per kernel at the main path's shape."""
+def phase_kernels(shapes: dict, odd_cases) -> list[dict]:
+    """Phase 3: the odd cases, then each driven path's attention shape
+    (``shapes``: path -> (b, t, h, hkv, d), bf16 causal), each on the
+    wgmma route its path's launch gate demands; returns one record per
+    kernel, timed at the first path's shape."""
     import importlib
 
     import torch
@@ -282,12 +332,21 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
     if errors:
         fail("odd cases: " + "; ".join(errors))
 
-    b, t, h, hkv, d = shape
-    say(f" main-path shape: q [{b},{t},{h},{d}] k/v [{b},{t},{hkv},{d}] bf16 causal")
-    errs, (q, k, v, do, out, lse, delta, scale) = run_case(
-        b, t, t, h, hkv, d, True, torch.bfloat16, 1)
+    by_path, timed = {}, None
+    for seed, (path, (b, t, h, hkv, d)) in enumerate(shapes.items(), start=1):
+        say(f" {path} path's shape: q [{b},{t},{h},{d}] k/v [{b},{t},{hkv},{d}] bf16 causal")
+        by_path[path], tensors = run_case(b, t, t, h, hkv, d, True, torch.bfloat16, seed)
+        if kernels.bwd_route(*tensors[:4]) != "wgmma":
+            errors.append(f"the {path} path's shape takes route "
+                          f"{kernels.bwd_route(*tensors[:4])}, its gate wants wgmma")
+        timed = timed or tensors
+        del tensors
     if errors:
         fail("kernels disagree with their plain versions: " + "; ".join(errors))
+    q, k, v, do, out, lse, delta, scale = timed
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    errs = {name: max(e[name] for e in by_path.values()) for name, _ in KERNELS}
 
     # Timings at the main path's shape. Plain versions repeat the kernels'
     # arithmetic in torch ops (no speed yardstick). The library yardstick:
@@ -354,6 +413,7 @@ def phase_kernels(shape, odd_cases) -> list[dict]:
             "name": name, "route": "cuda",
             "source": f"oim_tpu_torch/kernels/csrc/{kernels.SOURCES[name]}",
             "replaces": replaces, "launches": None, "max_abs_err": errs[name],
+            "max_abs_err_by_path": {path: e[name] for path, e in by_path.items()},
             "ms": best, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "routes": None,
             "tflops": flops / (best * 1e-3) / 1e12, "fma_route_ms": fma_ms,
@@ -467,46 +527,100 @@ def _category(kernel: str) -> str:
         return "matmuls (cuBLAS)"
     if "reduce" in name or "norm" in name:
         return "reductions"
+    if any(k in name for k in ("index", "scatter", "gather", "embedding")):
+        return "index, gather and scatter (embedding, MoE dispatch)"
     return "elementwise and copies"
 
 
-def profile_step(trainer) -> dict:
-    """One more step under torch.profiler: device time by kernel and by
-    category, the idle share of the step's wall time; the table is written
-    to chiprun_out/chip_smoke_profile.json."""
+OPTIMIZER_RANGE = "optimizer (AdamW)"
+
+
+@contextlib.contextmanager
+def patched(owner, attr: str, wrap):
+    """Within the block, ``owner.attr`` is ``wrap(the original)``."""
+    orig = getattr(owner, attr)
+    setattr(owner, attr, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def in_range(name: str):
+    """A ``patched`` wrap: every call runs under a record_function range."""
+    from torch.profiler import record_function
+
+    def wrap(fn):
+        def ranged(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return ranged
+    return wrap
+
+
+def moe_calls(calls: list):
+    """A ``patched`` wrap for ``moe.apply``: each call appends (its layer's
+    MoE params, its input detached, its MoEConfig) to ``calls`` first."""
+    def wrap(apply):
+        def spy(params, x, cfg, with_stats=False):
+            calls.append((params, x.detach(), cfg))
+            return apply(params, x, cfg, with_stats)
+        return spy
+    return wrap
+
+
+def profiled_train_step(trainer, batch):
+    """One more step of ``trainer`` on ``batch`` under torch.profiler, the
+    optimizer under OPTIMIZER_RANGE; returns (profiler, wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from oim_tpu_torch.train.trainer import synthetic_batches
-
-    batch = trainer.place_batch(next(synthetic_batches(trainer.cfg)))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with patched(trainer.tx, "update", in_range(OPTIMIZER_RANGE)), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         trainer.state, stats = trainer.step_fn(trainer.state, batch)
         float(stats["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    return prof, wall_ms
+
+
+def profile_step(trainer, name: str = "chip_smoke_profile.json") -> dict:
+    """One more step under torch.profiler: device time by kernel and by
+    category, the optimizer's share (the kernels under its range), the idle
+    share of the step's wall time; the table is written to
+    chiprun_out/``name``."""
+    from oim_tpu_torch.train.trainer import synthetic_batches
+
+    batch = trainer.place_batch(next(synthetic_batches(trainer.cfg)))
+    prof, wall_ms = profiled_train_step(trainer, batch)
     # Device-side events only (kernels, memcpy/memset): CPU-side ops carry
-    # their children's device time too and would count it twice.
+    # their children's device time too and would count it twice. The
+    # optimizer's range is an annotation row, not a kernel.
     rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count)
                    for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0),
+                   if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
+                   and ev.key != OPTIMIZER_RANGE),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     cats: dict[str, float] = {}
     for key, ms, _ in rows:
         cats[_category(key)] = cats.get(_category(key), 0.0) + ms
+    optimizer_ms = device_ms_by_category(prof, (OPTIMIZER_RANGE,), (), "rest").get(
+        OPTIMIZER_RANGE, 0.0)
     say(f"  profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; the optimizer's kernels "
+        f"{optimizer_ms:.1f} ms ({optimizer_ms / busy:.1%}), forward and backward the rest")
     for cat, ms in sorted(cats.items(), key=lambda c: -c[1]):
         say(f"    {ms:9.3f} ms  {ms / busy:6.1%}  {cat}")
     for key, ms, count in rows[:12]:
         say(f"    {ms:9.3f} ms  x{count:<5d} {key[:100]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    result = {"wall_ms": wall_ms, "busy_ms": busy, "categories": cats, "rows": rows}
-    (out / "chip_smoke_profile.json").write_text(json.dumps(result, indent=1))
+    result = {"wall_ms": wall_ms, "busy_ms": busy, "optimizer_ms": optimizer_ms,
+              "categories": cats, "rows": rows}
+    (out / name).write_text(json.dumps(result, indent=1))
     return result
 
 
@@ -553,17 +667,15 @@ def run_requests(eng, reqs):
     return outs
 
 
-def phase_serve_agreement(device="cuda"):
-    """Phase 6: llama.tiny (f32) through the serving path on the card
-    against the CPU and against itself."""
+def check_paged_steps(cfg, host, device, errors: list) -> None:
+    """``prefill_into_pages`` (two rows), ``decode_step`` and
+    ``verify_step`` logits of the weights ``host`` (numpy) on the card
+    against the CPU, within SERVE_TINY_TOL."""
     import torch
 
     from oim_tpu_torch.models import generate as gen
     from oim_tpu_torch.models import llama
-    from oim_tpu_torch.serve import ServeEngine, kvtier
 
-    cfg = llama.tiny(vocab=64, dim=32, n_layers=2)
-    host = llama.to_numpy(llama.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
     page, g = 4, torch.Generator().manual_seed(1)
     tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in (9, 5)]
@@ -584,10 +696,24 @@ def phase_serve_agreement(device="cuda"):
                                     (pos + 1).to(dev), cfg, page)[0])
         return [o.cpu() for o in outs]
 
-    errors = []
     for name, a, b in zip(("prefill_into_pages row 0", "prefill_into_pages row 1",
                            "decode_step", "verify_step"), steps(device), steps("cpu")):
         check(name, a, b, SERVE_TINY_TOL, errors)
+
+
+def phase_serve_agreement(device="cuda"):
+    """Phase 6: llama.tiny (f32) through the serving path on the card
+    against the CPU and against itself."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import ServeEngine, kvtier
+
+    cfg = llama.tiny(vocab=64, dim=32, n_layers=2)
+    host = llama.to_numpy(llama.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    errors = []
+    check_paged_steps(cfg, host, device, errors)
     if errors:
         fail("serving steps on the card disagree with the CPU: " + "; ".join(errors))
 
@@ -811,14 +937,19 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     return result
 
 
-def serve_measure(cfg, params, reqs, device, profile) -> dict:
+def serve_measure(cfg, params, reqs, device, profile, moe_inputs: list | None = None,
+                  profile_name: str = "chip_smoke_serve_profile.json") -> dict:
     """Solo generate() against the engine's greedy streams; an 8-row paged
     batch (the 8 prompts of SERVE_LENGTHS): first-decode logits against
     solo, the decode step's time and bound, solo prefill by bucket, and
-    (``profile``) one profiled decode step."""
+    (``profile``) one profiled decode step. ``moe_inputs`` (a list) takes
+    the batch's first decode step's ``moe_calls``."""
+    import contextlib
+
     import torch
 
     from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import moe
     from oim_tpu_torch.train.state import tree_leaves
 
     agree = {}
@@ -846,7 +977,9 @@ def serve_measure(cfg, params, reqs, device, profile) -> dict:
     tables = tables.to(device)
     tokens = torch.tensor(firsts, device=device)
     pos = torch.tensor([len(r["prompt"]) for r in rows], device=device)
-    logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
+    with (contextlib.nullcontext() if moe_inputs is None
+          else patched(moe, "apply", moe_calls(moe_inputs))):
+        logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
     errs, floor = {}, {}
 
     def solo_decode(prompt, tok, batch):
@@ -895,7 +1028,7 @@ def serve_measure(cfg, params, reqs, device, profile) -> dict:
         f"{len(rows) / step_ms * 1e3:.0f} tokens/s; bound {bound:.2f} ms (bytes: "
         f"{weight_bytes / 1e9:.3f} GB of weights read (8 embedding rows) + "
         f"{kv_bytes / 1e9:.3f} GB K/V at 3.35e12 B/s), {step_ms / bound:.1f}x the bound")
-    profiled = profile_decode(step) if profile else None
+    profiled = profile_decode(step, profile_name) if profile else None
     prefill = {}
     for T in PREFILL_BUCKETS:
         toks = torch.randint(0, cfg.vocab, (1, T), device=device)
@@ -952,38 +1085,35 @@ def device_ms_by_category(prof, ranges, categories, default) -> dict[str, float]
     return cats
 
 
-def profile_decode(step) -> dict:
+MOE_RANGE = "MoE FFN (router, dispatch, experts, combine)"
+
+
+def profile_decode(step, name: str = "chip_smoke_serve_profile.json") -> dict:
     """One 8-row decode step (with sampling) under torch.profiler: device ms
-    by category, each kernel charged to the op that launched it (sampling:
-    everything under the sampling range), and the idle share."""
+    by category, each kernel charged to the op that launched it (sampling
+    and an MoE model's FFN: everything under their ranges), and the idle
+    share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import moe
 
     torch.cuda.synchronize()
-    sample = gen.sample
-
-    def traced_sample(*a):
-        with record_function("sampling"):
-            return sample(*a)
-
-    gen.sample = traced_sample
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            step().cpu()
-            wall_ms = (time.monotonic() - t0) * 1e3
-    finally:
-        gen.sample = sample
-    # The sampling range shows on the device timeline too, as an
-    # annotation row: not a kernel, so left out of the busy time.
+    with patched(gen, "sample", in_range("sampling")), \
+            patched(moe, "apply", in_range(MOE_RANGE)), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step().cpu()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # The ranges show on the device timeline too, as annotation rows: not
+    # kernels, so left out of the busy time.
     kernels_ = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
                 for ev in prof.key_averages()
                 if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
-                and ev.key != "sampling"]
+                and ev.key not in ("sampling", MOE_RANGE)]
     busy = sum(k[1] for k in kernels_)
-    cats = device_ms_by_category(prof, ("sampling",), SERVE_CATEGORIES,
+    cats = device_ms_by_category(prof, ("sampling", MOE_RANGE), SERVE_CATEGORIES,
                                  "elementwise and other")
     attributed = sum(cats.values())
     if busy > attributed + 1e-3:
@@ -1004,7 +1134,7 @@ def profile_decode(step) -> dict:
               "categories": cats, "kernels": kernels_}
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
-    (outdir / "chip_smoke_serve_profile.json").write_text(json.dumps(result, indent=1))
+    (outdir / name).write_text(json.dumps(result, indent=1))
     return result
 
 
@@ -1630,32 +1760,13 @@ def profile_resnet_step(trainer, batch) -> dict:
     (convolutions, batch norm and elementwise, the optimizer, the rest),
     the top kernels and the idle share; written to
     chiprun_out/chip_smoke_resnet_profile.json."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    update = trainer.tx.update
-
-    def traced_update(*a):
-        with record_function("optimizer (AdamW)"):
-            return update(*a)
-
-    trainer.tx.update = traced_update
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            trainer.state, stats = trainer.step_fn(trainer.state, batch)
-            float(stats["loss"])
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-    finally:
-        trainer.tx.update = update
+    prof, wall_ms = profiled_train_step(trainer, batch)
     kernels_ = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
                 for ev in prof.key_averages()
                 if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
                 and not ev.key.startswith("optimizer")]
     busy = sum(k[1] for k in kernels_)
-    cats = device_ms_by_category(prof, ("optimizer (AdamW)",), RESNET_CATEGORIES,
+    cats = device_ms_by_category(prof, (OPTIMIZER_RANGE,), RESNET_CATEGORIES,
                                  "batch norm, ReLU and elementwise")
     attributed = sum(cats.values())
     if busy > attributed + 1e-3:
@@ -1674,6 +1785,469 @@ def profile_resnet_step(trainer, batch) -> dict:
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke_resnet_profile.json").write_text(json.dumps(result, indent=1))
     return result
+
+
+# -- Mixture-of-Experts (phases 10-13) -------------------------------------
+
+# The MoE flagship (scripts/sweep_moe.py:37-42, scripts/capacity_quality.py:
+# 66-73): llama3-8b's fields at vocab 32768, dim 2048, 8 layers, 16/8 heads
+# of 128, mlp 8192, 4 experts, top-2, gather dispatch, capacity factor 1.25;
+# the full vocab's logits (no vocab chunks), B=BATCH, T=SEQ. Nothing is cut.
+MOE_OVERRIDES = ("vocab=32768", "dim=2048", "n_layers=8", "n_heads=16", "mlp_dim=8192",
+                 "n_experts=4", "vocab_chunk=0")
+MOE_STEPS = 4
+# Its layers, parameters and active parameters (the JAX package's counts).
+MOE_FLAGSHIP_COUNTS = (8, 1_845_594_112, 1_040_287_744)
+MOE_TINY_TOL = 1e-4  # f32, card against CPU, TF32 off (phase 4's)
+# Gather against einsum dispatch, one bf16 step from one state: the
+# einsum combine rounds once where gather rounds per routing round, and a
+# route whose top-2/3rd gap falls under the bf16 difference flips in a
+# later layer. Loss and grad_norm, sums over every token, have read up to
+# 1.28e-4 and 3.35e-4 relative on the H100: the limit is ~3x the larger.
+# The worst gradient leaf, which flipped routes move, has read 0.135-0.155
+# (relative L2): its limit, ~3x, catches a combine with no gradient (1.0).
+MOE_DISPATCH_REL = 1e-3
+MOE_DISPATCH_GRAD_REL = 0.5
+MOE_SERVE_TAILS, MOE_SERVE_NEW = (40, 7), 32
+
+
+def moe_flagship():
+    """The flagship's llama.Config: llama3-8b with MOE_OVERRIDES."""
+    import dataclasses
+
+    from oim_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LLAMA3_8B, **{
+        k: int(v) for k, v in (item.split("=") for item in MOE_OVERRIDES)})
+
+
+def moe_argv() -> list[str]:
+    argv = ["--model", "llama3-8b"]
+    for item in MOE_OVERRIDES:
+        argv += ["--override", item]
+    return argv + ["--steps", str(MOE_STEPS), "--batch-size", str(BATCH), "--seq-len",
+                   str(SEQ), "--warmup-steps", "2", "--log-every", "1", "--log-level", "info"]
+
+
+def phase_moe_agreement() -> dict:
+    """Phase 10: llama.tiny with 4 experts (f32) on the card against the
+    CPU: the loss, drop fraction and gradients; moe.apply in both dispatch
+    modes with drops and at k=1; greedy generate(); the paged steps."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import llama, moe
+    from oim_tpu_torch.train.state import tree_leaves
+
+    errors: list[str] = []
+    cfg = llama.tiny(n_experts=4)
+    host = llama.to_numpy(llama.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 130), generator=torch.Generator().manual_seed(1))
+    res, calls = {}, []
+    with patched(moe, "apply", moe_calls(calls)):
+        for dev in ("cpu", "cuda"):
+            p = llama.from_numpy(host, dev)
+            leaves = list(tree_leaves(p))
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            loss, stats = llama.loss_and_stats(p, tokens.to(dev), cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            res[dev] = (loss.detach().cpu(), stats["moe_drop_frac"].detach().cpu(),
+                        [g.detach().cpu() for g in grads])
+    tiny_margin = min(float(moe.router_margin(p["router"], x, c.top_k)) for p, x, c in calls)
+    say(f"  llama.tiny, 4 experts, f32 (T=129): loss cpu {float(res['cpu'][0]):.6f} cuda "
+        f"{float(res['cuda'][0]):.6f}; moe_drop_frac cpu {float(res['cpu'][1]):.6f} cuda "
+        f"{float(res['cuda'][1]):.6f}; smallest top-k router margin {tiny_margin:.3e}")
+    check("loss", res["cuda"][0], res["cpu"][0], MOE_TINY_TOL, errors)
+    check("moe_drop_frac (a count)", res["cuda"][1], res["cpu"][1], 0.0, errors)
+    grad_err = max(max_err(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))
+    say(f"  gradients ({len(res['cpu'][2])} leaves) max_abs_err {grad_err:.3e}  "
+        f"tol {MOE_TINY_TOL:.3e}")
+    if not grad_err <= MOE_TINY_TOL:
+        errors.append(f"gradients: max_abs_err {grad_err}")
+    margins = {"llama.tiny": tiny_margin}
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 64, 64, generator=g)
+    for e, k, cf in ((4, 2, 0.5), (4, 1, 1.0)):
+        for dispatch in ("gather", "einsum"):
+            mcfg = moe.MoEConfig(n_experts=e, top_k=k, capacity_factor=cf, dispatch=dispatch)
+            mp = moe.init(torch.Generator().manual_seed(3), 64, 192, mcfg, torch.float32,
+                          device="cpu")
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                leaves = [t.to(dev).requires_grad_(True) for t in mp.values()]
+                xd = x.to(dev).requires_grad_(True)
+                out, st = moe.apply(dict(zip(mp, leaves)), xd, mcfg, with_stats=True)
+                gs = torch.autograd.grad((out * out).sum() + st[0], leaves + [xd])
+                outs[dev] = [out.detach().cpu(), st.detach().cpu()] + [t.cpu() for t in gs]
+            name = f"moe.apply k={k} cf={cf} {dispatch}"
+            margins[name] = float(moe.router_margin(mp["router"], x, k))
+            say(f"  {name}: dropped {float(outs['cpu'][1][1]):.4f} (cpu) "
+                f"{float(outs['cuda'][1][1]):.4f} (cuda), router margin {margins[name]:.3e}")
+            check("  out", outs["cuda"][0], outs["cpu"][0], MOE_TINY_TOL, errors)
+            check("  [aux, dropped]", outs["cuda"][1], outs["cpu"][1], MOE_TINY_TOL, errors)
+            err = max(max_err(a, b) for a, b in zip(outs["cuda"][2:], outs["cpu"][2:]))
+            say(f"    gradients (router, experts, x) max_abs_err {err:.3e}")
+            if not err <= MOE_TINY_TOL:
+                errors.append(f"{name} gradients: max_abs_err {err}")
+
+    prompt = torch.randint(0, cfg.vocab, (2, 5), generator=g)
+    toks = {dev: gen.generate(llama.from_numpy(host, dev), prompt.to(dev), 12, cfg).cpu()
+            for dev in ("cpu", "cuda")}
+    same = torch.equal(toks["cpu"], toks["cuda"])
+    say(f"  greedy generate(), 2 rows x 12 tokens: card equal to CPU: {same}")
+    if not same:
+        errors.append(f"generate: {toks['cuda'].tolist()} against {toks['cpu'].tolist()}")
+    check_paged_steps(cfg, host, "cuda", errors)
+    if errors:
+        fail("MoE on the card disagrees with the CPU: " + "; ".join(errors))
+    return {"router_margins": margins, "loss": float(res["cuda"][0]),
+            "moe_drop_frac": float(res["cuda"][1]), "grad_max_abs_err": grad_err}
+
+
+def leaf_rels(xs, ys) -> list[float]:
+    """The relative L2 difference of each pair of two lists of tensors."""
+    return [float((x.detach().float() - y.detach().float()).norm() / y.detach().float().norm())
+            for x, y in zip(xs, ys)]
+
+
+def worst_leaf_rel(xs, ys) -> float:
+    return max(leaf_rels(xs, ys))
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Key paths of a nested dict's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def moe_dispatch_by_layer(params, tokens, mcfg) -> list[dict]:
+    """Gather against einsum dispatch, layer by layer, from one state and
+    batch (no gradient): the share of tokens whose top-k expert set
+    differs between the two models' forwards, and each dispatch on the
+    gather forward's own FFN input, where the router sees one input and no
+    route can flip (max|diff| / max|out|, and whether [aux, dropped] are
+    equal)."""
+    import dataclasses
+
+    import torch
+
+    from oim_tpu_torch.models import llama, moe
+
+    fwd = {}
+    with torch.no_grad():
+        for c in (mcfg, dataclasses.replace(mcfg, moe_dispatch="einsum")):
+            fwd[c.moe_dispatch] = []
+            with patched(moe, "apply", moe_calls(fwd[c.moe_dispatch])):
+                llama.loss_and_stats(params, tokens, c)
+
+    def experts(p, x, c):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), -1)
+        return probs.topk(c.top_k, dim=-1).indices.sort(dim=-1).values
+
+    rows = []
+    with torch.no_grad():
+        for (p, x, c), (_, xe, ce) in zip(fwd["gather"], fwd["einsum"]):
+            flipped = (experts(p, x, c) != experts(p, xe, ce)).any(dim=-1)
+            out_g, st_g = moe.apply(p, x, c, with_stats=True)
+            out_e, st_e = moe.apply(p, x, ce, with_stats=True)
+            rows.append({"routes_flipped": float(flipped.float().mean()),
+                         "same_input": bool(torch.equal(x, xe)),
+                         "out_rel": float((out_e.float() - out_g.float()).abs().max()
+                                          / out_g.float().abs().max()),
+                         "stats_equal": bool(torch.equal(st_g, st_e))})
+    return rows
+
+
+def phase_moe_main(profile: bool) -> dict:
+    """Phase 11: the MoE flagship trained through the CLI, then one step
+    from one state and batch with einsum dispatch and one with remat."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.train import Trainer
+    from oim_tpu_torch.train.state import tree_leaves
+    from oim_tpu_torch.train.trainer import flops_per_step, synthetic_batches
+
+    argv = moe_argv()
+    say(f"  python -m oim_tpu_torch.cli.oim_trainer {' '.join(argv)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    trainer = oim_trainer.run(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, hist = trainer.cfg, trainer.history
+    mcfg = cfg.model_config()
+    losses = [r["loss"] for r in hist]
+    drops = [r.get("moe_drop_frac") for r in hist]
+    want = mcfg.n_layers * MOE_STEPS
+    n_total, n_active = llama.num_params(mcfg), llama.num_active_params(mcfg)
+    say(f"  {mcfg.n_layers} layers, dim {mcfg.dim}, {mcfg.n_experts} experts top-"
+        f"{mcfg.moe_top_k}, {mcfg.moe_dispatch} dispatch, cf {mcfg.moe_capacity_factor}: "
+        f"{n_total:,} parameters, {n_active:,} active; {flops_per_step(cfg) / 1e12:.2f} "
+        f"TFLOP a step (active)")
+    say(f"  losses {losses}  (ln {mcfg.vocab} = {math.log(mcfg.vocab):.3f})")
+    say(f"  moe_drop_frac {drops}")
+    say(f"  launches {launches}  (want {mcfg.n_layers} x {MOE_STEPS} = {want} each)")
+    say(f"  routes {routes}  (want every launch on wgmma)")
+    if (mcfg.n_layers, n_total, n_active) != MOE_FLAGSHIP_COUNTS:
+        fail(f"MoE main path: the config is not the flagship's {MOE_FLAGSHIP_COUNTS}: {mcfg}")
+    if len(losses) != MOE_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"MoE main path: losses not finite or missing: {losses}")
+    if abs(losses[0] - math.log(mcfg.vocab)) > 1.0:
+        fail(f"MoE main path: first loss {losses[0]} not within 1.0 of ln {mcfg.vocab}")
+    if not all(d is not None and 0.0 <= d < 1.0 for d in drops):
+        fail(f"MoE main path: moe_drop_frac missing or outside [0, 1): {drops}")
+    for name, _ in KERNELS:
+        if launches[name] != want or routes[name]["wgmma"] != want:
+            fail(f"MoE main path: {name} launched {launches[name]} times ({routes[name]}), "
+                 f"want {want} on wgmma")
+    steady = hist[1:]
+    step_s = sum(r["step_s"] for r in steady) / len(steady)
+    mfu = sum(r["mfu"] for r in steady) / len(steady)
+    tokens = BATCH * SEQ
+    say(f"  step_s {step_s:.4f} (steps 2..{MOE_STEPS}; step 1 {hist[0]['step_s']:.4f})  "
+        f"tokens/s {tokens / step_s:.0f}  MFU {mfu:.4f} of 989e12 on active FLOPs  "
+        f"peak mem {peak_gb:.1f} GB  wall {wall:.1f} s")
+    out = {"config": dict(item.split("=") for item in MOE_OVERRIDES), "batch": BATCH,
+           "seq": SEQ, "params": n_total, "active_params": n_active,
+           "flops_per_step": flops_per_step(cfg), "losses": losses, "moe_drop_frac": drops,
+           "launches": launches, "routes": routes, "step_s": step_s,
+           "step1_s": hist[0]["step_s"], "tokens_per_s": tokens / step_s, "mfu": mfu,
+           "peak_mem_gb": peak_gb}
+
+    if profile:
+        out["profile"] = profile_step(trainer, "chip_smoke_moe_profile.json")
+    # One step from one state and batch: plain twice (the card's spread),
+    # einsum dispatch, remat under dots_with_no_batch_dims.
+    base = trainer.state
+    del trainer
+    gc.collect()
+    batch = {"tokens": torch.as_tensor(next(synthetic_batches(
+        dataclasses.replace(cfg, seed=cfg.seed + 1)))["tokens"]).cuda()}
+    runs = (("plain", {}, False, ""), ("plain again", {}, False, ""),
+            ("einsum", {"moe_dispatch": "einsum"}, False, ""),
+            ("remat", {}, True, "dots_with_no_batch_dims"))
+    ref, readings, names, grads_by_layer = None, {}, leaf_names(base.params), []
+    by_layer = moe_dispatch_by_layer(base.params, batch["tokens"], mcfg)
+    for name, over, remat, policy in runs:
+        t = Trainer(dataclasses.replace(cfg, remat=remat, remat_policy=policy,
+                                        checkpoint_dir="",
+                                        model_overrides={**cfg.model_overrides, **over}),
+                    device="cuda")
+        t.state = clone_state(base)
+        seen = []
+        update = t.tx.update
+
+        def keep_grads(grads, *rest, update=update, seen=seen):
+            seen.extend(tree_leaves(grads))
+            return update(grads, *rest)
+
+        t.tx.update = keep_grads
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        t.state, stats = t.step_fn(t.state, batch)
+        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        run = {"loss": loss, "grad_norm": gnorm, "step_wall_s": time.monotonic() - t0,
+               "moe_drop_frac": float(stats["moe_drop_frac"]), "peak_mem_gb": peak / 1e9,
+               "above_held_gb": (peak - held) / 1e9}
+        params = list(tree_leaves(t.state.params))
+        if ref is None:
+            ref = dict(run, grads=seen, params=[p.detach() for p in params])
+        else:
+            rels = leaf_rels(seen, ref["grads"])
+            run.update(loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       grad_norm_rel=abs(gnorm - ref["grad_norm"]) / abs(ref["grad_norm"]),
+                       grads=max(rels), params=worst_leaf_rel(params, ref["params"]),
+                       worst_grad_leaf=names[rels.index(max(rels))])
+            if name == "einsum":
+                run["grads_by_leaf"] = dict(zip(names, rels))
+                grads_by_layer = [max(float((g[i].float() - r[i].float()).norm()
+                                            / r[i].float().norm())
+                                      for n, g, r in zip(names, seen, ref["grads"])
+                                      if n.startswith("/layers/"))
+                                  for i in range(mcfg.n_layers)]
+        readings[name] = {k: v for k, v in run.items() if not isinstance(v, list)}
+        del t, stats, seen, params
+    del ref, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in readings.items():
+        rel = ("" if name == "plain" else
+               f"; against plain: loss {r['loss_rel']:.2e}, grad_norm {r['grad_norm_rel']:.2e}, "
+               f"grads {r['grads']:.2e}, params {r['params']:.2e} (relative; worst leaf, L2)")
+        say(f"  one step, {name:<11s}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} "
+            f"drop {r['moe_drop_frac']:.4f}, {r['step_wall_s']:.4f} s, peak {r['peak_mem_gb']:.1f} "
+            f"GB ({r['above_held_gb']:.1f} above what was held before the step){rel}"
+            f"{'' if name == 'plain' else '; worst gradient leaf ' + r['worst_grad_leaf']}")
+    say("  the einsum step's gradient against plain, by leaf (relative L2): " + ", ".join(
+        f"{n} {r:.2e}" for n, r in readings["einsum"]["grads_by_leaf"].items()))
+    for i, (row, g) in enumerate(zip(by_layer, grads_by_layer)):
+        row["einsum_step_grads"] = g
+        say(f"  layer {i}: top-{mcfg.moe_top_k} routes flipped (einsum forward against "
+            f"gather) {row['routes_flipped']:.4%}; the dispatch alone, gather's FFN input "
+            f"through both: out {row['out_rel']:.2e} of max|out| (limit {BF16_REL_TOL:.4f}), "
+            f"[aux, dropped] equal {row['stats_equal']}; the einsum step's gradient, worst "
+            f"leaf of the layer, {g:.3e} relative L2")
+    bad = [i for i, row in enumerate(by_layer)
+           if not (row["out_rel"] <= BF16_REL_TOL and row["stats_equal"])]
+    if bad or not by_layer[0]["same_input"] or by_layer[0]["routes_flipped"] != 0:
+        fail(f"MoE: einsum dispatch differs from gather on one input (layers {bad}), or the "
+             f"first layer's input or routes differ between the two forwards: {by_layer}")
+    ein, rm = readings["einsum"], readings["remat"]
+    if not (ein["loss_rel"] <= MOE_DISPATCH_REL and ein["grad_norm_rel"] <= MOE_DISPATCH_REL
+            and ein["grads"] <= MOE_DISPATCH_GRAD_REL):
+        fail(f"MoE: einsum dispatch differs from gather beyond {MOE_DISPATCH_REL} (loss, "
+             f"grad_norm) or {MOE_DISPATCH_GRAD_REL} (worst gradient leaf): {ein}")
+    limits = {"loss_rel": RESNET_REL_TOL, "grad_norm_rel": RESNET_REL_TOL,
+              "grads": RESNET_GRAD_TOL, "params": RESNET_REL_TOL}
+    over = {k: rm[k] for k, v in limits.items() if not rm[k] <= v}
+    if over:
+        fail(f"MoE: the remat step differs from the plain one: {over} (limits {limits})")
+    out["one_step"] = readings
+    out["dispatch_by_layer"] = by_layer
+    return out
+
+
+def phase_moe_serve(profile: bool) -> dict:
+    """Phase 12: ServeEngine on the MoE flagship, full depth, bf16."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.models import llama, moe
+    from oim_tpu_torch.serve import ServeEngine
+    from oim_tpu_torch.train.state import tree_leaves
+
+    cfg = moe_flagship()
+    t0 = time.monotonic()
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    say(f"  llama.init on the card: {llama.num_params(cfg):,} params, "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB, "
+        f"{time.monotonic() - t0:.1f} s")
+    rs = np.random.RandomState(1)
+    reqs = [{"name": f"len{n}", "prompt": rs.randint(0, cfg.vocab, n).tolist(),
+             "max_new": MOE_SERVE_NEW, "temperature": 0.0, "seed": i}
+            for i, n in enumerate(SERVE_LENGTHS)]
+    prefix = rs.randint(0, cfg.vocab, SERVE_PREFIX).tolist()
+    reqs += [{"name": f"prefix+{t}", "prompt": prefix + rs.randint(0, cfg.vocab, t).tolist(),
+              "max_new": MOE_SERVE_NEW, "temperature": 0.0, "seed": 20 + j, "shared": True}
+             for j, t in enumerate(MOE_SERVE_TAILS)]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    eng = ServeEngine(params, cfg, device="cuda", **SERVE_ENGINE)
+    t0 = time.monotonic()
+    as_tuple = [(r["prompt"], r["max_new"], 0.0, r["seed"]) for r in reqs]
+    # The second shared-prefix request goes in after the first retired and
+    # donated its prompt's blocks to the store.
+    outs = run_requests(eng, as_tuple[:-1]) + run_requests(eng, as_tuple[-1:])
+    wall = time.monotonic() - t0
+    stats = eng.stats()
+    for r, o in zip(reqs, outs):
+        r["out"] = o
+    eng.stop(drain=True)
+    eng.evict_prefix_store()
+    eng.evict_host_tier()
+    used = eng.pool_stats()["used_pages"]
+    say(f"  {len(reqs)} greedy requests of {[len(r['prompt']) for r in reqs]} tokens, "
+        f"{MOE_SERVE_NEW} new each: all ended by length; prefix hits {stats['prefix_hits']} "
+        f"({stats['prefill_tokens_cached']} tokens from the store); {stats['decode_tokens']} "
+        f"decode tokens in {stats['target_steps']} steps; wall {wall:.2f} s; pages used "
+        f"after drain and eviction {used}")
+    if stats["prefix_hits"] < 1:
+        fail(f"MoE serving: the shared-prefix request missed the prefix store: {stats}")
+    if used:
+        fail(f"MoE serving: {used} pages leaked past drain and eviction")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = []
+    result = serve_measure(cfg, params, reqs, "cuda", profile, calls,
+                           "chip_smoke_moe_serve_profile.json")
+    margin = min(float(moe.router_margin(p["router"], x, c.top_k, set_only=True))
+                 for p, x, c in calls)
+    say(f"  the 8-row first decode step's smallest top-2 router margin (2nd against 3rd "
+        f"expert) over its {len(calls)} layers: {margin:.3e}; "
+        f"the decode bound reads all {cfg.n_experts} experts' weights (no-drop routing "
+        f"runs every expert on every token's slot)")
+    result.update(wall_s=wall, prefix_hits=stats["prefix_hits"],
+                  prefill_tokens_cached=stats["prefill_tokens_cached"],
+                  decode_tokens=stats["decode_tokens"], target_steps=stats["target_steps"],
+                  first_decode_min_router_margin=margin,
+                  kernel_launches=dict(kernels.LAUNCHES),
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_oim_infer() -> dict:
+    """Phase 13: the trainer CLI writes a llama-tiny-moe checkpoint on the
+    card; oim-infer restores it and decodes."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_infer, oim_trainer
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.train.checkpoint import Checkpointer
+
+    prompt = [[1, 2, 3, 4], [50, 60, 70, 80]]
+    with tempfile.TemporaryDirectory(prefix="oim-infer-") as tmp:
+        ck = os.path.join(tmp, "ck")
+        trainer = oim_trainer.run(["--model", "llama-tiny-moe", "--steps", "3", "--batch-size",
+                                   "4", "--seq-len", "64", "--checkpoint-dir", ck,
+                                   "--log-level", "warning"])
+        mcfg = trainer.cfg.model_config()
+        argv = ["--checkpoint-dir", ck, "--model", "llama-tiny-moe", "--prompt",
+                ";".join(",".join(map(str, row)) for row in prompt), "--n-new", "16",
+                "--log-level", "warning"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = oim_infer.main(argv)
+        rows = [[int(t) for t in line.split(",")] for line in buf.getvalue().split()]
+        params = Checkpointer(ck).restore(device="cuda").params
+        want = gen.generate(params, torch.tensor(prompt, device="cuda"), 16, mcfg).tolist()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                empty_rc = oim_infer.main(["--checkpoint-dir", os.path.join(tmp, "empty"),
+                                           "--model", "llama-tiny-moe", "--log-level",
+                                           "warning"])
+        except SystemExit as e:  # a message exits with status 1
+            empty_rc = 1 if isinstance(e.code, str) else e.code
+    say(f"  python -m oim_tpu_torch.cli.oim_infer {' '.join(argv)} -> exit {rc}")
+    for row in rows:
+        say(f"    {','.join(map(str, row))}")
+    say(f"  rows equal to generate() on the restored params: {rows == want}; with no "
+        f"checkpoint: exit {empty_rc!r}")
+    if rc != 0 or rows != want:
+        fail(f"oim-infer: exit {rc}, rows {rows} against generate() {want}")
+    if empty_rc in (0, None):
+        fail("oim-infer: a directory without a checkpoint did not exit nonzero")
+    return {"rows": rows, "equal_to_generate": True, "no_checkpoint_exit": empty_rc}
 
 
 def main() -> int:
@@ -1715,8 +2289,12 @@ def main() -> int:
     say(f"  built {built} in {time.monotonic() - t0:.1f} s")
 
     say("== 3. kernels against their plain versions")
-    cfg = llama.LLAMA3_8B
-    shape = (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    cfg, moe_cfg = llama.LLAMA3_8B, moe_flagship()
+    shapes = {  # the attention of each training path phases 5-11 drive
+        "llama3-8b (phases 5, 8, 9)": (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "MoE flagship (phase 11)": (BATCH, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads,
+                                    moe_cfg.head_dim),
+    }
     odd = [
         # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
         (2, 100, 150, 8, 2, 64, False, torch.bfloat16, 2),   # group 4, full, tq < tk
@@ -1728,7 +2306,7 @@ def main() -> int:
         (1, 150, 150, 8, 4, 64, True, torch.bfloat16, 9),    # wgmma at d 64, causal, ragged
         (1, 96, 96, 4, 2, 96, True, torch.bfloat16, 8),      # bf16, fma route (d 96)
     ]
-    records = phase_kernels(shape, odd)
+    records = phase_kernels(shapes, odd)
 
     say("== 4. llama.tiny: card against CPU")
     phase_agreement()
@@ -1770,7 +2348,22 @@ def main() -> int:
         rec["resnet_launches"] = res["launches"][rec["name"]]
         rec["llama_remat_launches"] = res["llama_remat"]["launches"][rec["name"]]
 
-    say("== 10. summary")
+    say("== 10. MoE: llama.tiny with 4 experts on the card against the CPU")
+    moe_tiny = phase_moe_agreement()
+
+    say("== 11. MoE main path: the MoE flagship trained through the CLI, 8 layers, bf16")
+    moe_main = phase_moe_main(args.profile)
+    for rec in records:
+        rec["moe_launches"] = moe_main["launches"][rec["name"]]
+        rec["moe_routes"] = moe_main["routes"][rec["name"]]
+
+    say("== 12. MoE serving: ServeEngine on the MoE flagship, 8 layers, bf16")
+    moe_serve = phase_moe_serve(args.profile)
+
+    say("== 13. oim-infer: a llama-tiny-moe checkpoint restored and decoded on the card")
+    infer = phase_oim_infer()
+
+    say("== 14. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
@@ -1779,6 +2372,10 @@ def main() -> int:
     say(json.dumps({"oim_fed": fed, "card": card}))
     say(json.dumps({"resnet": {k: v for k, v in res.items() if k != "profile"},
                     "card": card}))
+    say(json.dumps({"moe": {"agreement": moe_tiny,
+                            "train": {k: v for k, v in moe_main.items() if k != "profile"},
+                            "serve": {k: v for k, v in moe_serve.items() if k != "profile"},
+                            "oim_infer": infer}, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,15 @@
-"""oim-trainer for the port: llama or ResNet-50 training on synthetic
-batches, on one CUDA device (``oim_tpu/cli/oim_trainer.py``'s synthetic
-path), with evaluation, checkpoint/resume, remat and a profiler trace.
+"""oim-trainer for the port: llama (dense or MoE) or ResNet-50 training
+on synthetic batches, on one CUDA device (``oim_tpu/cli/oim_trainer.py``'s
+synthetic path), with evaluation, checkpoint/resume, remat and a profiler
+trace. The second example is the MoE flagship at full width (1.85e9
+parameters, 1.04e9 active).
 
     python -m oim_tpu_torch.cli.oim_trainer --model llama3-8b \\
         --override n_layers=2 --steps 5 --batch-size 2 --seq-len 2048
+    python -m oim_tpu_torch.cli.oim_trainer --model llama3-8b \\
+        --override vocab=32768 --override dim=2048 --override n_layers=8 \\
+        --override n_heads=16 --override mlp_dim=8192 --override n_experts=4 \\
+        --override vocab_chunk=0 --steps 4 --batch-size 2 --seq-len 2048
     python -m oim_tpu_torch.cli.oim_trainer --model resnet50 --steps 20 \\
         --batch-size 128 --checkpoint-dir ckpt --checkpoint-every 10 \\
         --eval-every 10 --eval-steps 2
@@ -48,7 +54,7 @@ def _parse_value(val: str):
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("oim-trainer (torch)")
     p.add_argument("--model", default="llama-tiny",
-                   choices=("llama-tiny", "llama3-8b", "resnet50"))
+                   choices=("llama-tiny", "llama-tiny-moe", "llama3-8b", "resnet50"))
     p.add_argument("--override", "--model-override", dest="override", action="append",
                    default=[], metavar="KEY=VALUE",
                    help="override a model-config field (repeatable), e.g. "

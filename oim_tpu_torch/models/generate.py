@@ -29,8 +29,11 @@ stream does not depend on its batch-mates. The streams cannot equal the
 reference's threefry chains; greedy streams equal the reference's token
 for token.
 
-``axis`` (tensor-parallel decode) and MoE configs raise
-``NotImplementedError``: multi-GPU serving is not ported yet.
+MoE configs decode with no drops (``_no_drop``: capacity == tokens of
+the call), so routing is per token and a row's logits do not depend on
+its batch-mates; every expert runs on every token's slot, E x N expert
+rows for N tokens, as in the reference. ``axis`` (tensor-parallel decode)
+raises ``NotImplementedError``: multi-GPU serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from oim_tpu_torch.models.llama import Config, _ffn, check_supported
+from oim_tpu_torch.models.llama import Config, _ffn, check_supported, layer_params
 from oim_tpu_torch.ops.norms import rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -67,8 +70,7 @@ def shard_config(cfg: Config, n: int) -> Config:
 
 def _no_drop(cfg: Config) -> Config:
     """MoE inference must not drop tokens: a capacity factor of
-    n_experts/top_k makes capacity == n_tokens. (The port refuses MoE in
-    ``_check``; this keeps the reference's config rule.)"""
+    n_experts/top_k makes capacity == n_tokens."""
     if not cfg.n_experts:
         return cfg
     factor = cfg.n_experts / cfg.moe_top_k
@@ -83,10 +85,6 @@ def _check(cfg: Config, axis) -> Config:
             "tensor-parallel decode (axis) is not ported yet")
     check_supported(cfg)
     return _no_drop(cfg)
-
-
-def _layer_weights(params, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
 
 
 def init_cache(cfg: Config, batch: int, max_seq: int, device="cuda"):
@@ -176,7 +174,7 @@ def cached_forward(params, tokens, cache, pos: int, cfg: Config,
             cv[:, start:start + T] = v
             return ck, cv, pos
 
-        x = _block(x, _layer_weights(params, i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), cache
 
@@ -247,7 +245,7 @@ def prefill_into_pages(params, tokens, n_tokens: int, pool, page_table,
             pv.index_put_((phys, off), v[0, :keep])
             return _gather(pk, table, S), _gather(pv, table, S), start
 
-        x = _block(x, _layer_weights(params, i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
     last = rmsnorm(x[:, n_tokens - 1], params["final_norm"])
     return (last @ params["lm_head"]).float()[0], pool
 
@@ -286,7 +284,7 @@ def decode_step(params, tokens, pool, page_tables, pos, cfg: Config,
             pv.index_put_((phys, off), v[:, 0])
             return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
 
-        x = _block(x, _layer_weights(params, i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float()[:, 0], pool
 
@@ -327,7 +325,7 @@ def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
             pv.index_put_((phys, off), v)
             return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
 
-        x = _block(x, _layer_weights(params, i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), pool
 

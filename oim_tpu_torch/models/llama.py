@@ -1,18 +1,18 @@
-"""Llama-family decoder-only transformer (``oim_tpu/models/llama.py``),
-dense path: RMSNorm / RoPE / SwiGLU / GQA.
+"""Llama-family decoder-only transformer (``oim_tpu/models/llama.py``):
+RMSNorm / RoPE / SwiGLU / GQA, with the Mixture-of-Experts FFN of
+``models/moe.py`` in place of the dense one when ``n_experts > 0``.
 
 The param tree keeps the JAX package's layout, so weights carry across
-unchanged: layer weights are STACKED along a leading [L, ...] axis and
-``hidden_states`` loops over the layer index (the JAX package scans). The
-default attention is ``ops.attention.attention``: the Hopper flash kernels
-on CUDA, their plain versions on the CPU. bf16 params and activations;
-logits, softmax statistics and loss in f32.
+unchanged: layer weights are STACKED along a leading [L, ...] axis (an MoE
+model's under ``layers["moe"]``) and ``hidden_states`` loops over the
+layer index (the JAX package scans). The default attention is
+``ops.attention.attention``: the Hopper flash kernels on CUDA, their plain
+versions on the CPU. bf16 params and activations; the router, logits,
+softmax statistics and loss in f32.
 
 ``remat`` recomputes each layer in the backward pass under
-``remat_policy`` (``models/remat.py``). Mixture-of-Experts, the pipelined
-losses and sequence parallelism are not ported yet: ``Config`` keeps the
-MoE fields so configs compare field for field, and ``check_supported``
-refuses a config that sets one.
+``remat_policy`` (``models/remat.py``). The pipelined losses, sequence
+parallelism and the logical-axis tables are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from oim_tpu_torch.models import moe as moelib
 from oim_tpu_torch.models import remat as rematlib
 from oim_tpu_torch.ops.attention import attention as default_attention
 from oim_tpu_torch.ops.losses import chunked_softmax_cross_entropy, softmax_cross_entropy
@@ -43,7 +44,8 @@ class Config:
     max_seq: int = 8192
     rope_theta: float = 500000.0
     dtype: Any = torch.bfloat16
-    # Not ported yet (check_supported refuses n_experts > 0): MoE FFN.
+    # n_experts > 0 replaces the dense FFN with a top-k-routed expert FFN
+    # (models/moe.py); dispatch "gather" (index-based) or "einsum".
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -57,6 +59,12 @@ class Config:
     vocab_chunk: int = 0
     # z_loss > 0 adds z_loss * mean(logsumexp^2) to the CE.
     z_loss: float = 0.0
+
+    @property
+    def moe(self) -> moelib.MoEConfig:
+        return moelib.MoEConfig(n_experts=self.n_experts, top_k=self.moe_top_k,
+                                capacity_factor=self.moe_capacity_factor,
+                                dispatch=self.moe_dispatch)
 
     @property
     def q_dim(self) -> int:
@@ -81,9 +89,7 @@ def tiny(vocab: int = 256, dim: int = 64, n_layers: int = 2,
 
 
 def check_supported(cfg: Config) -> None:
-    """Refuse what the port does not run yet, instead of ignoring it."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE (n_experts > 0) is not ported yet")
+    """Refuse a config the port cannot run, instead of ignoring it."""
     if cfg.remat:
         rematlib.check_policy(cfg.remat_policy)
 
@@ -106,31 +112,42 @@ def init(rng: torch.Generator, cfg: Config = LLAMA3_8B, device=None) -> dict:
         return _dense(rng, shape, cfg.dtype, scale, device)
 
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
-    return {
-        "embed": dense((cfg.vocab, D), 0.02),
-        "layers": {
-            "attn_norm": ones(L, D),
-            "wq": dense((L, D, cfg.q_dim), fan),
-            "wk": dense((L, D, cfg.kv_dim), fan),
-            "wv": dense((L, D, cfg.kv_dim), fan),
-            "wo": dense((L, cfg.q_dim, D), cfg.q_dim ** -0.5),
-            "mlp_norm": ones(L, D),
-            "w_gate": dense((L, D, cfg.mlp_dim), fan),
-            "w_up": dense((L, D, cfg.mlp_dim), fan),
-            "w_down": dense((L, cfg.mlp_dim, D), cfg.mlp_dim ** -0.5),
-        },
-        "final_norm": ones(D),
-        "lm_head": dense((D, cfg.vocab), fan),
+    embed = dense((cfg.vocab, D), 0.02)
+    layers = {
+        "attn_norm": ones(L, D),
+        "wq": dense((L, D, cfg.q_dim), fan),
+        "wk": dense((L, D, cfg.kv_dim), fan),
+        "wv": dense((L, D, cfg.kv_dim), fan),
+        "wo": dense((L, cfg.q_dim, D), cfg.q_dim ** -0.5),
+        "mlp_norm": ones(L, D),
     }
+    if cfg.n_experts:
+        layers["moe"] = moelib.init(rng, D, cfg.mlp_dim, cfg.moe, cfg.dtype,
+                                    n_layers=L, device=device)
+    else:
+        layers.update(w_gate=dense((L, D, cfg.mlp_dim), fan),
+                      w_up=dense((L, D, cfg.mlp_dim), fan),
+                      w_down=dense((L, cfg.mlp_dim, D), cfg.mlp_dim ** -0.5))
+    return {"embed": embed, "layers": layers, "final_norm": ones(D),
+            "lm_head": dense((D, cfg.vocab), fan)}
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s weights from the stacked [L, ...] tree, nested
+    subtrees (``moe``) included."""
+    return {name: layer_params(w, i) if isinstance(w, dict) else w[i]
+            for name, w in layers.items()}
 
 
 AttentionFn = Callable[..., Any]  # (q, k, v, causal=...) -> out
 
 
 def _ffn(h, layer, cfg: Config):
-    """Dense SwiGLU FFN on the pre-normed activations; returns (out, aux)
-    with aux the zero [load_balance_loss, dropped_fraction] vector of a
-    dense layer."""
+    """The FFN half of a block on the pre-normed activations; returns
+    (out, aux), aux the f32 [load_balance_loss, dropped_fraction] vector
+    (zeros for the dense FFN)."""
+    if cfg.n_experts:
+        return moelib.apply(layer["moe"], h, cfg.moe, with_stats=True)
     gated = F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])
     return gated @ layer["w_down"], torch.zeros(2, dtype=torch.float32, device=h.device)
 
@@ -152,7 +169,8 @@ def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn):
 
 def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
                   attn_fn: AttentionFn | None = None):
-    """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2])."""
+    """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2]:
+    the summed MoE load-balance loss and per-layer drop fraction)."""
     check_supported(cfg)
     if attn_fn is None:
         attn_fn = default_attention
@@ -162,7 +180,7 @@ def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
     layers = params["layers"]
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        layer = {name: w[i] for name, w in layers.items()}
+        layer = layer_params(layers, i)
         if cfg.remat:
             x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn,
                                        policy=cfg.remat_policy)
@@ -192,10 +210,12 @@ def _z_term(logits, labels, ignore_index, z_loss):
 
 def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
                    attn_fn: AttentionFn | None = None, ignore_index: int = -1):
-    """Next-token CE over tokens [B, T+1]; returns (loss, stats). With
+    """Next-token CE (plus the weighted MoE aux) over tokens [B, T+1];
+    returns (loss, stats). An MoE model reports stats["moe_drop_frac"],
+    the mean per-layer share of routing assignments over capacity. With
     cfg.vocab_chunk the CE comes straight from the hidden states."""
     stats = {}
-    x, _ = hidden_states(params, tokens[:, :-1], cfg, attn_fn)
+    x, aux = hidden_states(params, tokens[:, :-1], cfg, attn_fn)
     labels = tokens[:, 1:]
     if cfg.vocab_chunk:
         loss = chunked_softmax_cross_entropy(
@@ -208,6 +228,9 @@ def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
         loss = softmax_cross_entropy(logits, labels, ignore_index, z_loss=cfg.z_loss)
         if cfg.z_loss:
             stats["z_loss_term"] = _z_term(logits, labels, ignore_index, cfg.z_loss)
+    if cfg.n_experts:
+        loss = loss + cfg.moe_aux_weight * aux[0]
+        stats["moe_drop_frac"] = aux[1] / cfg.n_layers
     return loss, stats
 
 
@@ -217,19 +240,32 @@ def loss_fn(params, tokens, cfg: Config = LLAMA3_8B,
     return loss_and_stats(params, tokens, cfg, attn_fn, ignore_index)[0]
 
 
-def num_params(cfg: Config = LLAMA3_8B) -> int:
-    """Total parameters (dense FFN)."""
+def _param_counts(cfg: Config, experts: int) -> int:
     L, D = cfg.n_layers, cfg.dim
-    per_layer = (2 * D + D * cfg.q_dim + 2 * D * cfg.kv_dim + cfg.q_dim * D
-                 + 3 * D * cfg.mlp_dim)
+    if cfg.n_experts:
+        # The router sees every expert; expert weights count ``experts``.
+        ffn = D * cfg.n_experts + 3 * experts * D * cfg.mlp_dim
+    else:
+        ffn = 3 * D * cfg.mlp_dim
+    per_layer = 2 * D + D * cfg.q_dim + 2 * D * cfg.kv_dim + cfg.q_dim * D + ffn
     return cfg.vocab * D + L * per_layer + D + D * cfg.vocab
 
 
+def num_params(cfg: Config = LLAMA3_8B) -> int:
+    """Total parameters (every expert: the memory number)."""
+    return _param_counts(cfg, cfg.n_experts)
+
+
+def num_active_params(cfg: Config = LLAMA3_8B) -> int:
+    """Parameters a token touches (top_k experts: the FLOPs number)."""
+    return _param_counts(cfg, min(cfg.moe_top_k, cfg.n_experts))
+
+
 def num_flops_per_token(cfg: Config = LLAMA3_8B, seq_len: int | None = None) -> float:
-    """Training FLOPs/token: 6*N plus the attention quadratic term (per
-    layer, per token, 2*T*q_dim for QK^T and 2*T*q_dim for PV forward;
-    x3 for forward and backward)."""
-    flops = 6.0 * num_params(cfg)
+    """Training FLOPs/token: 6 x the ACTIVE params plus the attention
+    quadratic term (per layer, per token, 2*T*q_dim for QK^T and 2*T*q_dim
+    for PV forward; x3 for forward and backward)."""
+    flops = 6.0 * num_active_params(cfg)
     if seq_len:
         flops += 4.0 * seq_len * cfg.q_dim * 3 * cfg.n_layers
     return flops

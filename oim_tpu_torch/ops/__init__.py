@@ -15,7 +15,7 @@ from oim_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy,
     softmax_cross_entropy,
 )
-from oim_tpu_torch.ops.norms import rmsnorm
+from oim_tpu_torch.ops.norms import layernorm, rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 __all__ = [
@@ -26,6 +26,7 @@ __all__ = [
     "chunked_softmax_cross_entropy",
     "flash_attention",
     "flash_attention_lse",
+    "layernorm",
     "mha_reference",
     "ref_attention_lse",
     "rmsnorm",

@@ -2,13 +2,16 @@
 its evaluation, and the loop that logs loss, grad_norm, step_s and mfu,
 evaluates and checkpoints.
 
-Ported: ``TrainConfig`` for the llama models and resnet50 (with remat and
-its policies), ``make_train_step`` with rules "dp" on one device and
-gradient accumulation, ``synthetic_batches`` (the same numpy streams as
-the JAX package), ``flops_per_step``, ``peak_flops_per_device`` and
+Ported: ``TrainConfig`` for the llama models (dense and MoE) and resnet50
+(with remat and its policies), ``make_train_step`` with rules "dp" on one
+device and gradient accumulation, ``synthetic_batches`` (the same numpy
+streams as the JAX package), ``flops_per_step`` (an MoE model's on its
+active parameters), ``peak_flops_per_device`` and
 ``peak_hbm_bw_per_device`` (keyed on the CUDA device name), and
-``Trainer`` with ``init_or_resume``, ``evaluate`` and ``run``. Meshes
-(fsdp, tp_sp, pipe), MoE and the metrics gauges are not ported yet.
+``Trainer`` with ``init_or_resume``, ``evaluate`` and ``run``. A model's
+stats (an MoE model's ``moe_drop_frac``) ride the step's stats, averaged
+over the microbatches, into the history. Meshes (fsdp, tp_sp, pipe) and
+the metrics gauges are not ported yet.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, then the optimizer's in-place update.
@@ -77,7 +80,7 @@ def peak_hbm_bw_per_device(device="cuda") -> float:
 
 @dataclasses.dataclass
 class TrainConfig:
-    model: str = "llama-tiny"  # llama-tiny | llama3-8b | resnet50
+    model: str = "llama-tiny"  # llama-tiny | llama-tiny-moe | llama3-8b | resnet50
     rules: str = "dp"  # only "dp" on one device is ported
     remat: bool = False  # recompute activations in bwd (fit big configs)
     remat_policy: str = ""  # "", "dots", "dots_with_no_batch_dims", "nothing"
@@ -103,13 +106,15 @@ class TrainConfig:
     def model_config(self):
         if self.model == "llama-tiny":
             mcfg = llama.tiny()
+        elif self.model == "llama-tiny-moe":
+            mcfg = llama.tiny(n_experts=4)
         elif self.model == "llama3-8b":
             mcfg = llama.LLAMA3_8B
         elif self.model == "resnet50":
             mcfg = resnet.Config(num_classes=self.num_classes)
         else:
             raise ValueError(f"unknown model {self.model!r} "
-                             "(ported: llama-tiny, llama3-8b, resnet50)")
+                             "(ported: llama-tiny, llama-tiny-moe, llama3-8b, resnet50)")
         if self.remat_policy and not self.remat:
             raise ValueError(
                 "remat_policy without remat does nothing — pass remat=True "

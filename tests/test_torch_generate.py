@@ -256,8 +256,6 @@ def test_generate_edges_and_refusals(model):
     with pytest.raises(NotImplementedError, match="axis"):
         tgen.decode_step(tp, torch.tensor([1]), pool, torch.ones(1, 2, dtype=torch.long),
                          torch.tensor([0]), tcfg, PAGE, axis="tp")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgen.generate(tp, prompt, 2, dataclasses.replace(tcfg, n_experts=4))
 
 
 def test_shard_config_and_pool_shapes_match_jax():

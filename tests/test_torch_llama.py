@@ -122,9 +122,6 @@ def test_loss_fn_is_loss_of_loss_and_stats():
 
 
 def test_unported_options_refuse():
-    cfg = dataclasses.replace(tllama.tiny(), n_experts=4)
-    with pytest.raises(NotImplementedError):
-        tllama.hidden_states({}, torch.zeros((1, 4), dtype=torch.long), cfg)
     cfg = dataclasses.replace(tllama.tiny(), remat=True, remat_policy="everything")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.hidden_states({}, torch.zeros((1, 4), dtype=torch.long), cfg)

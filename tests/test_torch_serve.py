@@ -730,10 +730,8 @@ def test_unported_engine_knobs_refuse(model, kw):
         engine(model, **kw)
 
 
-def test_engine_refuses_moe_and_bad_spec_configs(model):
+def test_engine_refuses_bad_spec_configs(model):
     _, tp, _, tcfg = model
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServeEngine(tp, dataclasses.replace(tcfg, n_experts=4), device="cpu")
     with pytest.raises(ValueError, match="draft_params AND"):
         engine(model, spec_tokens=2)
     with pytest.raises(ValueError, match="vocab"):
