@@ -13,7 +13,10 @@ Phases, in order; any failure exits nonzero:
    versions, TF32 off for every float32 product.
 2. build: the three flash-attention kernels compiled from
    ``oim_tpu_torch/kernels/csrc`` (one nvcc per source, all at once), with
-   ptxas's register and spill lines printed.
+   ptxas's register and spill lines printed; then the C++ read engine
+   compiled by g++ from ``native/staging.cc`` into
+   ``oim_tpu_torch/data/build/`` and loaded (g++'s version and whether
+   libjpeg was found printed). A failed build fails the run.
 3. kernels: each kernel (K1 forward, K2 dK/dV, K3 dQ) held against its
    plain PyTorch version on the same inputs, at the attention shape of
    each training path the script drives (llama3-8b's, GQA group 4, for
@@ -70,15 +73,21 @@ Phases, in order; any failure exits nonzero:
    byte, a restage after unstage is served from the cache (no plane call,
    the same storage), a stage unstaged after FED_CANCEL_AT landed bytes
    ends FAILED "unmapped during staging", and after eviction
-   ``memory_allocated`` is back where the phase began; then the Trainer
-   of phase 5 runs STEPS steps on ``volume_token_batches`` of the staged
-   volume, with phase 5's checks (finite losses, the first near
+   ``memory_allocated`` is back where the phase began, and unless the
+   cold stage read through the native engine (``read_path()``); then the
+   Trainer of phase 5 runs STEPS steps on ``volume_token_batches`` of the
+   staged volume, with phase 5's checks (finite losses, the first near
    ln(vocab), K1-K3 at LAYERS x STEPS launches each, all on ``wgmma``).
    It prints the stage's time, GB/s and breakdown (disk_s, h2d_s,
-   dispatch_s), two yardsticks timed in the same run (a pinned 64 MiB
-   copy to the card, ``read_into`` of the file alone) and the stage's
-   bound from them, the cache-hit time, and step_s and MFU beside phase
-   5's; then the ``oim_fed`` JSON line.
+   dispatch_s), yardsticks timed in the same run (a pinned 64 MiB copy to
+   the card; the file read alone into a torch-pinned 64 MiB buffer by
+   each read engine, native with 8 threads, io_uring and preadv threads,
+   in two rounds of turned order, each read byte-checked against the
+   file, an engine the host refuses
+   recorded as "unavailable: <errno>"; all from a warm page cache) and
+   the stage's bound from the H2D and the fastest engine, the cache-hit
+   time, and step_s and MFU beside phase 5's; then the ``oim_fed`` JSON
+   line (``read_gbps_by_engine``).
 9. OIM-fed ResNet-50, bench.py's cell at full width (bench.py:333-342,
    :426-500): 1024 seeded uint8 images [1024,224,224,3] written raw to a
    temporary directory, staged through ``CUDABackend`` and checked byte
@@ -140,10 +149,31 @@ Phases, in order; any failure exits nonzero:
    card, ``oim_infer.main`` restores it, and its greedy rows must equal
    ``generate()`` on the restored params; a directory with no checkpoint
    must exit nonzero.
-14. the main-path, serve, oim_fed, resnet and moe lines and the kernels
-   line (JSON), the card line, and the last line ``{"ok": true, "device":
-   {...}}``. Beside the contract's keys each kernel record has
-   ``oim_fed_launches`` (phase 8's launches), ``resnet_launches`` and
+14. sources: the data plane's other sources staged through
+   ``CUDABackend()`` on the card from a temporary directory (which must
+   have room) and a loopback object gateway (a ThreadingHTTPServer
+   answering HEAD, ranged GET and ETag, with HTTP Basic auth where an
+   object asks for it), each volume >= 1 GiB (``phase_sources`` lists the
+   cuts). TFRecord: 8 ImageNet-style shards of framed tf.Examples staged
+   on the native engine, equal to the files on the card, walked back with
+   ``iter_tfrecord_bytes`` + ``parse_example`` (count and every label as
+   written), restaged as a cache hit with no plane call. webdataset by
+   ``http://`` URL: 4 tar shards of ``.bin`` members of SEQ + 1 int32
+   tokens, equal to the shards, the tokens recovered by ``_wds_tokens``
+   equal to those written, an unchanged restage a hit, a shard whose
+   bytes and ETag change a miss and a restage equal to the new bytes;
+   then phase 5's Trainer for STEPS steps on those tokens with phase 5's
+   checks. ceph: one 1 GiB object behind Basic auth (``CephParams``),
+   equal to the object; with a wrong secret the volume ends FAILED with
+   the gateway's 401 and ``memory_allocated`` is back where it was. Each
+   kind prints its stage GB/s and breakdown against its bound (the slower
+   of its source read alone and the pinned H2D); the ``sources`` JSON
+   line carries them.
+15. the main-path, serve, oim_fed, resnet, moe and sources lines and the
+   kernels line (JSON), the card line, and the last line ``{"ok": true,
+   "device": {...}}``. Beside the contract's keys each kernel record has
+   ``oim_fed_launches`` (phase 8's launches), ``sources_launches`` (phase
+   14's), ``resnet_launches`` and
    ``llama_remat_launches`` (phase 9's), ``moe_launches`` and
    ``moe_routes`` (phase 11's), ``max_abs_err_by_path`` (phase 3's
    error at each path's shape; ``max_abs_err`` is the largest), ``routes`` (the main path's
@@ -160,12 +190,16 @@ repository (it imports the port from the directory it sits in).
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
+import http.server
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tarfile
 import time
 from pathlib import Path
 
@@ -426,6 +460,32 @@ def phase_kernels(shapes: dict, odd_cases) -> list[dict]:
     del lib_out
     torch.cuda.empty_cache()
     return records
+
+
+def build_read_engine() -> dict:
+    """Phase 2's second half: the C++ read engine compiled from
+    ``native/staging.cc`` into ``oim_tpu_torch/data/build/`` and loaded."""
+    from oim_tpu_torch.data import staging
+
+    cxx = staging.compiler()
+    try:
+        version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError) as e:
+        fail(f"the read engine's compiler {cxx!r} does not run: {e}")
+    jpeg = staging.has_jpeg()
+    t0 = time.monotonic()
+    try:
+        lib = staging.build()
+    except staging.StagingError as e:
+        fail(f"the native read engine did not build: {e}")
+    build_s = time.monotonic() - t0
+    if staging.native_lib() is None:
+        fail(f"the native read engine at {lib} does not load")
+    say(f"  read engine: {lib.relative_to(ROOT)} from native/staging.cc in {build_s:.1f} s "
+        f"({version}; libjpeg {'found: -ljpeg' if jpeg else 'not found: no JPEG decoder'})")
+    return {"path": str(lib.relative_to(ROOT)), "compiler": version, "libjpeg": jpeg,
+            "build_s": build_s}
 
 
 def phase_agreement():
@@ -1178,25 +1238,64 @@ def check_volume_bytes(arr, path: str) -> None:
                  f"{int(mm[first])}")
 
 
-def stage_yardsticks(path: str, nbytes: int) -> dict:
-    """The two halves of a stage timed alone in this run: one pinned
-    FED_CHUNK copy to the card (CUDA events), and the file read in
-    FED_CHUNK pieces by ``read_into`` (host clock)."""
+def h2d_gbps() -> float:
+    """One pinned FED_CHUNK copy to the card, by CUDA events: the H2D half
+    of a stage timed alone."""
+    import torch
+
+    pinned = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(FED_CHUNK, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), 20, warmup=2)
+    return FED_CHUNK / (ms * 1e-3) / 1e9
+
+
+def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    if a.size % 8 == 0 and a.ctypes.data % 8 == 0 and b.ctypes.data % 8 == 0:
+        a, b = a.view(np.uint64), b.view(np.uint64)
+    return bool(np.array_equal(a, b))
+
+
+def time_read_engines(path: str, payload: int, nbytes: int) -> tuple[dict, dict]:
+    """The read half of a stage timed alone, by engine: ``nbytes`` of
+    ``path`` from ``payload`` on, read in FED_CHUNK pieces into one
+    torch-pinned FED_CHUNK buffer (host clock around each read only), in
+    two rounds, the second in the reverse order of the first, so that no
+    engine always reads first. Each piece is compared with the file after
+    its read, untimed. An engine this host refuses is recorded as
+    "unavailable: <reason>", never timed under another's name. Returns
+    GB/s by engine (the mean of the rounds, or the reason) and each
+    round's GB/s by engine."""
     import torch
 
     from oim_tpu_torch.data import staging
 
-    pinned = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True)
-    dev = torch.empty(FED_CHUNK, dtype=torch.uint8, device="cuda")
-    h2d_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), 20, warmup=2)
-    payload = os.path.getsize(path) - nbytes
-    buf = staging.alloc_pinned(FED_CHUNK, pin=False)
-    t0 = time.monotonic()
-    for off in range(0, nbytes, FED_CHUNK):
-        staging.read_into(path, buf[:min(FED_CHUNK, nbytes - off)], offset=payload + off)
-    read_s = time.monotonic() - t0
-    del dev
-    return {"h2d_gbps": FED_CHUNK / (h2d_ms * 1e-3) / 1e9, "read_gbps": nbytes / read_s / 1e9}
+    buf = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True).numpy()
+    mm = np.memmap(path, np.uint8, mode="r")
+    engines, out = [], {}
+    for engine in staging.ENGINES:
+        if engine == "io_uring" and not staging.io_uring_available():
+            out[engine] = f"unavailable: {staging.io_uring_error()}"
+            say(f"  read engine io_uring {out[engine]}")
+        else:
+            engines.append(engine)
+    rounds: dict = {engine: [] for engine in engines}
+    for order in (engines, engines[::-1]):
+        for engine in order:
+            read_s = 0.0
+            for off in range(0, nbytes, FED_CHUNK):
+                n = min(FED_CHUNK, nbytes - off)
+                t0 = time.monotonic()
+                staging.read_into(path, buf[:n], offset=payload + off, engine=engine)
+                read_s += time.monotonic() - t0
+                if staging.read_path() != engine:
+                    fail(f"read engines: asked for {engine}, {staging.read_path()} ran")
+                if not _same_bytes(buf[:n], mm[payload + off:payload + off + n]):
+                    fail(f"read engines: {engine} read other bytes than the file at {off}")
+            rounds[engine].append(nbytes / read_s / 1e9)
+    del mm
+    for engine in engines:
+        out[engine] = sum(rounds[engine]) / len(rounds[engine])
+    return {e: out[e] for e in staging.ENGINES}, rounds
 
 
 def check_stage_after_queued_work(path: str, nbytes: int) -> dict:
@@ -1246,6 +1345,58 @@ def check_stage_after_queued_work(path: str, nbytes: int) -> dict:
     return {"queued_work_block_reused": reused, "queued_work_bytes_equal": equal}
 
 
+def train_on_tokens(tokens, what: str, others: dict) -> dict:
+    """Phase 5's trainer (llama3-8b width, LAYERS layers, B=BATCH, T=SEQ)
+    for STEPS steps on ``volume_token_batches`` of a token tensor on the
+    card, with phase 5's checks: every loss finite, the first near
+    ln(vocab), K1-K3 at LAYERS x STEPS launches each, all on ``wgmma``.
+    ``others`` holds other paths' step_s by name, printed beside and
+    returned with the run's own."""
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.data.feeds import volume_token_batches
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.train import TrainConfig, Trainer
+
+    vocab = llama.LLAMA3_8B.vocab
+    cfg = TrainConfig(model="llama3-8b", model_overrides={"n_layers": LAYERS},
+                      batch_size=BATCH, seq_len=SEQ, warmup_steps=2, total_steps=STEPS,
+                      log_every=1)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.init()
+    feed = volume_token_batches(tokens, cfg)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    trainer.run(steps=STEPS, data=feed)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    steady = hist[1:] if len(hist) > 1 else hist
+    step_s = sum(r["step_s"] for r in steady) / len(steady)
+    mfu = sum(r["mfu"] for r in steady) / len(steady)
+    feed_wait = sum(r["feed_wait_s"] for r in steady) / len(steady)
+    say(f"  losses {losses}")
+    say(f"  launches {launches}, routes {routes}  (want {LAYERS} x {STEPS} each, all wgmma)")
+    say(f"  step_s {step_s:.4f} (steps 2..{STEPS}), MFU {mfu:.4f}; "
+        + "; ".join(f"{k} {v:.4f}" for k, v in others.items())
+        + f"; feed wait {feed_wait * 1e3:.3f} ms a step (a gather of {BATCH} x {SEQ + 1} "
+        f"int32 on the card); wall {wall:.1f} s")
+    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: losses not finite or missing: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0:
+        fail(f"{what}: first loss {losses[0]} not near ln(vocab) {math.log(vocab):.3f}")
+    for name, _ in KERNELS:
+        if launches[name] != LAYERS * STEPS or routes[name]["wgmma"] != LAYERS * STEPS:
+            fail(f"{what}: {name} launched {launches[name]} times ({routes[name]}), want "
+                 f"{LAYERS * STEPS} on wgmma")
+    return {"launches": launches, "routes": routes, "losses": losses, "step_s": step_s,
+            "mfu": mfu, "feed_wait_s": feed_wait, **others}
+
+
 def phase_oim_fed(synthetic_step_s: float) -> dict:
     """Phase 8: a token volume staged from disk through CUDABackend, checked,
     restaged from the cache, cancelled and freed, then fed to the trainer."""
@@ -1255,13 +1406,10 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
 
     import torch
 
-    from oim_tpu_torch import kernels
     from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
     from oim_tpu_torch.data import plane, staging
-    from oim_tpu_torch.data.feeds import volume_token_batches
     from oim_tpu_torch.models import llama
     from oim_tpu_torch.spec import ArraySpec, FileParams
-    from oim_tpu_torch.train import TrainConfig, Trainer
 
     vocab = llama.LLAMA3_8B.vocab
     nbytes = FED_TOKENS * 4
@@ -1310,18 +1458,32 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
         say(f"  cold stage: {stage_s:.3f} s, {out['stage_gbps']:.2f} GB/s; breakdown disk_s "
             f"{bd['disk_s']:.3f} (a page-cache read: the file was just written; "
             f"{out['read_path']}), h2d_s {bd['h2d_s']:.3f}, dispatch_s {bd['dispatch_s']:.3f}")
+        if out["read_path"] != "native":
+            fail(f"oim-fed: the cold stage read through {out['read_path']}, not the native "
+                 "engine built in phase 2")
         say(f"  device bytes: plane model {out['stage_peak_model_bytes']}, growth of "
             f"max_memory_allocated {growth} (volume {nbytes}, limit volume + 2 chunks)")
         if growth > nbytes + 2 * FED_CHUNK or out["plane_calls"] != 1:
             fail(f"oim-fed: device growth {growth} > volume + 2 chunks, or "
                  f"{out['plane_calls']} plane calls for one stage")
-        yard = stage_yardsticks(path, nbytes)
+        engines, rounds = time_read_engines(path, os.path.getsize(path) - nbytes, nbytes)
+        timed = {k: v for k, v in engines.items() if isinstance(v, float)}
+        fastest = max(timed, key=timed.get)
+        yard = {"h2d_gbps": h2d_gbps(), "read_gbps": timed[fastest],
+                "read_gbps_by_engine": engines, "read_gbps_rounds": rounds,
+                "read_engine_fastest": fastest}
         halves = (nbytes / (yard["read_gbps"] * 1e9), nbytes / (yard["h2d_gbps"] * 1e9))
         out.update(yard, bound_s=max(halves), faster_half_s=min(halves),
                    stage_over_bound=stage_s / max(halves))
         say(f"  yardsticks, same run: pinned {FED_CHUNK >> 20} MiB H2D {yard['h2d_gbps']:.2f} "
-            f"GB/s (CUDA events); read_into of the file {yard['read_gbps']:.2f} GB/s")
-        say(f"  stage bound {out['bound_s']:.3f} s (the slower half, read or H2D, alone; "
+            f"GB/s (CUDA events); the file read alone into a pinned {FED_CHUNK >> 20} MiB "
+            "buffer, by engine, mean of two rounds in turned order (all from a warm page "
+            "cache: the file was just written; a cold disk is not measured): " + ", ".join(
+                f"{k} {v:.2f} GB/s ({', '.join(f'{r:.2f}' for r in rounds[k])})"
+                if isinstance(v, float) else f"{k} {v}"
+                for k, v in engines.items()) + f"; fastest {fastest}")
+        say(f"  stage bound {out['bound_s']:.3f} s (the slower half, the fastest engine's read "
+            f"or H2D, alone; "
             f"the faster half takes {out['faster_half_s']:.3f} s): stage / bound "
             f"{out['stage_over_bound']:.2f}")
 
@@ -1368,41 +1530,7 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
         vol, out["restage_s"] = run_stage(backend, "oim-fed", params)
         if vol.state != StageState.READY:
             fail(f"oim-fed: the restage ended {vol.state}: {vol.error}")
-    cfg = TrainConfig(model="llama3-8b", model_overrides={"n_layers": LAYERS},
-                      batch_size=BATCH, seq_len=SEQ, warmup_steps=2, total_steps=STEPS,
-                      log_every=1)
-    trainer = Trainer(cfg, device="cuda")
-    trainer.init()
-    feed = volume_token_batches(vol.array, cfg)
-    kernels.reset_launches()
-    t0 = time.monotonic()
-    trainer.run(steps=STEPS, data=feed)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(kernels.LAUNCHES)
-    routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
-    hist = trainer.history
-    losses = [r["loss"] for r in hist]
-    steady = hist[1:] if len(hist) > 1 else hist
-    step_s = sum(r["step_s"] for r in steady) / len(steady)
-    mfu = sum(r["mfu"] for r in steady) / len(steady)
-    feed_wait = sum(r["feed_wait_s"] for r in steady) / len(steady)
-    say(f"  losses {losses}")
-    say(f"  launches {launches}, routes {routes}  (want {LAYERS} x {STEPS} each, all wgmma)")
-    say(f"  step_s {step_s:.4f} (steps 2..{STEPS}), MFU {mfu:.4f}; phase 5's synthetic-batch "
-        f"step_s {synthetic_step_s:.4f}; feed wait {feed_wait * 1e3:.3f} ms a step (a "
-        f"gather of {BATCH} x {SEQ + 1} int32 on the card); wall {wall:.1f} s")
-    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-        fail(f"oim-fed: losses not finite or missing: {losses}")
-    if abs(losses[0] - math.log(vocab)) > 1.0:
-        fail(f"oim-fed: first loss {losses[0]} not near ln(vocab) {math.log(vocab):.3f}")
-    for name, _ in KERNELS:
-        if launches[name] != LAYERS * STEPS or routes[name]["wgmma"] != LAYERS * STEPS:
-            fail(f"oim-fed: {name} launched {launches[name]} times ({routes[name]}), want "
-                 f"{LAYERS * STEPS} on wgmma")
-    out.update(launches=launches, routes=routes, losses=losses, step_s=step_s, mfu=mfu,
-               feed_wait_s=feed_wait, synthetic_step_s=synthetic_step_s)
-    del trainer, feed
+    out.update(train_on_tokens(vol.array, "oim-fed", {"synthetic_step_s": synthetic_step_s}))
     backend.unstage(vol)
     backend.cache.evict_idle()
     del vol
@@ -2250,6 +2378,412 @@ def phase_oim_infer() -> dict:
     return {"rows": rows, "equal_to_generate": True, "no_checkpoint_exit": empty_rc}
 
 
+# -- sources (phase 14) ----------------------------------------------------
+
+# One-card cuts of real deployments, each volume >= 1 GiB (phase_sources).
+SRC_TF_SHARDS = 8                       # ImageNet's train split: 1,024 shards
+SRC_TF_SHARD_BYTES = 128 << 20          # of about this size each
+SRC_TF_IMAGE_BYTES = (96_000, 124_000)  # ~110 KB a JPEG (seeded bytes, not decoded)
+SRC_WDS_SHARDS = 4
+SRC_WDS_SHARD_BYTES = 256 << 20
+SRC_CEPH_BYTES = 1 << 30
+SRC_CACHE = 8 << 30                     # stage-cache capacity: every volume fits
+SRC_BLOCK = 256 << 20                   # bytes generated and written at a time
+
+
+class _GatewayHandler(http.server.BaseHTTPRequestHandler):
+    """An object gateway: the URL path names a file under the server's
+    root; HEAD, ranged GET (``sendfile``), an ETag from the file's mtime
+    and size (as nginx makes it: a rewrite moves it), and HTTP Basic auth
+    where an object asks for it."""
+
+    def log_message(self, *args):
+        pass
+
+    def _object(self):
+        gw = self.server
+        need = gw.auth.get(self.path)
+        if need and self.headers.get("Authorization") != need:
+            self.send_error(401, "unauthorized")
+            return None
+        path = os.path.join(gw.root, self.path.lstrip("/"))
+        try:
+            st = os.stat(path)
+        except OSError:
+            self.send_error(404, "no such object")
+            return None
+        return path, st.st_size, f'"{st.st_mtime_ns:x}-{st.st_size:x}"'
+
+    def _headers(self, code: int, length: int, etag: str, extra=()) -> None:
+        self.send_response(code)
+        self.send_header("Content-Length", str(length))
+        self.send_header("ETag", etag)
+        for k, v in extra:
+            self.send_header(k, v)
+        self.end_headers()
+
+    def do_HEAD(self):
+        obj = self._object()
+        if obj is not None:
+            self._headers(200, obj[1], obj[2])
+
+    def do_GET(self):
+        obj = self._object()
+        if obj is None:
+            return
+        path, size, etag = obj
+        start, end, code, extra = 0, size - 1, 200, ()
+        rng = self.headers.get("Range", "")
+        if rng.startswith("bytes="):
+            lo, _, hi = rng[len("bytes="):].partition("-")
+            start, end = int(lo), min(int(hi) if hi else size - 1, size - 1)
+            code, extra = 206, (("Content-Range", f"bytes {start}-{end}/{size}"),)
+        self._headers(code, end - start + 1, etag, extra)
+        with open(path, "rb") as f:
+            self.connection.sendfile(f, start, end - start + 1)
+
+
+def _serve_gateway(root: str, auth: dict, port_pipe) -> None:
+    """The gateway process: serves ``root`` on a free loopback port, sends
+    the port back, and runs until it is terminated."""
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _GatewayHandler)
+    server.daemon_threads = True
+    server.root, server.auth = root, auth
+    port_pipe.send(server.server_port)
+    port_pipe.close()
+    server.serve_forever()
+
+
+def basic_auth(user: str, secret: str) -> str:
+    return "Basic " + base64.b64encode(f"{user}:{secret}".encode()).decode()
+
+
+@contextlib.contextmanager
+def object_gateway(root: str, auth: dict):
+    """The gateway in a process of its own (as a real gateway is: it does
+    not share the stager's interpreter lock); yields its base URL and
+    stops the process on the way out."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_serve_gateway, args=(root, auth, send), daemon=True,
+                       name="oim-gateway")
+    proc.start()
+    try:
+        if not recv.poll(60):
+            fail("sources: the object gateway did not start")
+        yield f"http://127.0.0.1:{recv.recv()}"
+    finally:
+        proc.terminate()
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+
+
+def fsync_file(path: str) -> None:
+    with open(path, "rb+") as f:
+        os.fsync(f.fileno())
+
+
+def write_tfrecord_shards(tmp: str, seed: int = 8) -> tuple[list[str], list[int]]:
+    """SRC_TF_SHARDS TFRecord files of framed tf.Examples in the ImageNet
+    convention: ``image/encoded`` (seeded bytes of SRC_TF_IMAGE_BYTES),
+    ``image/class/label`` in 1..1000, height, width and format. Returns
+    the paths and every record's label, in order."""
+    from oim_tpu_torch.data import readers
+
+    rng = np.random.default_rng(seed)
+    paths, labels = [], []
+    for i in range(SRC_TF_SHARDS):
+        blob = rng.integers(0, 256, SRC_TF_SHARD_BYTES + SRC_TF_IMAGE_BYTES[1],
+                            dtype=np.uint8).tobytes()
+        records, pos = [], 0
+        while pos < SRC_TF_SHARD_BYTES:
+            n = int(rng.integers(*SRC_TF_IMAGE_BYTES))
+            label = int(rng.integers(1, 1001))
+            records.append(readers.encode_example({
+                "image/encoded": blob[pos:pos + n], "image/class/label": label,
+                "image/height": int(rng.integers(200, 800)),
+                "image/width": int(rng.integers(200, 800)), "image/format": b"JPEG"}))
+            labels.append(label)
+            pos += n
+        path = os.path.join(tmp, f"train-{i:05d}-of-01024")
+        readers.write_tfrecords(path, records)
+        fsync_file(path)
+        paths.append(path)
+    return paths, labels
+
+
+def write_token_shards(tmp: str, vocab: int, seed: int = 9) -> tuple[list[str], np.ndarray]:
+    """SRC_WDS_SHARDS webdataset tars of ``.bin`` members, each SEQ + 1
+    seeded int32 tokens in [0, vocab) (one training record), written with
+    ``tarfile``. Returns the paths and every token, in order."""
+    rng = np.random.default_rng(seed)
+    member = 512 + -(-(SEQ + 1) * 4 // 512) * 512  # header + padded payload
+    per_shard = -(-SRC_WDS_SHARD_BYTES // member)
+    paths, tokens = [], []
+    for i in range(SRC_WDS_SHARDS):
+        toks = rng.integers(0, vocab, (per_shard, SEQ + 1), dtype=np.int32)
+        path = os.path.join(tmp, f"pretrain-{i:06d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for j, row in enumerate(toks):
+                info = tarfile.TarInfo(f"{i:06d}/{j:08d}.bin")
+                info.size = row.nbytes
+                tf.addfile(info, io.BytesIO(row.tobytes()))
+        fsync_file(path)
+        paths.append(path)
+        tokens.append(toks.reshape(-1))
+    return paths, np.concatenate(tokens)
+
+
+def write_object(path: str, nbytes: int, seed: int = 10) -> None:
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for a in range(0, nbytes, SRC_BLOCK):
+            rng.integers(0, 256, min(SRC_BLOCK, nbytes - a), dtype=np.uint8).tofile(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def check_against_files(arr, paths: list[str], what: str) -> None:
+    """The staged uint8 tensor against the files laid back to back."""
+    import torch
+
+    pos = 0
+    for path in paths:
+        size = os.path.getsize(path)
+        for a in range(0, size, SRC_BLOCK):
+            n = min(SRC_BLOCK, size - a)
+            want = torch.from_numpy(np.fromfile(path, np.uint8, count=n, offset=a)).to(arr.device)
+            got = arr[pos + a:pos + a + n]
+            if got.numel() != n or not torch.equal(got, want):
+                fail(f"sources: {what} differs from {os.path.basename(path)} in bytes "
+                     f"[{a}, {a + n}) (volume offset {pos + a})")
+        pos += size
+    if pos != arr.numel():
+        fail(f"sources: {what} holds {arr.numel()} bytes, the files {pos}")
+
+
+def source_read_gbps(src) -> float:
+    """The volume read alone through the plane's readers (the engine for
+    files, ranged GETs for objects) into a pinned FED_CHUNK buffer, chunk
+    by chunk as a stage reads it (host clock)."""
+    import torch
+
+    from oim_tpu_torch.data import plane
+
+    buf = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True).numpy()
+    t0 = time.monotonic()
+    for off in range(0, src.total_bytes, FED_CHUNK):
+        plane.read_range(src, off, buf[:min(FED_CHUNK, src.total_bytes - off)])
+    return src.total_bytes / (time.monotonic() - t0) / 1e9
+
+
+def phase_sources(others: dict) -> dict:
+    """Phase 14: the data plane's other sources staged through
+    ``CUDABackend()`` (its default cuda device) and checked on the card.
+
+    Cuts, each volume a one-card slice of a real deployment:
+    - TFRecord: SRC_TF_SHARDS of ImageNet's 1,024 train shards (~128 MiB
+      of framed tf.Examples each, ~110 KB seeded image bytes a record,
+      not decoded): 1 GiB.
+    - webdataset by URL (configuration 5's path): SRC_WDS_SHARDS tars of
+      ~256 MiB of ``.bin`` members, SEQ + 1 seeded int32 tokens each, in
+      llama3-8b's vocab: 1 GiB, ~477 M tokens of a pretraining corpus.
+    - ceph: one SRC_CEPH_BYTES object behind the gateway, Basic auth.
+    The object gateway is a ThreadingHTTPServer on 127.0.0.1, in a process
+    of its own, serving the files: its rate is the host's loopback, not a
+    network's."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
+    from oim_tpu_torch.data import objectstore, plane, readers, staging
+    from oim_tpu_torch.data.feeds import _wds_tokens
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.spec import ArraySpec, CephParams, TFRecordParams, WebDatasetParams
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    h2d = h2d_gbps()
+    out: dict = {"h2d_gbps": h2d, "chunk_bytes": FED_CHUNK,
+                 "gateway": "ThreadingHTTPServer on 127.0.0.1 in its own process: loopback, "
+                            "the host's rate, not a network's"}
+    backend = CUDABackend(cache_bytes=SRC_CACHE, chunk_bytes=FED_CHUNK)
+
+    def stage(kind: str, params, name: str):
+        vol = StagedVolume(name, b"", ArraySpec())
+        calls = plane.STAGE_CALLS
+        t0 = time.monotonic()
+        backend.stage(vol, kind, params)
+        vol.wait()
+        return vol, time.monotonic() - t0, plane.STAGE_CALLS - calls
+
+    def cold(kind: str, params, name: str, source: str) -> tuple:
+        """A first stage: READY through one plane call, its time, rate and
+        breakdown against the bound from this run's halves."""
+        vol, stage_s, calls = stage(kind, params, name)
+        if vol.state != StageState.READY or calls != 1:
+            fail(f"sources: {name} ended {vol.state} after {calls} plane calls: {vol.error}")
+        bd = dict(plane.LAST_STAGE_BREAKDOWN)
+        read_path = staging.read_path()
+        nbytes = vol.array.numel()
+        read = source_read_gbps(plane.lower_source(kind, params))
+        halves = (nbytes / (read * 1e9), nbytes / (h2d * 1e9))
+        rec = {"volume_bytes": nbytes, "stage_s": stage_s, "stage_gbps": nbytes / stage_s / 1e9,
+               "breakdown": bd, "read_gbps": read, "bound_s": max(halves),
+               "bound_by": "read" if halves[0] >= halves[1] else "h2d",
+               "stage_over_bound": stage_s / max(halves)}
+        say(f"  {name}: {nbytes / 2**30:.2f} GiB staged in {stage_s:.3f} s, "
+            f"{rec['stage_gbps']:.2f} GB/s; breakdown {source}_s {bd['disk_s']:.3f}, h2d_s "
+            f"{bd['h2d_s']:.3f}, dispatch_s {bd['dispatch_s']:.3f}; the source read alone "
+            f"{read:.2f} GB/s, pinned H2D {h2d:.2f} GB/s: bound {rec['bound_s']:.3f} s "
+            f"({rec['bound_by']}), stage / bound {rec['stage_over_bound']:.2f}")
+        return vol, rec, read_path
+
+    def restage_hits(vol, kind: str, params, name: str) -> float:
+        ptr = vol.array.data_ptr()
+        backend.unstage(vol)
+        hit, hit_s, calls = stage(kind, params, name)
+        same = hit.array is not None and hit.array.data_ptr() == ptr
+        say(f"  {name} restaged unchanged: {hit_s * 1e3:.2f} ms, plane calls {calls}, "
+            f"same storage {same}")
+        if hit.state != StageState.READY or calls or not same:
+            fail(f"sources: the unchanged restage of {name} was not a cache hit")
+        backend.unstage(hit)
+        return hit_s
+
+    vocab = llama.LLAMA3_8B.vocab
+    secret = "oim-gateway-secret"
+    with tempfile.TemporaryDirectory(prefix="oim-sources-") as tmp, object_gateway(
+            tmp, {"/rbd/oim-image-0": basic_auth("oim", secret)}) as gw:
+        need = SRC_TF_SHARDS * SRC_TF_SHARD_BYTES + SRC_WDS_SHARDS * SRC_WDS_SHARD_BYTES \
+            + SRC_CEPH_BYTES + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            fail(f"sources: the temp disk at {tmp} has {free / 2**30:.1f} GiB free, the "
+                 f"volumes need {need / 2**30:.1f} GiB: cut the SRC_ sizes")
+
+        # -- TFRecord --
+        t0 = time.monotonic()
+        tf_paths, labels = write_tfrecord_shards(tmp)
+        say(f"  wrote {SRC_TF_SHARDS} TFRecord shards, {len(labels)} tf.Examples, in "
+            f"{time.monotonic() - t0:.1f} s")
+        params = TFRecordParams(tuple(tf_paths))
+        vol, rec, read_path = cold("tfrecord", params, "tfrecord", "disk")
+        if read_path != "native":
+            fail(f"sources: the TFRecord stage read through {read_path}, not the native engine")
+        rec["read_path"] = read_path
+        check_against_files(vol.array, tf_paths, "the TFRecord volume")
+        t0 = time.monotonic()
+        host = vol.array.cpu().numpy()
+        got = [int(readers.parse_example(r)["image/class/label"][0])
+               for r in readers.iter_tfrecord_bytes(host)]
+        del host
+        say(f"  TFRecord volume equal to its files; copied back and walked: {len(got)} "
+            f"records, labels equal to those written {got == labels} "
+            f"({time.monotonic() - t0:.1f} s)")
+        if got != labels:
+            fail(f"sources: {len(got)} TFRecord labels read back, {len(labels)} written, "
+                 "or a label differs")
+        rec.update(shards=SRC_TF_SHARDS, records=len(labels),
+                   cache_hit_s=restage_hits(vol, "tfrecord", params, "tfrecord"))
+        out["tfrecord"] = rec
+        backend.cache.evict_idle()
+        for path in tf_paths:
+            os.unlink(path)
+
+        # -- webdataset by URL --
+        t0 = time.monotonic()
+        wds_paths, written = write_token_shards(tmp, vocab)
+        urls = [f"{gw}/{os.path.basename(p)}" for p in wds_paths]
+        say(f"  wrote {SRC_WDS_SHARDS} webdataset shards, {written.size // (SEQ + 1)} "
+            f"samples of {SEQ + 1} tokens, in {time.monotonic() - t0:.1f} s; served at {gw}")
+        params = WebDatasetParams(tuple(urls))
+        vol, rec, _ = cold("webdataset", params, "webdataset-url", "network")
+        check_against_files(vol.array, wds_paths, "the webdataset volume")
+        t0 = time.monotonic()
+        host = vol.array.cpu().numpy()
+        tokens = _wds_tokens(host)
+        equal = tokens.shape == written.shape and bool(np.array_equal(tokens, written))
+        del host
+        say(f"  webdataset volume equal to its shards; _wds_tokens recovered {tokens.size} "
+            f"tokens, equal to those written {equal} ({time.monotonic() - t0:.1f} s)")
+        if not equal:
+            fail("sources: the tokens recovered from the webdataset volume differ from "
+                 "those written")
+        train_tokens = torch.from_numpy(tokens.copy()).cuda()
+        del tokens, written
+        rec["cache_hit_s"] = restage_hits(vol, "webdataset", params, "webdataset-url")
+        etag = objectstore.object_validators(urls[-1])[0]
+        with open(wds_paths[-1], "r+b") as f:  # one token of the last shard, same size
+            f.seek(512)
+            old = np.frombuffer(f.read(4), np.int32)[0]
+            f.seek(512)
+            f.write(np.int32((old + 1) % vocab).tobytes())
+        if objectstore.object_validators(urls[-1])[0] == etag:
+            fail("sources: the gateway's ETag did not move with the shard's bytes")
+        misses = backend.cache.stats()["misses"]
+        changed, changed_s, calls = stage("webdataset", params, "webdataset-url")
+        missed = backend.cache.stats()["misses"] - misses
+        say(f"  one shard's bytes and ETag changed: restage {changed_s:.3f} s, plane calls "
+            f"{calls}, cache misses {missed}")
+        if changed.state != StageState.READY or calls != 1 or missed != 1:
+            fail(f"sources: a changed shard restaged {changed.state} with {calls} plane "
+                 f"calls and {missed} misses, want READY, 1 and 1")
+        check_against_files(changed.array, wds_paths, "the changed webdataset volume")
+        rec.update(shards=SRC_WDS_SHARDS, samples=train_tokens.numel() // (SEQ + 1),
+                   changed_restage_s=changed_s)
+        out["webdataset_url"] = rec
+        backend.unstage(changed)
+        del changed, vol
+        backend.cache.evict_idle()
+        for path in wds_paths:
+            os.unlink(path)
+
+        # -- ceph through the gateway --
+        os.mkdir(os.path.join(tmp, "rbd"))
+        obj = os.path.join(tmp, "rbd", "oim-image-0")
+        write_object(obj, SRC_CEPH_BYTES)
+        params = CephParams(monitors=gw, user="oim", secret=secret, pool="rbd",
+                            image="oim-image-0")
+        vol, rec, _ = cold("ceph", params, "ceph", "network")
+        check_against_files(vol.array, [obj], "the ceph volume")
+        say("  ceph volume equal to its object")
+        backend.unstage(vol)
+        del vol
+        backend.cache.evict_idle()
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        wrong, _, _ = stage("ceph", CephParams(monitors=gw, user="oim", secret="wrong",
+                                               pool="rbd", image="oim-image-0"), "ceph-wrong")
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        say(f"  a wrong secret: {wrong.state}, {wrong.error!r}; memory_allocated {after} "
+            f"against {base} before")
+        if wrong.state != StageState.FAILED or "401" not in wrong.error or after != base:
+            fail(f"sources: a wrong ceph secret ended {wrong.state} {wrong.error!r} with "
+                 f"{after - base} device bytes held")
+        rec["wrong_secret_error"] = wrong.error
+        out["ceph"] = rec
+
+    say("  training: phase 5's config on the webdataset volume's tokens")
+    out["train"] = train_on_tokens(train_tokens, "sources", others)
+    out["train"]["tokens"] = train_tokens.numel()
+    del train_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t_phase
+    say(f"  phase wall {out['wall_s']:.1f} s (writing and walking the volumes included)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2283,10 +2817,11 @@ def main() -> int:
         f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    say("== 2. build (nvcc -Xptxas -v: registers and spills per kernel)")
+    say("== 2. build (nvcc -Xptxas -v: registers and spills per kernel; g++: the read engine)")
     t0 = time.monotonic()
     built = kernels.build(verbose=True)
     say(f"  built {built} in {time.monotonic() - t0:.1f} s")
+    native = build_read_engine()
 
     say("== 3. kernels against their plain versions")
     cfg, moe_cfg = llama.LLAMA3_8B, moe_flagship()
@@ -2363,7 +2898,13 @@ def main() -> int:
     say("== 13. oim-infer: a llama-tiny-moe checkpoint restored and decoded on the card")
     infer = phase_oim_infer()
 
-    say("== 14. summary")
+    say("== 14. sources: TFRecord, webdataset by URL and ceph staged on the card")
+    sources = phase_sources({"synthetic_step_s": main["step_s"], "oim_fed_step_s": fed["step_s"]})
+    sources["read_engine"] = native
+    for rec in records:
+        rec["sources_launches"] = sources["train"]["launches"][rec["name"]]
+
+    say("== 15. summary")
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
@@ -2376,6 +2917,7 @@ def main() -> int:
                             "train": {k: v for k, v in moe_main.items() if k != "profile"},
                             "serve": {k: v for k, v in moe_serve.items() if k != "profile"},
                             "oim_infer": infer}, "card": card}))
+    say(json.dumps({"sources": sources, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,7 @@ on the device. Named malloc buffers and sources the extent map cannot
 express (Fortran-order .npy) take the whole-read path instead.
 
 Placement is one device per volume, picked round robin; an ArraySpec that
-names mesh axes raises (multi-GPU placement is ROADMAP A.4). Staged
+names mesh axes raises (multi-GPU placement is ROADMAP A.6). Staged
 tensors live in the content-addressed stage cache (``keep_cached``), and a
 device allocation failure evicts the idle entries and retries once.
 

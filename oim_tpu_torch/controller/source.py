@@ -1,7 +1,6 @@
 """Source loading for the whole-read staging path
 (``oim_tpu/controller/source.py``): MapVolume params into a host numpy
-array. Ported: ``file`` (raw and npy); the other kinds raise
-NotImplementedError naming their ROADMAP item."""
+array (the role of SPDK's bdev constructors in the reference)."""
 
 from __future__ import annotations
 
@@ -9,16 +8,12 @@ from typing import Any
 
 import numpy as np
 
-from oim_tpu_torch.data import readers, staging
+from oim_tpu_torch.data import objectstore, readers, staging, webdataset
 
-# Source kinds load_source accepts ("malloc" is backend-level, not a source).
-SOURCES = ("file",)
-
-_NOT_PORTED = {
-    "tfrecord": "the TFRecord reader (ROADMAP A.2)",
-    "webdataset": "the webdataset reader (ROADMAP A.2)",
-    "ceph": "the object-store source (ROADMAP A.2)",
-}
+# Source kinds load_source accepts ("malloc" is backend-level, not a
+# source). "ceph" reads through the cluster's HTTP object gateway (RGW);
+# "webdataset" shard URLs may be local paths or http(s) objects.
+SOURCES = ("file", "tfrecord", "webdataset", "ceph")
 
 
 def load_source(params_kind: str, params: Any) -> np.ndarray:
@@ -29,7 +24,14 @@ def load_source(params_kind: str, params: Any) -> np.ndarray:
         if fmt == "raw":
             return staging.read_pinned(params.path)
         raise ValueError(f"unknown file format {fmt!r}")
-    if params_kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{params_kind} sources are not ported yet: {_NOT_PORTED[params_kind]}")
+    if params_kind == "tfrecord":
+        return readers.read_tfrecord_batch(list(params.paths))
+    if params_kind == "webdataset":
+        # Shards are staged as their flat tar bytes; the input pipeline
+        # indexes them (data/webdataset.py).
+        return webdataset.read_shards(list(params.shard_urls))
+    if params_kind == "ceph":
+        # The reference maps Ceph volumes as RBD block devices; a volume
+        # here is an object behind the cluster's gateway.
+        return objectstore.read_object(*objectstore.ceph_object(params))
     raise ValueError(f"unknown params kind {params_kind!r}")

@@ -3,8 +3,9 @@ staged volumes keyed by what they ARE, not what they're called.
 
 A staged volume is a pure function of (source content, requested spec,
 placement domain). The cache keys on exactly that: params kind, extent
-locators with their mtime_ns/size fingerprints, the encoded ArraySpec and
-a backend-provided placement signature. An identical re-publish returns
+locators with their fingerprints (a file's mtime_ns and size, an object's
+size, ETag and Last-Modified), the encoded ArraySpec and a
+backend-provided placement signature. An identical re-publish returns
 the resident tensor in O(1) instead of re-reading the source.
 
 Entries are pinned while a mapped volume references them and become
@@ -17,7 +18,7 @@ A tensor has no ``delete()``: an evicted entry frees its device memory by
 dropping the cache's reference (``entry.array = None``); the memory goes
 back to the allocator once no volume or caller holds the tensor either.
 Counts (hits, misses, evictions) are in ``stats()``; the JAX package's
-metrics and events are not ported.
+metrics and events are not ported (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -28,30 +29,46 @@ import threading
 from collections import OrderedDict
 from typing import Any
 
+from oim_tpu_torch.data import objectstore
+
 # Extent kinds whose content identity is cheaply verifiable. Anything else
-# (test-registered reader kinds, mutable host buffers) is uncacheable. The
-# "object" kind waits for the object-store source.
-_FINGERPRINTABLE = ("file",)
+# (test-registered reader kinds, mutable host buffers) is uncacheable.
+_FINGERPRINTABLE = ("file", "object")
 
 
 def fingerprint_source(src) -> tuple | None:
     """Content fingerprint of an ExtentSource, or None when the source's
     identity can't be verified cheaply. Files fingerprint as (locator,
     offset, length, mtime_ns, size): a rewritten file changes mtime/size
-    and therefore the key."""
+    and therefore the key. Objects fingerprint as (locator, offset,
+    length, size, ETag, Last-Modified) by a HEAD: a same-size re-upload
+    moves a validator, and a store that sends neither makes the source
+    uncacheable (a stale hit is worse than a restage)."""
     parts = []
     stats: dict[str, tuple] = {}
     for e in src.extents:
         if e.kind not in _FINGERPRINTABLE:
             return None
-        st = stats.get(e.locator)
-        if st is None:
-            try:
-                s = os.stat(e.locator)
-            except OSError:
-                return None
-            st = stats[e.locator] = (s.st_mtime_ns, s.st_size)
-        parts.append(("file", e.locator, e.offset, e.length) + st)
+        if e.kind == "file":
+            st = stats.get(e.locator)
+            if st is None:
+                try:
+                    s = os.stat(e.locator)
+                except OSError:
+                    return None
+                st = stats[e.locator] = (s.st_mtime_ns, s.st_size)
+            parts.append(("file", e.locator, e.offset, e.length) + st)
+        else:
+            val = stats.get(e.locator)
+            if val is None:
+                try:
+                    val = stats[e.locator] = objectstore.object_validators(
+                        e.locator, src.headers)
+                except OSError:  # the stage itself surfaces I/O errors
+                    return None
+            if not any(val):
+                return None  # no freshness signal: never risk a stale hit
+            parts.append(("object", e.locator, e.offset, e.length, e.object_size) + val)
     return tuple(parts)
 
 

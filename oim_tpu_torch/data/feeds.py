@@ -3,9 +3,11 @@ training batches.
 
 Ported: the whole-volume llama branch of ``feeder_batches`` in local mode
 (the staged tensor cut into [batch, seq_len+1] records with the JAX
-package's index stream), ``SeekableFeed`` and the index generators. The
-windowed feed, the webdataset and TFRecord feeds, image volumes and the
-feeder-driven publish are not ported yet (ROADMAP A.2).
+package's index stream), ``SeekableFeed``, the index generators and the
+webdataset feed's token recovery (``_wds_tokens``). The feeder-driven
+publish and the feeds that take a ``Feeder`` (the webdataset token feed
+around ``_wds_tokens``, ROADMAP A.4.3), the image feeds (A.4.4) and the
+windowed feed (A.4.5) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from oim_tpu_torch.data import webdataset
 
 
 class SeekableFeed:
@@ -82,6 +86,22 @@ def _cycle_token_batches(tokens_flat, cfg, volume: str,
     for idx in _cycle_indices(tokens.shape[0], cfg.batch_size,
                               shuffle_seed, start_batch):
         yield {"tokens": tokens[idx]}
+
+
+def _wds_tokens(shard, ext: str = "bin", volume: str = "") -> np.ndarray:
+    """The int32 tokens of one tar shard (or of shards back to back, as a
+    staged webdataset volume holds them): the payloads under extension
+    ``ext`` of every sample, in shard order, as one flat array."""
+    payloads = [s[ext] for s in webdataset.iter_samples([np.asarray(shard)]) if ext in s]
+    if not payloads:
+        return np.zeros((0,), np.int32)
+    blob = b"".join(payloads)
+    if len(blob) % 4:
+        raise SystemExit(
+            f"webdataset volume {volume!r}: payloads under extension "
+            f"{ext!r} total {len(blob)} bytes, not int32-aligned: is "
+            f"{ext!r} the token member?")
+    return np.frombuffer(blob, dtype=np.int32)
 
 
 def volume_token_batches(array: torch.Tensor, cfg, shuffle_seed: int | None = None,

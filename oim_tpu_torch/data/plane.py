@@ -2,14 +2,17 @@
 byte extents, a placement lowers to byte runs, and one chunked
 read-ahead -> host-to-device pipeline lands the runs in a device tensor.
 
-- **Sources lower to extents** (``lower_source``): a raw file is one
-  extent; a TFRecord path list or a multi-shard webdataset is one extent
-  per file laid back to back (framing and tar bytes stay intact); .npy is
-  its payload extent with dtype/shape lifted from the header.
+- **Sources lower to extents** (``lower_source``): byte ranges of local
+  files ("file") or of HTTP objects ("object", read by ranged GETs). A
+  raw file is one extent; a TFRecord path list or a multi-shard
+  webdataset (local paths or http(s) URLs) is one extent per file or
+  object laid back to back (framing and tar bytes stay intact); a ceph
+  image is one object behind its gateway; .npy is its payload extent
+  with dtype/shape lifted from the header.
 - **One device, one run.** Placement is one device, so the staged view
   is the whole volume as a single byte run; the JAX package's lowering of
   sharded placements to many runs (``slice_runs``) returns with sharded
-  placement (ROADMAP A.4).
+  placement (ROADMAP A.6).
 - **One pipeline.** ``iter_view_chunks`` streams the view through a pool
   of page-locked host buffers filled by a read-ahead thread, and
   ``_stage_view`` copies each chunk from its buffer, on a dedicated copy
@@ -48,14 +51,17 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from oim_tpu_torch.data import staging
+from oim_tpu_torch.data import objectstore, staging
 
 
 @dataclasses.dataclass(frozen=True)
 class Extent:
-    """``length`` bytes at ``offset`` inside a local file ("file"). Tests
-    may register extra kinds in ``READERS`` (e.g. throttled readers).
-    ``object_size`` belongs to the object-store kind, not ported yet."""
+    """``length`` bytes at ``offset`` inside a local file ("file") or a
+    ranged-read HTTP object ("object"). Tests may register extra kinds in
+    ``READERS`` (e.g. throttled readers).
+
+    ``object_size``, set at lowering from Content-Length, lets the ranged
+    reads find an object that changed between sizing and staging."""
 
     kind: str
     locator: str
@@ -71,7 +77,7 @@ class ExtentSource:
     them empty."""
 
     extents: list[Extent]
-    headers: dict[str, str] | None = None
+    headers: dict[str, str] | None = None  # object-store auth
     src_dtype: np.dtype | None = None
     src_shape: tuple[int, ...] | None = None
 
@@ -94,7 +100,13 @@ def _read_file_extent(locator, offset, length, dst, headers):
     staging.read_into(locator, dst[:length], offset=offset)
 
 
+def _read_object_extent(locator, offset, length, dst, headers, object_size=None):
+    objectstore.read_range(locator, offset, length, dst[:length], headers,
+                           expected_total=object_size)
+
+
 READERS["file"] = _read_file_extent
+READERS["object"] = _read_object_extent
 
 
 def read_range(src: ExtentSource, vol_offset: int, dst: np.ndarray) -> None:
@@ -114,8 +126,11 @@ def read_range(src: ExtentSource, vol_offset: int, dst: np.ndarray) -> None:
         ext = src.extents[i]
         inner = vol_offset + filled - src._starts[i]
         n = min(ext.length - inner, need - filled)
+        kwargs = {}
+        if ext.object_size is not None:
+            kwargs["object_size"] = ext.object_size
         READERS[ext.kind](ext.locator, ext.offset + inner, n,
-                          dst[filled:filled + n], src.headers)
+                          dst[filled:filled + n], src.headers, **kwargs)
         filled += n
         i += 1
 
@@ -125,6 +140,11 @@ def read_range(src: ExtentSource, vol_offset: int, dst: np.ndarray) -> None:
 
 def _file_extent(path: str) -> Extent:
     return Extent("file", str(path), 0, os.path.getsize(path))
+
+
+def _object_extent(url: str, headers=None) -> Extent:
+    size = objectstore.content_length(url, headers)
+    return Extent("object", url, 0, size, object_size=size)
 
 
 def _lower_npy(path: str) -> ExtentSource | None:
@@ -151,15 +171,12 @@ def _lower_npy(path: str) -> ExtentSource | None:
     )
 
 
-def _is_url(path: str) -> bool:
-    return path.startswith(("http://", "https://"))
-
-
 def lower_source(params_kind: str, params) -> ExtentSource | None:
     """MapVolume params -> ExtentSource, or None when the source is not
     extent-lowerable (malloc host buffers, exotic formats) and the caller
-    must keep the whole-read path. Runs on the staging thread: missing
-    files surface through the volume's status, never at ``stage``."""
+    must keep the whole-read path. Runs on the staging thread: sizing I/O
+    (stat, HEAD) and a missing file or object surface through the
+    volume's status, never at ``stage``."""
     if params_kind == "file":
         fmt = params.format or "raw"
         if fmt == "raw":
@@ -170,16 +187,13 @@ def lower_source(params_kind: str, params) -> ExtentSource | None:
     if params_kind == "tfrecord":
         return ExtentSource([_file_extent(p) for p in params.paths])
     if params_kind == "webdataset":
-        urls = [u for u in params.shard_urls if _is_url(u)]
-        if urls:
-            raise NotImplementedError(
-                f"webdataset shards by URL ({urls[0]}): the object-store "
-                "source is not ported yet (ROADMAP A.2)")
-        return ExtentSource([_file_extent(u) for u in params.shard_urls])
+        return ExtentSource([
+            _object_extent(u) if objectstore.is_url(u) else _file_extent(u)
+            for u in params.shard_urls
+        ])
     if params_kind == "ceph":
-        raise NotImplementedError(
-            "ceph sources read through the object-store gateway, which is "
-            "not ported yet (ROADMAP A.2)")
+        url, headers = objectstore.ceph_object(params)
+        return ExtentSource([_object_extent(url, headers)], headers=headers or None)
     return None
 
 

@@ -3,9 +3,10 @@ as plain dataclasses with the proto messages' field names.
 
 The card machine has no ``protobuf``, so the port's controller takes these
 in place of ``pb.ArraySpec``, ``pb.FileParams`` and the other params
-messages; the gRPC surface that carries them is not ported yet.
-``spec_bytes`` stands in for ``SerializeToString(deterministic=True)``
-where the stage cache keys on the spec.
+messages (fields in the proto's order); the gRPC surface that carries
+them is not ported yet (ROADMAP A.4). ``spec_bytes`` stands in for
+``SerializeToString(deterministic=True)`` where the stage cache keys on
+the spec.
 """
 
 from __future__ import annotations
@@ -39,6 +40,19 @@ class TFRecordParams:
 @dataclasses.dataclass(frozen=True)
 class WebDatasetParams:
     shard_urls: tuple[str, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class CephParams:
+    """A Ceph image read through the cluster's HTTP object gateway:
+    ``monitors`` names the gateway endpoint, ``pool``/``image`` the
+    object, ``user``/``secret`` the HTTP Basic credentials."""
+
+    monitors: str = ""
+    user: str = ""
+    secret: str = ""
+    pool: str = ""
+    image: str = ""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -424,8 +424,9 @@ def test_missing_file_and_unported_kinds_fail_the_volume(tmp_path):
     backend = CUDABackend(device="cpu")
     vol = stage(backend, "file", tspec.FileParams(str(tmp_path / "nope.bin")))
     assert vol.state == StageState.FAILED and "nope.bin" in vol.error
-    vol = stage(backend, "ceph", None)
-    assert vol.state == StageState.FAILED and "not ported" in vol.error
+    # Every source kind is ported: a ceph volume without its gateway fails.
+    vol = stage(backend, "ceph", tspec.CephParams(pool="rbd", image="vol"))
+    assert vol.state == StageState.FAILED and "monitors" in vol.error
 
 
 def test_cuda_backend_defaults_to_cuda():
@@ -554,8 +555,9 @@ def test_data_plane_modules_import_only_stdlib_numpy_torch_and_the_port():
     chip_smoke.py, which runs there."""
     port = _ROOT / "oim_tpu_torch"
     files = sorted(port.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
-    assert len(files) >= 45
+    assert len(files) >= 47
     assert port / "models" / "moe.py" in files and port / "cli" / "oim_infer.py" in files
+    assert port / "data" / "objectstore.py" in files and port / "data" / "webdataset.py" in files
     allowed = set(sys.stdlib_module_names) | {"numpy", "torch", "oim_tpu_torch"}
     bad = []
     for path in files:

@@ -99,11 +99,21 @@ def test_lower_source_missing_file_raises_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("kind,params", [
-    ("webdataset", tspec.WebDatasetParams(("https://host/shard-0.tar",))),
+    ("webdataset", tspec.WebDatasetParams(("http://127.0.0.1:9/shard-0.tar",))),
     ("ceph", None),
 ])
 def test_unported_sources_raise_not_implemented(kind, params):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    """Both kinds are ported: lowering a shard URL that nothing serves (a
+    closed loopback port) and ceph without params raise as in JAX."""
+    from oim_tpu.data import objectstore as jobjectstore
+    from oim_tpu_torch.data import objectstore as tobjectstore
+
+    jparams = None if params is None else pb.WebDatasetParams(shard_urls=list(params.shard_urls))
+    want = AttributeError if params is None else jobjectstore.ObjectStoreError
+    got = AttributeError if params is None else tobjectstore.ObjectStoreError
+    with pytest.raises(want):
+        jplane.lower_source(kind, jparams)
+    with pytest.raises(got, match=None if params is None else "127.0.0.1:9"):
         tplane.lower_source(kind, params)
 
 
@@ -311,7 +321,13 @@ def test_read_into_parallel_and_short_file(tmp_path):
     dst = np.empty(len(data) - 100, np.uint8)
     tstaging.read_into(path, dst, offset=100, n_threads=4)
     assert dst.tobytes() == data[100:]
-    assert tstaging.read_path() == "preadv"
+    # read_into takes the first engine there is (native, io_uring, preadv).
+    first = ("native" if tstaging.has_native() else
+             "io_uring" if tstaging.io_uring_available() else "preadv")
+    assert tstaging.read_path() == first
+    dst[:] = 0
+    tstaging.read_into(path, dst, offset=100, n_threads=4, engine="preadv")
+    assert dst.tobytes() == data[100:] and tstaging.read_path() == "preadv"
     with pytest.raises(tstaging.StagingError, match="got"):
         tstaging.read_into(path, np.empty(len(data), np.uint8), offset=1)
     whole = tstaging.read_pinned(path)
