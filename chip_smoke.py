@@ -35,9 +35,13 @@ Phases, in order; any failure exits nonzero:
 4. agreement: llama.tiny's loss and gradients on the card (kernels) held
    against the same model on the CPU (plain versions).
 5. main path: the CLI's Trainer on llama3-8b at full width, cut to
-   LAYERS layers, B=BATCH, T=SEQ, for STEPS steps. Every loss finite,
-   the first near ln(vocab), each kernel's launch count equal to
-   n_layers x steps, and every K1, K2 and K3 launch on the wgmma route.
+   LAYERS layers, B=BATCH, T=SEQ, for STEPS steps, with ``--trace-dir``
+   a temporary directory. Every loss finite, the first near ln(vocab),
+   each kernel's launch count equal to n_layers x steps, every K1, K2
+   and K3 launch on the wgmma route, the ``oim_train_step_seconds``,
+   ``oim_train_mfu`` and ``oim_feed_wait_seconds`` gauges equal to the
+   last logged step's values, and the span file one ``train.step`` span
+   for each step.
 6. serving agreement (llama.tiny, f32, TF32 off): ``prefill_into_pages``,
    ``decode_step`` and ``verify_step`` logits on the card held against the
    CPU; the engine's greedy streams on the card equal to solo
@@ -61,6 +65,19 @@ Phases, in order; any failure exits nonzero:
    bound, solo prefill times by bucket, peak memory, greedy agreement
    with solo ``generate()`` (reported, not required), and the ``serve``
    JSON line.
+   Its observability, read back: spans stream to a file in a temporary
+   directory and a ``MetricsServer`` listens on 127.0.0.1 (port 0). One
+   scrape of ``/metrics`` over HTTP after the burst must count each
+   outcome as the handles ended (the cancelled one included), every
+   token the handles received, one first-token latency for each request
+   that emitted one, 3 prefix hits and 3 x 512 prompt tokens from the
+   store; the histogram's inter-token p50 and p99 buckets must lie within
+   one bucket of the host clock's percentiles. The host-tier counters
+   must equal ``host_stats()``, the pages-used gauge read 0 after drain
+   and eviction, and the span file hold one ``serve.queue_wait``, one
+   ``serve.prefill`` and one ``serve.decode`` span for each request.
+   Then ``serve.decode`` is armed on a llama.tiny engine on the card:
+   every request must end "error" and a later submit be refused.
    ``--profile`` adds a torch.profiler breakdown of one 8-row decode step
    (``chiprun_out/chip_smoke_serve_profile.json``).
 8. OIM-fed training: a 4 GiB int32 token volume (FED_TOKENS tokens from a
@@ -87,7 +104,12 @@ Phases, in order; any failure exits nonzero:
    recorded as "unavailable: <errno>"; all from a warm page cache) and
    the stage's bound from the H2D and the fastest engine, the cache-hit
    time, and step_s and MFU beside phase 5's; then the ``oim_fed`` JSON
-   line (``read_gbps_by_engine``).
+   line (``read_gbps_by_engine``). Read back: ``oim_staged_bytes_total``
+   must rise by exactly the bytes of each stage, each engine's reads and
+   none for a cache hit, the stage-cache hit, miss and eviction counters
+   equal the backends' ``StageCache.stats()``, the flight recorder hold
+   one ``stage_cache_eviction`` for each eviction, and
+   ``oim_stage_seconds_total`` rise.
 9. OIM-fed ResNet-50, bench.py's cell at full width (bench.py:333-342,
    :426-500): 1024 seeded uint8 images [1024,224,224,3] written raw to a
    temporary directory, staged through ``CUDABackend`` and checked byte
@@ -131,7 +153,10 @@ Phases, in order; any failure exits nonzero:
    worst gradient leaf within MOE_DISPATCH_GRAD_REL) and with ``--remat
    --remat-policy dots_with_no_batch_dims`` (phase 9's remat limits on
    loss, grad_norm, gradients and params). It prints the parameter counts, step_s,
-   tokens/s, MFU on active FLOPs and peak memory. ``--profile`` adds one
+   tokens/s, MFU on active FLOPs and peak memory. The trainer's gauges
+   (``oim_moe_drop_fraction`` among them) must equal its last logged
+   step's values and the span ring hold one ``train.step`` span for each
+   step. ``--profile`` adds one
    profiled step (``chiprun_out/chip_smoke_moe_profile.json``).
 12. MoE serving: ``ServeEngine`` on the MoE flagship (full depth, bf16,
    weights from ``llama.init`` on the card), 10 seeded greedy requests
@@ -143,7 +168,8 @@ Phases, in order; any failure exits nonzero:
    within SERVE_LOGIT_REL x max|logit| of solo ``cached_forward``, the
    decode step's time beside its bound, which reads all four experts'
    weights; solo prefill by bucket) and the decode rows' smallest router
-   margin. ``--profile`` adds one profiled decode step
+   margin. Phase 7's read-backs of outcomes, tokens, first tokens, prefix
+   hits, pages and spans hold here too. ``--profile`` adds one profiled decode step
    (``chiprun_out/chip_smoke_moe_serve_profile.json``).
 13. oim-infer: the trainer CLI writes a llama-tiny-moe checkpoint on the
    card, ``oim_infer.main`` restores it, and its greedy rows must equal
@@ -168,10 +194,12 @@ Phases, in order; any failure exits nonzero:
    the gateway's 401 and ``memory_allocated`` is back where it was. Each
    kind prints its stage GB/s and breakdown against its bound (the slower
    of its source read alone and the pinned H2D); the ``sources`` JSON
-   line carries them.
-15. the main-path, serve, oim_fed, resnet, moe and sources lines and the
-   kernels line (JSON), the card line, and the last line ``{"ok": true,
-   "device": {...}}``. Beside the contract's keys each kernel record has
+   line carries them. Phase 8's staging read-backs hold for each kind.
+15. the host cost of one ``Histogram.observe`` and one ``events.emit``;
+   the main-path, serve, oim_fed, resnet, moe and sources lines, the
+   ``obs`` line (every phase's read-backs, phase 5's step_s and phase
+   7's and 12's decode step ms beside them) and the kernels line (JSON),
+   the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``oim_fed_launches`` (phase 8's launches), ``sources_launches`` (phase
    14's), ``resnet_launches`` and
    ``llama_remat_launches`` (phase 9's), ``moe_launches`` and
@@ -191,16 +219,22 @@ from __future__ import annotations
 
 import argparse
 import base64
+import bisect
+import collections
 import contextlib
 import http.server
 import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tarfile
+import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -534,7 +568,10 @@ def phase_main_path(profile: bool) -> dict:
     from oim_tpu_torch.cli import oim_trainer
     from oim_tpu_torch.models import llama
 
-    argv = main_path_argv()
+    from oim_tpu_torch.common import tracing
+
+    trace_dir = tempfile.mkdtemp(prefix="oim-trace-")
+    argv = main_path_argv() + ["--trace-dir", trace_dir]
     say(f"  python -m oim_tpu_torch.cli.oim_trainer {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -542,6 +579,10 @@ def phase_main_path(profile: bool) -> dict:
     trainer = oim_trainer.run(argv)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    spans = tracing.load_trace_file(
+        os.path.join(trace_dir, f"oim-trainer-{os.getpid()}.trace.json"))
+    obs = check_train_gauges(trainer.history, spans, steps, "main path")
+    shutil.rmtree(trace_dir, ignore_errors=True)
     launches = dict(kernels.LAUNCHES)
     routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -573,7 +614,8 @@ def phase_main_path(profile: bool) -> dict:
         f"params {llama.num_params(mcfg) / 1e9:.3f}e9  peak mem {peak_gb:.1f} GB  "
         f"wall {wall:.1f} s")
     result = {"launches": launches, "routes": routes, "step_s": step_s, "mfu": mfu,
-              "losses": losses, "tokens_per_s": tokens / step_s, "peak_mem_gb": peak_gb}
+              "losses": losses, "tokens_per_s": tokens / step_s, "peak_mem_gb": peak_gb,
+              "obs": obs}
     if profile:
         result["profile"] = profile_step(trainer)
     return result
@@ -682,6 +724,284 @@ def profile_step(trainer, name: str = "chip_smoke_profile.json") -> dict:
               "categories": cats, "rows": rows}
     (out / name).write_text(json.dumps(result, indent=1))
     return result
+
+
+# -- observability read-backs (phases 5, 7, 8, 11, 12, 14) ------------------
+#
+# The port records the JAX package's metric families, flight-recorder events
+# and spans (oim_tpu_torch/common/{metrics,events,tracing}.py). Each phase
+# reads them back against what it saw itself; registries are process-wide,
+# so every count is a delta between two reads.
+
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text -> {(name, ((label, value), ...)): value}; comment
+    lines and OpenMetrics exemplar suffixes are skipped."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line.split(" # ", 1)[0])
+        if m is None:
+            fail(f"obs: unparsable /metrics line {line!r}")
+        out[(m.group(1), tuple(sorted(_LABEL.findall(m.group(2) or ""))))] = float(m.group(3))
+    return out
+
+
+def sample(snap: dict, name: str, **labels) -> float:
+    return snap.get((name, tuple(sorted((k, str(v)) for k, v in labels.items()))), 0.0)
+
+
+def delta(after: dict, before: dict, name: str, **labels) -> float:
+    return sample(after, name, **labels) - sample(before, name, **labels)
+
+
+def label_deltas(after: dict, before: dict, name: str, label: str) -> dict:
+    """{label value: delta} of one labeled family, nonzero deltas only."""
+    out = {}
+    for (n, labels), v in after.items():
+        if n == name:
+            d = v - before.get((n, labels), 0.0)
+            if d:
+                out[dict(labels)[label]] = d
+    return out
+
+
+def registry_now() -> dict:
+    from oim_tpu_torch.common import metrics as M
+
+    return parse_metrics(M.DEFAULT.render())
+
+
+def scrape(port: int) -> dict:
+    """One GET /metrics of the port's MetricsServer, parsed."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        return parse_metrics(r.read().decode())
+
+
+def settle(pred, what: str, timeout: float = 10.0) -> None:
+    """A request's stream closes just before the engine counts its outcome
+    (the JAX order): wait, bounded, for the engine thread's last counts."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"obs: {what} not recorded within {timeout:.0f} s")
+        time.sleep(0.01)
+
+
+def quantile_bucket(after: dict, before: dict, name: str, q: float, **labels) -> tuple:
+    """(bucket upper bounds, index of the bucket that holds the nearest-rank
+    q-quantile of the observations made between two reads)."""
+    want = {k: str(v) for k, v in labels.items()}
+    rows = []
+    for (n, lab), v in after.items():
+        d = dict(lab)
+        if n == name + "_bucket" and all(d.get(k) == v2 for k, v2 in want.items()):
+            rows.append((float(d["le"]), v - before.get((n, lab), 0.0)))
+    rows.sort()
+    total = rows[-1][1]
+    rank = min(total - 1, int(q * total)) + 1
+    bounds = [le for le, _ in rows]
+    return bounds, next(i for i, (_, cum) in enumerate(rows) if cum >= rank)
+
+
+def check_train_gauges(hist: list, spans: list, steps: int, what: str) -> dict:
+    """The trainer's gauges equal its last logged step, and one train.step
+    span was recorded for each step."""
+    from oim_tpu_torch.common import metrics as M
+
+    last = hist[-1]
+    got = {"step_s": M.TRAIN_STEP_SECONDS.value, "mfu": M.TRAIN_MFU.value,
+           "feed_wait_s": M.FEED_WAIT_SECONDS.value}
+    want = {k: last[k] for k in got}
+    if "moe_drop_frac" in last:
+        got["moe_drop_frac"], want["moe_drop_frac"] = M.MOE_DROP_FRAC.value, last["moe_drop_frac"]
+    steps_seen = [s["args"]["step"] for s in spans if s["name"] == "train.step"]
+    say(f"  obs: gauges {got}; train.step spans for steps {steps_seen}")
+    if got != want:
+        fail(f"{what}: the trainer's gauges {got} are not its last logged step's {want}")
+    if steps_seen != list(range(1, steps + 1)):
+        fail(f"{what}: train.step spans for steps {steps_seen}, want 1..{steps}")
+    return {"gauges": got, "train_step_spans": len(steps_seen)}
+
+
+class ServeObs:
+    """Phases 7 and 12: the port's span recorder streaming to a file in a
+    temporary directory (what ``--trace-dir`` does), a fresh flight
+    recorder, a MetricsServer on 127.0.0.1 at port 0, and the registry as
+    it stood before the burst."""
+
+    def __init__(self, service: str):
+        from oim_tpu_torch.common import events, tracing
+        from oim_tpu_torch.common.metrics import MetricsServer
+
+        self.service = service
+        self.dir = tempfile.mkdtemp(prefix="oim-trace-")
+        self.recorder = tracing.configure(service, trace_dir=self.dir)
+        events.configure()
+        self.server = MetricsServer(port=0, host="127.0.0.1").start()
+        self.before = registry_now()
+
+    def span_names(self) -> collections.Counter:
+        from oim_tpu_torch.common import tracing
+
+        self.recorder.flush()
+        path = os.path.join(self.dir, f"{self.service}-{os.getpid()}.trace.json")
+        return collections.Counter(e["name"] for e in tracing.load_trace_file(path)
+                                   if e.get("ph") == "X")
+
+    def close(self) -> None:
+        from oim_tpu_torch.common import tracing
+
+        self.server.stop()
+        tracing.configure("chip-smoke")  # closes the file; later spans stay in the ring
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def check_burst(obs: ServeObs, reqs: list, what: str) -> tuple[dict, dict]:
+    """After a burst: one scrape over HTTP, held against the handles. Each
+    outcome counted as the handles ended, every token the handles received,
+    one first-token latency for each request that emitted one. Returns the
+    scrape and the read-backs."""
+    from oim_tpu_torch.common import metrics as M
+
+    outcomes = collections.Counter(r["handle"].finish_reason for r in reqs)
+    settle(lambda: sum(label_deltas(registry_now(), obs.before, M.SERVE_REQUESTS_TOTAL.name,
+                                    "outcome").values()) >= len(reqs),
+           f"{what}: the burst's outcomes")
+    after = scrape(obs.server.port)
+    got = {
+        "outcomes": label_deltas(after, obs.before, M.SERVE_REQUESTS_TOTAL.name, "outcome"),
+        "tokens": delta(after, obs.before, M.SERVE_TOKENS_TOTAL.name),
+        "first_tokens": delta(after, obs.before, M.SERVE_TOKEN_LATENCY.name + "_count",
+                              kind="first"),
+    }
+    want = {"outcomes": {k: float(v) for k, v in outcomes.items()},
+            "tokens": float(sum(len(r["out"]) for r in reqs)),
+            "first_tokens": float(sum(1 for r in reqs if r["out"]))}
+    say(f"  obs: /metrics scraped over HTTP after the burst: {got}")
+    if got != want:
+        fail(f"{what}: /metrics reads {got}, the handles saw {want}")
+    return after, got
+
+
+def check_phase_spans(obs: ServeObs, reqs: list, what: str) -> dict:
+    """One serve.queue_wait span for each admitted request and one
+    serve.decode span for each request with more than one token."""
+    names = obs.span_names()
+    got = {k: names[k] for k in ("serve.queue_wait", "serve.decode", "serve.prefill")}
+    want = {"serve.queue_wait": len(reqs),
+            "serve.decode": sum(1 for r in reqs if len(r["out"]) > 1),
+            "serve.prefill": len(reqs)}
+    say(f"  obs: span file {got}")
+    if got != want:
+        fail(f"{what}: the span file holds {got}, want {want}")
+    return got
+
+
+def check_decode_fault() -> dict:
+    """serve.decode armed on a small engine on the card: the loop's
+    catch-all fails every request and the engine admits nothing more."""
+    import torch
+
+    from oim_tpu_torch.common import faultinject
+    from oim_tpu_torch.common import metrics as M
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import Draining, ServeEngine
+
+    cfg = llama.tiny()
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    eng = ServeEngine(params, cfg, device="cuda", max_batch=2, max_seq=64, name="faulty")
+    before = registry_now()
+    faultinject.arm("serve.decode", engine="faulty")
+    try:
+        handles = [eng.submit(list(range(1, 10 + i)), max_new=8) for i in range(3)]
+        outs = [h.result(timeout=RESULT_TIMEOUT) for h in handles]
+        reasons = [h.finish_reason for h in handles]
+        try:
+            eng.submit([1, 2, 3], max_new=2)
+            after_fault = "admitted"
+        except Draining:
+            after_fault = "refused (Draining)"
+    finally:
+        faultinject.reset()
+    eng.stop(quiet=True)
+    errors = delta(registry_now(), before, M.SERVE_REQUESTS_TOTAL.name, outcome="error")
+    say(f"  obs: serve.decode armed on llama.tiny on the card: {len(handles)} requests ended "
+        f"{reasons} after {[len(o) for o in outs]} tokens; a later submit {after_fault}; "
+        f"errors counted {errors:.0f}")
+    if reasons != ["error"] * len(handles) or after_fault == "admitted" \
+            or errors != len(handles) or eng.pool_stats()["used_pages"]:
+        fail(f"serve.decode fault: requests ended {reasons}, a later submit {after_fault}, "
+             f"{errors} errors counted")
+    return {"reasons": reasons, "later_submit": after_fault}
+
+
+class StageObs:
+    """Phases 8 and 14: the stage-cache counters against the backends'
+    ``StageCache.stats()``, the flight recorder's evictions and the stage
+    seconds, from the phase's start; ``staged`` measures the
+    oim_staged_bytes_total delta of one operation."""
+
+    def __init__(self):
+        from oim_tpu_torch.common import events
+
+        self.before = registry_now()
+        self.seq = max((e.seq for e in events.recorder().events()), default=0)
+        self.backends = []
+
+    @staticmethod
+    def staged(fn):
+        """(fn's result, the staged bytes it recorded)."""
+        from oim_tpu_torch.common import metrics as M
+
+        b0 = M.STAGED_BYTES.value
+        out = fn()
+        return out, M.STAGED_BYTES.value - b0
+
+    def check(self, what: str) -> dict:
+        from oim_tpu_torch.common import events
+        from oim_tpu_torch.common import metrics as M
+
+        after = registry_now()
+        stats = [b.cache.stats() for b in self.backends]
+        want = {k: float(sum(s[k] for s in stats)) for k in ("hits", "misses", "evictions")}
+        got = {k: delta(after, self.before, f"oim_stage_cache_{k}_total") for k in want}
+        evicted = sum(1 for e in events.recorder().events()
+                      if e.seq > self.seq and e.type == events.STAGE_CACHE_EVICTION)
+        seconds = delta(after, self.before, M.STAGE_SECONDS.name)
+        say(f"  obs: stage cache counters {got} (StageCache.stats() {want}); "
+            f"stage_cache_eviction events {evicted}; stage seconds {seconds:.3f}")
+        if got != want or evicted != want["evictions"] or not seconds > 0:
+            fail(f"{what}: stage-cache counters {got} against stats() {want}, {evicted} "
+                 f"eviction events, stage seconds {seconds}")
+        return {"cache_counters": got, "eviction_events": evicted, "stage_seconds": seconds}
+
+
+def obs_costs(n: int = 200_000) -> dict:
+    """The host cost of one Histogram.observe with an exemplar (the engine's
+    per-token call, labels() included) and one events.emit, in microseconds,
+    on a registry and a ring of their own."""
+    from oim_tpu_torch.common import events
+    from oim_tpu_torch.common import metrics as M
+
+    h = M.Registry().histogram("cost_seconds", labelnames=("kind",),
+                               buckets=M.SERVE_TOKEN_LATENCY.buckets)
+    rec = events.EventRecorder()
+    t0 = time.perf_counter()
+    for i in range(n):
+        h.labels(kind="next").observe(0.01, "a" * 32)
+    observe_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for i in range(n):
+        rec.emit(events.SLOT_EVICTED, trace_id="", slot=0, reason="cancelled", tokens=i)
+    emit_us = (time.perf_counter() - t0) / n * 1e6
+    say(f"  obs: one Histogram.observe {observe_us:.3f} us, one events.emit {emit_us:.3f} us "
+        f"(host clock, mean of {n})")
+    return {"observe_us": observe_us, "emit_us": emit_us, "n": n}
 
 
 # -- serving (phases 6-7) ------------------------------------------------
@@ -860,8 +1180,11 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     from oim_tpu_torch.models import generate as gen
     from oim_tpu_torch.serve import ServeEngine
 
+    from oim_tpu_torch.common import metrics as M
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    obs = ServeObs("chip-smoke-serve")
     eng = ServeEngine(params, cfg, device=device, **SERVE_ENGINE)
     reqs = serve_traffic(cfg.vocab)
     by = {r["name"]: r for r in reqs}
@@ -910,6 +1233,29 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     if (stats["prefix_hits"], stats["prefill_tokens_cached"]) != (n_hits, n_hits * SERVE_PREFIX):
         fail(f"serving: want {n_hits} prefix hits saving {n_hits * SERVE_PREFIX} tokens, got "
              f"{stats['prefix_hits']} and {stats['prefill_tokens_cached']}")
+    scraped, obs_out = check_burst(obs, reqs, "serving")
+    prefix = {"hits": delta(scraped, obs.before, M.SERVE_PREFIX_HITS.name),
+              "cache_tokens": delta(scraped, obs.before, M.SERVE_PREFILL_TOKENS.name,
+                                    source="cache")}
+    say(f"  obs: prefix hits {prefix['hits']:.0f}, prefill tokens from the store "
+        f"{prefix['cache_tokens']:.0f}")
+    if prefix != {"hits": n_hits, "cache_tokens": n_hits * SERVE_PREFIX}:
+        fail(f"serving: /metrics reads {prefix}, want {n_hits} hits of {SERVE_PREFIX} tokens")
+    host_gaps = [g for r in reqs for g in r["handle"].stats["inter_token_s"]]
+    obs_out["inter_token"] = {}
+    for q in (0.5, 0.99):
+        bounds, i = quantile_bucket(scraped, obs.before, M.SERVE_TOKEN_LATENCY.name, q,
+                                    kind="next")
+        host = pct(host_gaps, q)
+        j = bisect.bisect_left(bounds, host)
+        say(f"  obs: inter-token p{q * 100:.0f}: histogram bucket le={bounds[i]} (bucket "
+            f"{i}), host clock {host * 1e3:.2f} ms (bucket {j}), over {len(host_gaps)} gaps")
+        if abs(i - j) > 1:
+            fail(f"serving: the inter-token p{q * 100:.0f} histogram bucket {i} and the host "
+                 f"clock's bucket {j} differ by more than one")
+        obs_out["inter_token"][f"p{q * 100:.0f}"] = {
+            "histogram_le_s": bounds[i], "host_s": host}
+    obs_out["prefix"] = prefix
 
     freed = eng.evict_prefix_store()  # the engine is idle: every request ended
     host = eng.host_stats()
@@ -926,13 +1272,25 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     if (out != again["out"] or h.stats["prefix_tokens"] != SERVE_PREFIX
             or promoted < SERVE_PREFIX // SERVE_ENGINE["prefix_block"]):
         fail("serving: the request promoted from the host tier did not repeat its first run")
+    now = registry_now()
+    tier = {k: delta(now, obs.before, f"oim_kvtier_{k}_total")
+            for k in ("demotions", "promotions")}
+    say(f"  obs: host-tier counters {tier}, host_stats() {host_after}")
+    if tier != {k: float(host_after[k]) for k in tier}:
+        fail(f"serving: host-tier counters {tier} against host_stats() {host_after}")
     eng.stop(drain=True)
     eng.evict_prefix_store()
     eng.evict_host_tier()
     used = eng.pool_stats()["used_pages"]
-    say(f"  after drain and eviction: {used} pages used")
-    if used:
-        fail(f"serving: {used} pages leaked past drain and eviction")
+    say(f"  after drain and eviction: {used} pages used (gauge "
+        f"{M.SERVE_KV_PAGES_USED.value:.0f})")
+    if used or M.SERVE_KV_PAGES_USED.value:
+        fail(f"serving: {used} pages leaked past drain and eviction (gauge "
+             f"{M.SERVE_KV_PAGES_USED.value})")
+    obs_out["tier"] = tier
+    obs_out["spans"] = check_phase_spans(obs, reqs + [{"out": out}], "serving")
+    obs.close()
+    obs_out["decode_fault"] = check_decode_fault()
 
     # One burst of 12 requests is a functional smoke, not a load: its
     # percentiles (a few samples, queue order decides them) are smoke
@@ -942,7 +1300,7 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     gaps = [g * 1e3 for r in reqs for g in r["handle"].stats["inter_token_s"]]
     result = {
         "model": "llama3-8b" if cfg.dim == 4096 else f"dim {cfg.dim}",
-        "layers": cfg.n_layers, "requests": len(reqs), "engine": SERVE_ENGINE,
+        "layers": cfg.n_layers, "requests": len(reqs), "engine": SERVE_ENGINE, "obs": obs_out,
         "wall_s": wall, "prefix_hits": stats["prefix_hits"],
         "prefill_tokens_cached": stats["prefill_tokens_cached"],
         "decode_tokens": stats["decode_tokens"], "target_steps": stats["target_steps"],
@@ -1267,6 +1625,7 @@ def time_read_engines(path: str, payload: int, nbytes: int) -> tuple[dict, dict]
     round's GB/s by engine."""
     import torch
 
+    from oim_tpu_torch.common import metrics as M
     from oim_tpu_torch.data import staging
 
     buf = torch.empty(FED_CHUNK, dtype=torch.uint8, pin_memory=True).numpy()
@@ -1282,6 +1641,7 @@ def time_read_engines(path: str, payload: int, nbytes: int) -> tuple[dict, dict]
     for order in (engines, engines[::-1]):
         for engine in order:
             read_s = 0.0
+            staged0 = M.STAGED_BYTES.value
             for off in range(0, nbytes, FED_CHUNK):
                 n = min(FED_CHUNK, nbytes - off)
                 t0 = time.monotonic()
@@ -1291,6 +1651,9 @@ def time_read_engines(path: str, payload: int, nbytes: int) -> tuple[dict, dict]
                     fail(f"read engines: asked for {engine}, {staging.read_path()} ran")
                 if not _same_bytes(buf[:n], mm[payload + off:payload + off + n]):
                     fail(f"read engines: {engine} read other bytes than the file at {off}")
+            if M.STAGED_BYTES.value - staged0 != nbytes:
+                fail(f"read engines: {engine} read {nbytes} bytes, oim_staged_bytes_total "
+                     f"rose by {M.STAGED_BYTES.value - staged0}")
             rounds[engine].append(nbytes / read_s / 1e9)
     del mm
     for engine in engines:
@@ -1419,6 +1782,13 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
     base_alloc = torch.cuda.memory_allocated()
     out: dict = {"tokens": FED_TOKENS, "volume_bytes": nbytes, "chunk_bytes": FED_CHUNK,
                  "host_copy": "direct: page-locked reader buffer -> device"}
+    sobs = StageObs()
+    staged: dict = {}
+
+    def expect_staged(name: str, got: float, want: int) -> None:
+        staged[name] = got
+        if got != want:
+            fail(f"oim-fed: {name} staged {want} bytes, oim_staged_bytes_total rose by {got}")
 
     def run_stage(backend, volume_id: str, params) -> tuple:
         vol = StagedVolume(volume_id, b"", ArraySpec())
@@ -1438,15 +1808,19 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
         out["write_s"] = time.monotonic() - t0
         say(f"  wrote {FED_TOKENS} int32 tokens in [0, {vocab}) ({nbytes / 2**30:.0f} GiB .npy) "
             f"in {out['write_s']:.1f} s; {free / 2**30:.0f} GiB were free")
-        out.update(check_stage_after_queued_work(path, nbytes))
+        res, got = sobs.staged(lambda: check_stage_after_queued_work(path, nbytes))
+        out.update(res)
+        expect_staged("plane, two 2-chunk stages", got, 4 * FED_CHUNK)
 
         # -- cold stage --
         params = FileParams(path, "npy")
         backend = CUDABackend(cache_bytes=FED_CACHE, chunk_bytes=FED_CHUNK)
+        sobs.backends.append(backend)
         calls = plane.STAGE_CALLS
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.max_memory_allocated()
-        vol, stage_s = run_stage(backend, "oim-fed", params)
+        (vol, stage_s), got = sobs.staged(lambda: run_stage(backend, "oim-fed", params))
+        expect_staged("cold stage (native)", got, nbytes)
         if vol.state != StageState.READY:
             fail(f"oim-fed: the cold stage ended {vol.state}: {vol.error}")
         growth = torch.cuda.max_memory_allocated() - before
@@ -1496,7 +1870,9 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
         ptr = vol.array.data_ptr()
         backend.unstage(vol)
         calls = plane.STAGE_CALLS
-        hit, out["cache_hit_s"] = run_stage(backend, "oim-fed", params)
+        (hit, out["cache_hit_s"]), got = sobs.staged(lambda: run_stage(backend, "oim-fed",
+                                                                        params))
+        expect_staged("cache hit", got, 0)
         same = hit.array is not None and hit.array.data_ptr() == ptr
         say(f"  restage after unstage: {out['cache_hit_s'] * 1e3:.2f} ms, plane calls "
             f"{plane.STAGE_CALLS - calls}, same storage {same}")
@@ -1506,6 +1882,7 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
 
         # -- cancel, then free --
         other = CUDABackend(cache_bytes=FED_CACHE, chunk_bytes=FED_CHUNK, keep_cached=False)
+        sobs.backends.append(other)
         cvol = StagedVolume("oim-fed-2", b"", ArraySpec())
         other.stage(cvol, "file", params)
         while cvol.state == StageState.STAGING and cvol.bytes_staged < FED_CANCEL_AT:
@@ -1527,12 +1904,16 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
                  f"and eviction")
 
         # -- train on the volume --
-        vol, out["restage_s"] = run_stage(backend, "oim-fed", params)
+        (vol, out["restage_s"]), got = sobs.staged(lambda: run_stage(backend, "oim-fed",
+                                                                      params))
+        expect_staged("restage after eviction", got, nbytes)
         if vol.state != StageState.READY:
             fail(f"oim-fed: the restage ended {vol.state}: {vol.error}")
     out.update(train_on_tokens(vol.array, "oim-fed", {"synthetic_step_s": synthetic_step_s}))
     backend.unstage(vol)
     backend.cache.evict_idle()
+    out["obs"] = {"staged_bytes": staged, **sobs.check("oim-fed")}
+    say(f"  obs: staged bytes by operation {staged}")
     del vol
     gc.collect()
     torch.cuda.empty_cache()
@@ -2118,6 +2499,11 @@ def phase_moe_main(profile: bool) -> dict:
     routes = {name: dict(r) for name, r in kernels.ROUTES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, hist = trainer.cfg, trainer.history
+    from oim_tpu_torch.common import tracing
+
+    # The CLI installed a fresh span ring for this run.
+    obs = check_train_gauges(hist, [s.to_event(0) for s in tracing.recorder().spans()],
+                             MOE_STEPS, "MoE main path")
     mcfg = cfg.model_config()
     losses = [r["loss"] for r in hist]
     drops = [r.get("moe_drop_frac") for r in hist]
@@ -2155,7 +2541,7 @@ def phase_moe_main(profile: bool) -> dict:
            "flops_per_step": flops_per_step(cfg), "losses": losses, "moe_drop_frac": drops,
            "launches": launches, "routes": routes, "step_s": step_s,
            "step1_s": hist[0]["step_s"], "tokens_per_s": tokens / step_s, "mfu": mfu,
-           "peak_mem_gb": peak_gb}
+           "peak_mem_gb": peak_gb, "obs": obs}
 
     if profile:
         out["profile"] = profile_step(trainer, "chip_smoke_moe_profile.json")
@@ -2283,20 +2669,41 @@ def phase_moe_serve(profile: bool) -> dict:
              for j, t in enumerate(MOE_SERVE_TAILS)]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    from oim_tpu_torch.common import metrics as M
+
+    obs = ServeObs("chip-smoke-moe-serve")
     eng = ServeEngine(params, cfg, device="cuda", **SERVE_ENGINE)
     t0 = time.monotonic()
-    as_tuple = [(r["prompt"], r["max_new"], 0.0, r["seed"]) for r in reqs]
+    as_tuple = [(r["prompt"], r["max_new"], r["temperature"], r["seed"]) for r in reqs]
     # The second shared-prefix request goes in after the first retired and
     # donated its prompt's blocks to the store.
-    outs = run_requests(eng, as_tuple[:-1]) + run_requests(eng, as_tuple[-1:])
+    handles, outs = [], []
+    for batch in (as_tuple[:-1], as_tuple[-1:]):
+        hs = [eng.submit(p, max_new=n, temperature=t, seed=sd) for p, n, t, sd in batch]
+        outs += [h.result(timeout=RESULT_TIMEOUT) for h in hs]
+        handles += hs
     wall = time.monotonic() - t0
+    for r, h, o in zip(reqs, handles, outs):
+        r["out"], r["handle"] = o, h
+        if h.finish_reason != "length" or len(o) != r["max_new"]:
+            fail(f"MoE serving: {r['name']} ended {h.finish_reason!r} after {len(o)} of "
+                 f"{r['max_new']} tokens; engine error: {eng.error}")
     stats = eng.stats()
-    for r, o in zip(reqs, outs):
-        r["out"] = o
+    scraped, obs_out = check_burst(obs, reqs, "MoE serving")
+    prefix = {"hits": delta(scraped, obs.before, M.SERVE_PREFIX_HITS.name),
+              "cache_tokens": delta(scraped, obs.before, M.SERVE_PREFILL_TOKENS.name,
+                                    source="cache")}
+    if prefix != {"hits": stats["prefix_hits"], "cache_tokens": stats["prefill_tokens_cached"]}:
+        fail(f"MoE serving: /metrics reads {prefix}, stats() {stats}")
     eng.stop(drain=True)
     eng.evict_prefix_store()
     eng.evict_host_tier()
     used = eng.pool_stats()["used_pages"]
+    if M.SERVE_KV_PAGES_USED.value:
+        fail(f"MoE serving: the pages-used gauge reads {M.SERVE_KV_PAGES_USED.value} after "
+             "drain and eviction")
+    obs_out.update(prefix=prefix, spans=check_phase_spans(obs, reqs, "MoE serving"))
+    obs.close()
     say(f"  {len(reqs)} greedy requests of {[len(r['prompt']) for r in reqs]} tokens, "
         f"{MOE_SERVE_NEW} new each: all ended by length; prefix hits {stats['prefix_hits']} "
         f"({stats['prefill_tokens_cached']} tokens from the store); {stats['decode_tokens']} "
@@ -2318,7 +2725,7 @@ def phase_moe_serve(profile: bool) -> dict:
         f"expert) over its {len(calls)} layers: {margin:.3e}; "
         f"the decode bound reads all {cfg.n_experts} experts' weights (no-drop routing "
         f"runs every expert on every token's slot)")
-    result.update(wall_s=wall, prefix_hits=stats["prefix_hits"],
+    result.update(wall_s=wall, prefix_hits=stats["prefix_hits"], obs=obs_out,
                   prefill_tokens_cached=stats["prefill_tokens_cached"],
                   decode_tokens=stats["decode_tokens"], target_steps=stats["target_steps"],
                   first_decode_min_router_margin=margin,
@@ -2616,6 +3023,14 @@ def phase_sources(others: dict) -> dict:
                  "gateway": "ThreadingHTTPServer on 127.0.0.1 in its own process: loopback, "
                             "the host's rate, not a network's"}
     backend = CUDABackend(cache_bytes=SRC_CACHE, chunk_bytes=FED_CHUNK)
+    sobs = StageObs()
+    sobs.backends.append(backend)
+    staged: dict = {}
+
+    def expect_staged(name: str, got: float, want: int) -> None:
+        staged[name] = got
+        if got != want:
+            fail(f"sources: {name} staged {want} bytes, oim_staged_bytes_total rose by {got}")
 
     def stage(kind: str, params, name: str):
         vol = StagedVolume(name, b"", ArraySpec())
@@ -2628,13 +3043,15 @@ def phase_sources(others: dict) -> dict:
     def cold(kind: str, params, name: str, source: str) -> tuple:
         """A first stage: READY through one plane call, its time, rate and
         breakdown against the bound from this run's halves."""
-        vol, stage_s, calls = stage(kind, params, name)
+        (vol, stage_s, calls), got = sobs.staged(lambda: stage(kind, params, name))
         if vol.state != StageState.READY or calls != 1:
             fail(f"sources: {name} ended {vol.state} after {calls} plane calls: {vol.error}")
         bd = dict(plane.LAST_STAGE_BREAKDOWN)
         read_path = staging.read_path()
         nbytes = vol.array.numel()
-        read = source_read_gbps(plane.lower_source(kind, params))
+        expect_staged(f"{name} stage ({source})", got, nbytes)
+        read, got = sobs.staged(lambda: source_read_gbps(plane.lower_source(kind, params)))
+        expect_staged(f"{name} read alone", got, nbytes)
         halves = (nbytes / (read * 1e9), nbytes / (h2d * 1e9))
         rec = {"volume_bytes": nbytes, "stage_s": stage_s, "stage_gbps": nbytes / stage_s / 1e9,
                "breakdown": bd, "read_gbps": read, "bound_s": max(halves),
@@ -2650,7 +3067,8 @@ def phase_sources(others: dict) -> dict:
     def restage_hits(vol, kind: str, params, name: str) -> float:
         ptr = vol.array.data_ptr()
         backend.unstage(vol)
-        hit, hit_s, calls = stage(kind, params, name)
+        (hit, hit_s, calls), got = sobs.staged(lambda: stage(kind, params, name))
+        expect_staged(f"{name} cache hit", got, 0)
         same = hit.array is not None and hit.array.data_ptr() == ptr
         say(f"  {name} restaged unchanged: {hit_s * 1e3:.2f} ms, plane calls {calls}, "
             f"same storage {same}")
@@ -2730,7 +3148,9 @@ def phase_sources(others: dict) -> dict:
         if objectstore.object_validators(urls[-1])[0] == etag:
             fail("sources: the gateway's ETag did not move with the shard's bytes")
         misses = backend.cache.stats()["misses"]
-        changed, changed_s, calls = stage("webdataset", params, "webdataset-url")
+        (changed, changed_s, calls), got = sobs.staged(
+            lambda: stage("webdataset", params, "webdataset-url"))
+        expect_staged("webdataset-url changed restage", got, rec["volume_bytes"])
         missed = backend.cache.stats()["misses"] - misses
         say(f"  one shard's bytes and ETag changed: restage {changed_s:.3f} s, plane calls "
             f"{calls}, cache misses {missed}")
@@ -2761,8 +3181,10 @@ def phase_sources(others: dict) -> dict:
         backend.cache.evict_idle()
         gc.collect()
         base = torch.cuda.memory_allocated()
-        wrong, _, _ = stage("ceph", CephParams(monitors=gw, user="oim", secret="wrong",
-                                               pool="rbd", image="oim-image-0"), "ceph-wrong")
+        (wrong, _, _), got = sobs.staged(lambda: stage(
+            "ceph", CephParams(monitors=gw, user="oim", secret="wrong", pool="rbd",
+                               image="oim-image-0"), "ceph-wrong"))
+        expect_staged("ceph with a wrong secret", got, 0)
         gc.collect()
         after = torch.cuda.memory_allocated()
         say(f"  a wrong secret: {wrong.state}, {wrong.error!r}; memory_allocated {after} "
@@ -2772,6 +3194,8 @@ def phase_sources(others: dict) -> dict:
                  f"{after - base} device bytes held")
         rec["wrong_secret_error"] = wrong.error
         out["ceph"] = rec
+    out["obs"] = {"staged_bytes": staged, **sobs.check("sources")}
+    say(f"  obs: staged bytes by operation {staged}")
 
     say("  training: phase 5's config on the webdataset volume's tokens")
     out["train"] = train_on_tokens(train_tokens, "sources", others)
@@ -2905,6 +3329,12 @@ def main() -> int:
         rec["sources_launches"] = sources["train"]["launches"][rec["name"]]
 
     say("== 15. summary")
+    obs = {"main_path": {"step_s": main["step_s"], **main.pop("obs")},
+           "serve": {"decode_step_ms": serve["decode_step_ms"], **serve.pop("obs")},
+           "oim_fed": fed.pop("obs"), "moe_train": moe_main.pop("obs"),
+           "moe_serve": {"decode_step_ms": moe_serve["decode_step_ms"],
+                         **moe_serve.pop("obs")},
+           "sources": sources.pop("obs"), "cost_us": obs_costs()}
     say(f"  total {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"main_path": {k: main[k] for k in (
         "step_s", "tokens_per_s", "mfu", "peak_mem_gb", "losses")}, "card": card}))
@@ -2918,6 +3348,7 @@ def main() -> int:
                             "serve": {k: v for k, v in moe_serve.items() if k != "profile"},
                             "oim_infer": infer}, "card": card}))
     say(json.dumps({"sources": sources, "card": card}))
+    say(json.dumps({"obs": obs, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

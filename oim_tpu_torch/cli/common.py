@@ -1,0 +1,146 @@
+"""Observability flags shared by the port's CLIs (``oim_tpu/cli/common.py``'s
+``add_observability_flags`` and ``start_observability``).
+
+``--metrics-port`` serves ``/metrics``, ``/debug/spans`` and
+``/debug/events``; ``--trace-dir`` streams finished spans to
+``<service>-<pid>.trace.json`` and receives the flight recorder's dump on
+SIGQUIT, an unhandled crash and ``Observability.stop()``. The telemetry
+registry row (``--telemetry-id``) needs the registry over gRPC and waits
+for it.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def add_observability_flags(parser: argparse.ArgumentParser) -> None:
+    """--metrics-port / --metrics-host / --trace-dir / the trace-ring and
+    tail-sampling knobs / --events-ring."""
+    parser.add_argument(
+        "--metrics-port", type=int, default=-1,
+        help=">=0 serves GET /metrics (Prometheus text + OpenMetrics "
+             "exemplars), GET /debug/spans (span ring buffer, Chrome "
+             "trace JSON) and GET /debug/events (flight recorder); "
+             "0 = ephemeral port",
+    )
+    parser.add_argument(
+        "--metrics-host", default="127.0.0.1",
+        help="bind address for the metrics server; 0.0.0.0 lets Prometheus "
+             "scrape from another pod (default loopback)",
+    )
+    parser.add_argument(
+        "--trace-dir", default="",
+        help="stream finished spans into <dir>/<service>-<pid>.trace.json "
+             "(Chrome trace-event JSON: open in Perfetto / chrome://tracing; "
+             "merge processes with tracing.merge_trace_dir); the flight "
+             "recorder dumps <service>-<pid>.events.json here on SIGQUIT, "
+             "crash, and shutdown",
+    )
+    parser.add_argument(
+        "--trace-ring", type=int, default=4096,
+        help="span ring-buffer capacity behind /debug/spans: a busy serve "
+             "replica evicts router/feeder hops from a small ring before "
+             "an operator can read it — raise this on hot daemons",
+    )
+    parser.add_argument(
+        "--trace-sample", type=float, default=1.0,
+        help="tail-sampling keep probability for the --trace-dir stream: "
+             "error spans and spans slower than --trace-slow-ms ALWAYS "
+             "export; the rest export with this probability, decided per "
+             "trace_id so a kept trace keeps every hop (1.0 = keep all)",
+    )
+    parser.add_argument(
+        "--trace-slow-ms", type=float, default=100.0,
+        help="latency threshold above which a span always exports to "
+             "--trace-dir regardless of --trace-sample (the tail worth "
+             "keeping); 0 disables the slow-keep rule",
+    )
+    parser.add_argument(
+        "--events-ring", type=int, default=2048,
+        help="flight-recorder ring capacity behind /debug/events "
+             "(typed control-plane events stamped with trace ids); "
+             "0 disables event recording",
+    )
+
+
+class Observability:
+    """Started telemetry for one process: span recorder + flight recorder
+    + metrics server."""
+
+    def __init__(self, server, recorder, service: str = "",
+                 trace_dir: str = ""):
+        self.server = server  # MetricsServer | None
+        self.recorder = recorder
+        self.service = service
+        self.trace_dir = trace_dir
+
+    def dump_events(self) -> str | None:
+        """Flight-recorder post-mortem dump into --trace-dir (SIGQUIT /
+        crash / shutdown). Best-effort: a full disk must not mask the
+        original failure."""
+        if not self.trace_dir:
+            return None
+        from oim_tpu_torch.common import events
+
+        try:
+            return events.dump_to(self.trace_dir, self.service or "oim")
+        except OSError:
+            return None
+
+    def stop(self) -> None:
+        self.dump_events()
+        self.recorder.flush()
+        self.recorder.close()
+        if self.server is not None:
+            self.server.stop()
+
+
+def start_observability(args: argparse.Namespace, service: str) -> Observability:
+    """Configure the process-global span + event recorders (service names
+    the Perfetto process and the dump files) and start the metrics server
+    when requested. With a --trace-dir, SIGQUIT and an unhandled crash
+    dump the flight recorder next to the span stream."""
+    import signal
+    import sys
+
+    from oim_tpu_torch.common import events, tracing
+    from oim_tpu_torch.common.logging import from_context
+
+    trace_dir = getattr(args, "trace_dir", "")
+    recorder = tracing.configure(
+        service, trace_dir=trace_dir,
+        capacity=getattr(args, "trace_ring", 4096),
+        sample=getattr(args, "trace_sample", 1.0),
+        slow_threshold_s=getattr(args, "trace_slow_ms", 100.0) / 1000.0)
+    events.configure(capacity=getattr(args, "events_ring", 2048))
+    server = None
+    if getattr(args, "metrics_port", -1) >= 0:
+        from oim_tpu_torch.common.metrics import MetricsServer
+
+        server = MetricsServer(
+            port=args.metrics_port, host=args.metrics_host).start()
+        from_context().info(
+            "metrics", host=server.host, port=server.port)
+    obs = Observability(server, recorder, service, trace_dir)
+    if trace_dir:
+        def _dump_on_signal(signum, frame):  # noqa: ARG001 - signal API
+            path = obs.dump_events()
+            recorder.flush()
+            from_context().info("flight recorder dumped", path=path,
+                                signal=signum)
+
+        try:
+            signal.signal(signal.SIGQUIT, _dump_on_signal)
+        except (ValueError, AttributeError):
+            pass  # non-main thread (tests) or no SIGQUIT (non-POSIX)
+
+        prev_hook = sys.excepthook
+
+        def _dump_on_crash(exc_type, exc, tb):
+            obs.dump_events()
+            recorder.flush()
+            prev_hook(exc_type, exc, tb)
+
+        sys.excepthook = _dump_on_crash
+    return obs

@@ -15,7 +15,9 @@ parameters, 1.04e9 active).
         --eval-every 10 --eval-steps 2
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the same step
-with the kernels' plain versions. Checkpoints are the port's own format,
+with the kernels' plain versions. ``--metrics-port`` serves the trainer's
+gauges at ``/metrics`` and its ``train.step`` spans at ``/debug/spans``;
+``--trace-dir`` streams the spans to ``oim-trainer-<pid>.trace.json``. Checkpoints are the port's own format,
 not orbax's: the JAX trainer cannot resume from them, nor this one from
 the JAX trainer's. The feeder, registry and volume flags (the OIM-fed
 feed), webdataset input and multi-GPU meshes are not ported yet.
@@ -27,6 +29,7 @@ import argparse
 import dataclasses
 import sys
 
+from oim_tpu_torch.cli.common import add_observability_flags, start_observability
 from oim_tpu_torch.common import logging as oimlog
 from oim_tpu_torch.common.profiling import profile_trace
 from oim_tpu_torch.data.augment import augment_batches
@@ -92,6 +95,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="torch device (default cuda; cpu runs the plain versions)")
     p.add_argument("--log-level", default="info")
     p.add_argument("--log-format", default="text", choices=("text", "json"))
+    add_observability_flags(p)
     return p.parse_args(argv)
 
 
@@ -118,17 +122,23 @@ def run(argv: list[str] | None = None) -> Trainer:
     args = parse_args(argv)
     oimlog.set_global(oimlog.Logger(level=oimlog.parse_level(args.log_level),
                                     fmt=args.log_format))
-    cfg = config_from_args(args)
-    trainer = Trainer(cfg, device=args.device)
-    data = eval_data = None
-    if args.augment:
-        if args.eval_every:
-            # The augmented stream is no longer the Trainer's own default,
-            # so the held-out stream is built here, as run() would.
-            eval_data = synthetic_batches(dataclasses.replace(cfg, seed=cfg.seed + 10_000))
-        data = augment_batches(synthetic_batches(cfg), seed=AUGMENT_SEED)
-    with profile_trace(args.profile):
-        trainer.run(steps=args.steps, data=data, eval_data=eval_data)
+    obs = start_observability(args, "oim-trainer")
+    try:
+        cfg = config_from_args(args)
+        trainer = Trainer(cfg, device=args.device)
+        data = eval_data = None
+        if args.augment:
+            if args.eval_every:
+                # The augmented stream is no longer the Trainer's own
+                # default, so the held-out stream is built here, as run()
+                # would.
+                eval_data = synthetic_batches(
+                    dataclasses.replace(cfg, seed=cfg.seed + 10_000))
+            data = augment_batches(synthetic_batches(cfg), seed=AUGMENT_SEED)
+        with profile_trace(args.profile):
+            trainer.run(steps=args.steps, data=data, eval_data=eval_data)
+    finally:
+        obs.stop()
     return trainer
 
 

@@ -12,7 +12,9 @@ express (Fortran-order .npy) take the whole-read path instead.
 Placement is one device per volume, picked round robin; an ArraySpec that
 names mesh axes raises (multi-GPU placement is ROADMAP A.6). Staged
 tensors live in the content-addressed stage cache (``keep_cached``), and a
-device allocation failure evicts the idle entries and retries once.
+device allocation failure evicts the idle entries and retries once. Each
+stage runs in a ``stage`` span under the caller's trace, and its duration
+adds to ``oim_stage_seconds_total``.
 
 The JAX backend converts float64/int64 sources to 32 bits when jax runs
 with x64 off; torch has both 64-bit types, so this backend stages their
@@ -27,6 +29,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics as M
+from oim_tpu_torch.common import tracing
 from oim_tpu_torch.controller.backend import (
     StagedVolume,
     numpy_to_torch_dtype,
@@ -152,21 +156,32 @@ class CUDABackend(MallocBackend):
             else:
                 work_whole(keyinfo)
 
+        # Captured on the caller's thread: the staging span joins the
+        # caller's trace although the work runs on its own thread.
+        parent = tracing.current_context()
+
         def work() -> None:
-            try:
+            with tracing.start_span("stage", parent=parent,
+                                    volume=volume.volume_id,
+                                    kind=params_kind) as span:
                 try:
+                    try:
+                        attempt()
+                        return
+                    except Exception as exc:  # noqa: BLE001 - the OOM valve
+                        # Device memory pressure: idle cache entries are the
+                        # only memory this backend can reclaim; drop them all
+                        # and retry once. The retry runs outside this handler,
+                        # so the failed attempt's frames (and any tensor they
+                        # hold) are gone.
+                        if not self._looks_oom(exc) or self.cache.evict_idle() == 0:
+                            raise
                     attempt()
-                    return
-                except Exception as exc:  # noqa: BLE001 - the OOM valve
-                    # Device memory pressure: idle cache entries are the only
-                    # memory this backend can reclaim; drop them all and retry
-                    # once. The retry runs outside this handler, so the failed
-                    # attempt's frames (and any tensor they hold) are gone.
-                    if not self._looks_oom(exc) or self.cache.evict_idle() == 0:
-                        raise
-                attempt()
-            except Exception as exc:  # noqa: BLE001 - reported via the volume
-                volume.mark_failed(str(exc))
+                except Exception as exc:  # noqa: BLE001 - reported via the volume
+                    volume.mark_failed(str(exc))
+                finally:
+                    span.finish()
+                    M.STAGE_SECONDS.inc(span.duration)
 
         threading.Thread(target=work, daemon=True).start()
 

@@ -9,6 +9,9 @@ File-backed sources ride the content-addressed stage cache
 disk, same spec) returns the resident tensor without re-reading the
 source, and ``prestage`` warms the cache ahead of a stage. Named malloc
 buffers are mutable and never cached.
+
+Each stage runs in a ``stage`` span under the caller's trace, and its
+duration adds to ``oim_stage_seconds_total``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics as M
+from oim_tpu_torch.common import tracing
 from oim_tpu_torch.controller import stagecache
 from oim_tpu_torch.controller.backend import StagedVolume, reshape_to_spec
 from oim_tpu_torch.controller.source import load_source
@@ -107,27 +112,37 @@ class MallocBackend:
     # -- staging ----------------------------------------------------------
 
     def stage(self, volume: StagedVolume, params_kind: str, params: Any) -> None:
+        # Captured on the caller's thread: the staging span joins the
+        # caller's trace although the work runs on its own thread.
+        parent = tracing.current_context()
+
         def work() -> None:
-            try:
-                keyinfo = self._content_key(params_kind, params, volume.spec)
-                if keyinfo is not None and self._serve_cached(volume, keyinfo[0]):
-                    return
-                if params_kind == "malloc":
-                    host = self.buffer(volume.volume_id)
-                else:
-                    host = load_source(params_kind, params)
-                array = reshape_to_spec(torch.from_numpy(np.asarray(host)),
-                                        volume.spec)
-                nbytes = array.numel() * array.element_size()
-                entry = None
-                if keyinfo is not None:
-                    entry = self.cache.insert(keyinfo[0], array, nbytes,
-                                              keyinfo[1], source_sig=keyinfo[2])
-                if not volume.mark_ready(array, nbytes, cache_entry=entry):
-                    if entry is not None:
-                        self.cache.release(entry, keep=self.keep_cached)
-            except Exception as exc:  # noqa: BLE001 - reported via the volume
-                volume.mark_failed(str(exc))
+            with tracing.start_span("stage", parent=parent,
+                                    volume=volume.volume_id,
+                                    kind=params_kind) as span:
+                try:
+                    keyinfo = self._content_key(params_kind, params, volume.spec)
+                    if keyinfo is not None and self._serve_cached(volume, keyinfo[0]):
+                        return
+                    if params_kind == "malloc":
+                        host = self.buffer(volume.volume_id)
+                    else:
+                        host = load_source(params_kind, params)
+                    array = reshape_to_spec(torch.from_numpy(np.asarray(host)),
+                                            volume.spec)
+                    nbytes = array.numel() * array.element_size()
+                    entry = None
+                    if keyinfo is not None:
+                        entry = self.cache.insert(keyinfo[0], array, nbytes,
+                                                  keyinfo[1], source_sig=keyinfo[2])
+                    if not volume.mark_ready(array, nbytes, cache_entry=entry):
+                        if entry is not None:
+                            self.cache.release(entry, keep=self.keep_cached)
+                except Exception as exc:  # noqa: BLE001 - reported via the volume
+                    volume.mark_failed(str(exc))
+                finally:
+                    span.finish()
+                    M.STAGE_SECONDS.inc(span.duration)
 
         threading.Thread(target=work, daemon=True).start()
 

@@ -17,8 +17,12 @@ next insert that shares its locators.
 A tensor has no ``delete()``: an evicted entry frees its device memory by
 dropping the cache's reference (``entry.array = None``); the memory goes
 back to the allocator once no volume or caller holds the tensor either.
-Counts (hits, misses, evictions) are in ``stats()``; the JAX package's
-metrics and events are not ported (ROADMAP A.3).
+
+Every change sets ``oim_stage_cache_bytes`` and ``oim_stage_cache_entries``;
+an eviction counts in ``oim_stage_cache_evictions_total`` and lands a
+``stage_cache_eviction`` flight-recorder event; ``count`` feeds
+``oim_stage_cache_{hits,misses}_total``. ``stats()`` carries the same
+counts.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import threading
 from collections import OrderedDict
 from typing import Any
 
+from oim_tpu_torch.common import events
+from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.data import objectstore
 
 # Extent kinds whose content identity is cheaply verifiable. Anything else
@@ -145,6 +151,7 @@ class StageCache:
         """Record a staging request served from the cache or not."""
         with self._lock:
             self._counts["hits" if hit else "misses"] += 1
+        (M.STAGE_CACHE_HITS if hit else M.STAGE_CACHE_MISSES).inc()
 
     def insert(self, key: str, array: Any, nbytes: int,
                locators: tuple[str, ...], device_id: int = -1,
@@ -178,6 +185,8 @@ class StageCache:
                 return entry  # pinned entries alone exceed capacity
             self._entries[key] = entry
             self._bytes += nbytes
+            M.STAGE_CACHE_BYTES.set(self._bytes)
+            M.STAGE_CACHE_ENTRIES.set(len(self._entries))
             return entry
 
     def release(self, entry: CacheEntry, keep: bool = True) -> None:
@@ -200,6 +209,13 @@ class StageCache:
         entry = self._entries.pop(key)
         self._bytes -= entry.nbytes
         self._counts["evictions"] += 1
+        M.STAGE_CACHE_EVICTIONS.inc()
+        # Flight recorder: an eviction explains why a later publish that
+        # "should" have been an O(1) hit restaged from source instead.
+        events.emit(events.STAGE_CACHE_EVICTION, key=key,
+                    bytes=entry.nbytes, still_pinned=entry.pins > 0)
+        M.STAGE_CACHE_BYTES.set(self._bytes)
+        M.STAGE_CACHE_ENTRIES.set(len(self._entries))
         if entry.pins == 0:
             entry.array = None
         # else: still mapped somewhere; the last release() drops it.

@@ -12,6 +12,7 @@ Transient failures (connection resets, timeouts, 5xx) retry a bounded
 number of times; 4xx, DNS and TLS-verification failures raise at once.
 An object that changes between sizing and reading (its total size in
 ``Content-Range`` differs) fails the read with ``ObjectStoreError``.
+Every completed read adds its bytes to ``oim_staged_bytes_total``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import urllib.request
 
 import numpy as np
 
+from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.data import staging
 
@@ -178,6 +180,7 @@ def read_object(url: str, headers: dict[str, str] | None = None,
         out[off:off + n] = np.frombuffer(data, dtype=np.uint8)
 
     _parallel(pull, parts, n_threads)
+    M.STAGED_BYTES.inc(size)
     return out
 
 
@@ -203,6 +206,7 @@ def read_range(url: str, offset: int, length: int, out: np.ndarray,
         out[po:po + n] = np.frombuffer(data, dtype=np.uint8)
 
     _parallel(pull, parts, n_threads)
+    M.STAGED_BYTES.inc(length)
 
 
 def is_url(path: str) -> bool:

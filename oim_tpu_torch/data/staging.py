@@ -18,6 +18,11 @@ host buffers and file reads into them, by one of three engines.
 
 ``read_into`` takes the first of them that is there, in that order, and
 ``read_path()`` names the one that ran. All three are byte-identical.
+Every read adds its bytes to ``oim_staged_bytes_total`` and sets
+``oim_stage_gbps`` to its rate (``stream``: the C++ stream's rate), the
+disk half of a stage apart from its host-to-device half. The JAX package
+leaves the gauge alone on its plain ``readinto`` fallback; ``preadv``,
+which takes that fallback's place here, is a parallel engine and sets it.
 
 Page-locked buffers stay torch's (``alloc_pinned``). ``oim_pinned_alloc``
 is ``malloc`` + ``mlock``, which CUDA does not know as pinned: a
@@ -37,11 +42,14 @@ import mmap
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 import torch
+
+from oim_tpu_torch.common import metrics as M
 
 # Each thread of a parallel preadv read takes at least this many bytes;
 # smaller reads run on the calling thread.
@@ -463,6 +471,7 @@ def read_into(path: str | os.PathLike, dst: np.ndarray, offset: int = 0,
     _last_read_path = engine
     if not dst.size:
         return
+    t0 = time.monotonic()
     if engine == "native":
         lib = native_lib()
         got = lib.oim_read_into(path.encode(), dst.ctypes.data, offset, dst.size, n_threads)
@@ -480,6 +489,10 @@ def read_into(path: str | os.PathLike, dst: np.ndarray, offset: int = 0,
             raise StagingError(f"read {path}: {err}") from err
     if got != dst.size:
         raise StagingError(f"read {path}: got {got} of {dst.size} bytes")
+    M.STAGED_BYTES.inc(dst.size)
+    elapsed = time.monotonic() - t0
+    if elapsed > 0:
+        M.STAGE_GBPS.set(dst.size / elapsed / 1e9)
 
 
 def read_pinned(path: str | os.PathLike, n_threads: int = 8) -> np.ndarray:
@@ -507,6 +520,7 @@ def stream(path: str | os.PathLike, chunk_bytes: int = 64 << 20, n_buffers: int 
                 data = f.read(chunk_bytes)
                 if not data:
                     return
+                M.STAGED_BYTES.inc(len(data))
                 yield np.frombuffer(data, dtype=np.uint8)
         return
     handle = lib.oim_stream_open(path.encode(), chunk_bytes, n_buffers, int(pin))
@@ -522,9 +536,11 @@ def stream(path: str | os.PathLike, chunk_bytes: int = 64 << 20, n_buffers: int 
             if n < 0:
                 _raise_last(lib, f"stream {path}")
             buf = (ctypes.c_uint8 * n).from_address(data_p.value)
+            M.STAGED_BYTES.inc(n)
             try:
                 yield np.frombuffer(buf, dtype=np.uint8, count=n)
             finally:
                 lib.oim_stream_release(handle, data_p)
     finally:
+        M.STAGE_GBPS.set(lib.oim_stream_gbps(handle))
         lib.oim_stream_close(handle)

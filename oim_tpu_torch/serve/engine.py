@@ -43,8 +43,16 @@ What the port keeps of the reference, and what it changes:
   rows draw K+1 uniforms a round instead (``spec.accept_tokens``): their
   streams are distribution-exact, not solo reproductions.
 * The engine thread runs under ``torch.inference_mode()``.
-* Not ported: metrics, events, tracing and fault points (``stats()``
-  carries the counts); tensor-parallel serving (``shard > 1``,
+* Observability is the reference's: the ``oim_serve_*`` metrics with
+  their label values (token latency and first-token histograms carry the
+  request's trace_id as an exemplar), the ``serve.prefill`` and
+  ``serve.draft_prefill`` spans, the ``serve.queue_wait`` and
+  ``serve.decode`` phase spans recorded at retirement, the flight
+  recorder's slot_evicted, page_pool_exhausted, spec_fallback and
+  replica_drain events, and the fault points ``serve.admit``,
+  ``spec.propose``, ``serve.retire`` and ``serve.decode``. Every metric
+  reads a value the host already holds: recording adds no device sync.
+* Not ported: tensor-parallel serving (``shard > 1``,
   ``member_hbm_budget``), the fleet tier (``kv_fetch``) and the
   prefill/decode roles, which the constructor refuses with
   ``NotImplementedError``.
@@ -69,7 +77,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from oim_tpu_torch.common import prefixhash
+from oim_tpu_torch.common import events, faultinject, prefixhash, tracing
+from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.models import generate as gen
 from oim_tpu_torch.models.llama import Config, check_supported
@@ -113,6 +122,9 @@ class _Request:
     # Prompt tokens whose K/V came from the prefix cache (0 = the whole
     # prompt was prefilled): the per-request hit record.
     prefix_tokens: int = 0
+    # The submitter's span context: the request's spans parent under it
+    # and its trace_id rides the latency buckets as an exemplar.
+    trace_ctx: Any = None
 
 
 class GenHandle:
@@ -233,6 +245,8 @@ class ServeEngine:
     # two >= this (pad K/V never lands: prefill_into_pages skips the pad
     # positions).
     MIN_PREFILL_BUCKET = 8
+    # Sliding window of the oim_serve_qps gauge.
+    QPS_WINDOW_S = 10.0
 
     def __init__(
         self,
@@ -259,6 +273,7 @@ class ServeEngine:
         member_hbm_budget: int = 0,
         role: str = "mixed",
         prefill_chunk: int = 0,
+        name: str = "",
         device="cuda",
     ):
         if int(shard) > 1 or member_hbm_budget:
@@ -302,6 +317,8 @@ class ServeEngine:
                     f"target vocab ({cfg.vocab}): the acceptance ratio "
                     f"test compares distributions over one vocabulary")
         self.role = role
+        # The fault points' ``engine`` context.
+        self.name = str(name)
         # Chunked prefill: long prompt tails prefill in slices of this many
         # tokens, one decode step over the residents between slices.
         self.prefill_chunk = max(0, int(prefill_chunk))
@@ -344,6 +361,7 @@ class ServeEngine:
             if prefix_on else None)
         if self._host_tier is not None:
             self._pagepool.register_tier("host", self._host_tier.stats)
+        M.SERVE_ROLE.labels(role=self.role).set(1)
         self.params = _to_device(params, self.device)
         # +1 physical page: id 0 is the reserved scratch page every
         # unmapped table entry points at.
@@ -365,7 +383,8 @@ class ServeEngine:
                                 * dcfg.dtype.itemsize)
             n_draft_pages = draft_pool_tokens // self.page_tokens
             self._draft_pagepool = PagePool(
-                n_draft_pages, self.page_tokens, draft_page_bytes)
+                n_draft_pages, self.page_tokens, draft_page_bytes,
+                track_metrics=False)
             self._draft_cache = gen.init_page_pool(
                 dcfg, n_draft_pages + 1, self.page_tokens, device=self.device)
             self._valve = AcceptanceValve(
@@ -422,6 +441,8 @@ class ServeEngine:
         self._work = threading.Condition(self._lock)
         self._stopping = False
         self._draining = False
+        # Completion times inside the QPS window.
+        self._completions: collections.deque[float] = collections.deque()
         self.finished_total = 0
         # The engine thread's traceback if it died ("error" requests).
         self.error: str | None = None
@@ -450,6 +471,14 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) "
                 f"exceeds the engine's max_seq {self.max_seq}")
+        # Fault point: an armed QueueFull/Draining instance simulates an
+        # admission refusal. A simulated QueueFull counts as rejected, as
+        # the real one below does; the real Draining records nothing.
+        try:
+            faultinject.fire("serve.admit", engine=self.name)
+        except QueueFull:
+            M.SERVE_REQUESTS_TOTAL.labels(outcome="rejected").inc()
+            raise
         need = self._blocks_needed(len(prompt), max_new)
         if need > self._pagepool.n_pages:
             # A request the whole pool can never hold would queue forever.
@@ -460,22 +489,36 @@ class ServeEngine:
                 f"lower max_new_tokens")
         req = _Request(prompt=prompt, max_new=max_new, temperature=temperature,
                        seed=int(seed), eos=int(eos),
-                       submitted_at=time.monotonic())
+                       submitted_at=time.monotonic(),
+                       trace_ctx=tracing.current_context())
         with self._lock:
             if self._stopping or self._draining:
                 raise Draining("engine is draining; not accepting requests")
             if len(self._pending) >= self.queue_depth:
+                M.SERVE_REQUESTS_TOTAL.labels(outcome="rejected").inc()
                 raise QueueFull(
                     f"admission queue full ({self.queue_depth} waiting)")
             self._pending.append(req)
+            M.SERVE_QUEUE_DEPTH.set(len(self._pending))
             self._work.notify()
         return GenHandle(req)
 
     # -- lifecycle ----------------------------------------------------------
 
-    def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
+    def stop(self, drain: bool = True, timeout: float = 60.0,
+             quiet: bool = False) -> None:
         """Shut the engine down. ``drain=True`` finishes every RESIDENT
-        request first; queued requests finish as "drained" either way."""
+        request first; queued requests finish as "drained" either way.
+        ``quiet`` suppresses the replica_drain event (a harness simulating
+        a killed process, which would have emitted nothing)."""
+        with self._lock:
+            active = sum(s is not None for s in self._slots)
+            queued = len(self._pending)
+        # Emitted BEFORE the drain flag flips: the event is the cause of
+        # the Draining refusals that follow, and the ring keeps that order.
+        if not quiet:
+            events.emit(events.REPLICA_DRAIN, graceful=drain,
+                        active_slots=active, queued=queued)
         with self._lock:
             self._draining = True
             if not drain:
@@ -643,6 +686,7 @@ class ServeEngine:
     def _fail_pending_locked(self, reason: str) -> None:
         while self._pending:
             self._finish(self._pending.popleft(), reason)
+        M.SERVE_QUEUE_DEPTH.set(0)
 
     # -- KV tiering ----------------------------------------------------------
 
@@ -694,16 +738,70 @@ class ServeEngine:
                 self._release_slot(i, req, retain=False)
                 with self._lock:
                     self._slots[i] = None
+                events.emit(events.SLOT_EVICTED,
+                            trace_id=self._trace_id(req), slot=i,
+                            reason=reason, tokens=req.emitted)
                 self._finish(req, reason)
+        self._occupancy()
+
+    def _occupancy(self) -> None:
+        M.SERVE_SLOT_OCCUPANCY.set(
+            sum(s is not None for s in self._slots) / self.max_batch)
 
     def _finish(self, req: _Request, reason: str) -> None:
         req.finish_reason = reason
         req.finished_at = time.monotonic()
+        self._record_phases(req)
         req.out.put(_DONE)
         self.finished_total += 1
+        M.SERVE_REQUESTS_TOTAL.labels(outcome=reason).inc()
+        now = req.finished_at
+        self._completions.append(now)
+        while (self._completions
+               and now - self._completions[0] > self.QPS_WINDOW_S):
+            self._completions.popleft()
+        span = max(now - self._completions[0], 1e-3)
+        M.SERVE_QPS.set(
+            len(self._completions) / max(span, self.QPS_WINDOW_S / 2))
+
+    @staticmethod
+    def _trace_id(req: _Request) -> str:
+        return req.trace_ctx.trace_id if req.trace_ctx is not None else ""
+
+    def _record_phases(self, req: _Request) -> None:
+        """The request's phase spans, recorded at retirement: their
+        boundaries (submit, admit, first token, finish) are monotonic
+        marks, complete only now, and the spans take wall-clock starts
+        derived from them."""
+        now_wall, now_mono = time.time(), time.monotonic()
+
+        def wall(mono: float) -> float:
+            return now_wall - (now_mono - mono)
+
+        if req.admitted_at and req.admitted_at > req.submitted_at:
+            tracing.record_phase(
+                "serve.queue_wait", wall(req.submitted_at),
+                req.admitted_at - req.submitted_at, parent=req.trace_ctx)
+        first = req.token_times[0] if req.token_times else 0.0
+        if first and req.finished_at > first and req.emitted > 1:
+            tracing.record_phase(
+                "serve.decode", wall(first), req.finished_at - first,
+                parent=req.trace_ctx, tokens=req.emitted - 1)
 
     def _emit(self, req: _Request, token: int) -> None:
-        req.token_times.append(time.monotonic())
+        now = time.monotonic()
+        base = req.token_times[-1] if req.token_times else req.submitted_at
+        # kind splits the SLO (submit -> first token) from the decode
+        # cadence; the request's trace_id rides the bucket as an exemplar.
+        kind = "first" if req.emitted == 0 else "next"
+        M.SERVE_TOKEN_LATENCY.labels(kind=kind).observe(
+            now - base, self._trace_id(req))
+        if kind == "first":
+            M.SERVE_FIRST_TOKEN.labels(
+                prefix="hit" if req.prefix_tokens else "miss").observe(
+                now - base, self._trace_id(req))
+        M.SERVE_TOKENS_TOTAL.inc()
+        req.token_times.append(now)
         if req.emitted:
             self._decode_tokens += 1
         req.emitted += 1
@@ -758,6 +856,7 @@ class ServeEngine:
                 cancelled = req.cancelled.is_set()
                 if cancelled:
                     self._pending.popleft()
+                    M.SERVE_QUEUE_DEPTH.set(len(self._pending))
             if cancelled:
                 self._finish(req, "cancelled")
                 continue
@@ -781,8 +880,13 @@ class ServeEngine:
             spec_row = self._map_draft_slot(req, free, n)
             with self._lock:
                 self._pending.popleft()
+                M.SERVE_QUEUE_DEPTH.set(len(self._pending))
             self._admitting = req  # failed with the engine if it dies here
             req.admitted_at = time.monotonic()
+            # Admission backpressure: how long the queue (and the page
+            # pool) held this request before its prefill started.
+            M.SERVE_QUEUE_WAIT.observe(
+                req.admitted_at - req.submitted_at, self._trace_id(req))
             gen_ = (_generator(req.seed, self.device)
                     if req.temperature > 0 else None)
             tok = self._prefill_slot(req, free, n, m, gen_)
@@ -797,6 +901,7 @@ class ServeEngine:
             with self._lock:
                 self._slots[free] = req
             self._admitting = None
+            self._occupancy()
             self._emit(req, tok)
             self._retire_if_done(free, req, tok)
 
@@ -819,6 +924,12 @@ class ServeEngine:
             if not self._pool_blocked:
                 self._pool_blocked = True
                 self._pool_blocked_episodes += 1
+                events.emit(events.PAGE_POOL_EXHAUSTED,
+                            trace_id=self._trace_id(req),
+                            needed_pages=need - m,
+                            free_pages=self._pagepool.free_pages,
+                            total_pages=self._pagepool.n_pages,
+                            queued=self.queue_len)
             return False
         self._pool_blocked = False
         pages = shared + private
@@ -833,6 +944,12 @@ class ServeEngine:
         math). False (plain decode for this request) when speculation is
         off, the valve is closed, or the draft pool can't cover it."""
         if not self.spec_tokens or not self._valve.open:
+            return False
+        try:
+            # Fault point: an armed InjectedFault IS a draft-pool
+            # allocation failure (the request decodes plainly).
+            faultinject.fire("spec.propose", engine=self.name)
+        except faultinject.InjectedFault:
             return False
         pages = self._draft_pagepool.alloc(self._blocks_needed(n, req.max_new))
         if pages is None:
@@ -851,10 +968,13 @@ class ServeEngine:
         generator."""
         padded = np.zeros((1, self._bucket(n)), np.int64)
         padded[0, :n] = req.prompt
-        gen.prefill_into_pages(
-            self._draft_params, self._upload(padded), n, self._draft_cache,
-            self._upload(self._draft_tables[slot]), 0, self._draft_cfg,
-            self.page_tokens)
+        with tracing.start_span(
+                "serve.draft_prefill", parent=req.trace_ctx, slot=slot,
+                prompt_tokens=n):
+            gen.prefill_into_pages(
+                self._draft_params, self._upload(padded), n, self._draft_cache,
+                self._upload(self._draft_tables[slot]), 0, self._draft_cfg,
+                self.page_tokens)
         if req.temperature > 0:
             self._draft_gens[slot] = _generator(req.seed ^ DRAFT_KEY_FOLD,
                                                 self.device)
@@ -887,24 +1007,36 @@ class ServeEngine:
         P = m * self.prefix_block
         tail = req.prompt[P:]
         if self.prefill_chunk and len(tail) > self.prefill_chunk:
-            tok = self._prefill_chunked(req, slot, m, gen_)
+            tok = self._prefill_chunked(req, slot, n, m, gen_)
         else:
-            tok = self._first_token(req, tail, self._upload(self._tables[slot]),
-                                    P, gen_)
+            span_attrs = {"slot": slot, "prompt_tokens": n}
+            if P:
+                span_attrs["prefix_tokens"] = P
+            with tracing.start_span(
+                    "serve.prefill", parent=req.trace_ctx, **span_attrs):
+                tok = self._first_token(
+                    req, tail, self._upload(self._tables[slot]), P, gen_)
         if self._prefix is not None:
             if P:
                 req.prefix_tokens = P
                 self._prefix_hits += 1
                 self._prefill_cached += P
+                M.SERVE_PREFIX_HITS.inc()
+                M.SERVE_PREFILL_TOKENS.labels(source="cache").inc(P)
             else:
                 self._prefix_misses += 1
+                M.SERVE_PREFIX_MISSES.inc()
         self._prefill_computed += n - P
+        M.SERVE_PREFILL_TOKENS.labels(source="compute").inc(n - P)
         return tok
 
-    def _prefill_chunked(self, req: _Request, slot: int, m: int, gen_) -> int:
+    def _prefill_chunked(self, req: _Request, slot: int, n: int, m: int,
+                         gen_) -> int:
         """The prompt tail in ``prefill_chunk``-token slices, one decode
         round over the RESIDENT slots between slices. Every slice runs the
-        same prefill at a shifted ``start``; only the last samples.
+        same prefill at a shifted ``start``; only the last samples. Each
+        slice is timed to its device completion (the reference's slices
+        each end in a token fetch) into oim_serve_prefill_chunk_seconds.
 
         While slices interleave with decode, this slot's table row is
         ZEROED (the prefill runs through a device copy of the row): the
@@ -923,20 +1055,31 @@ class ServeEngine:
             self._draft_tables[slot, :] = 0
             self._draft_tables_dev = None
         table_dev = self._upload(table_row)
-        for off in range(0, len(tail), chunk):
-            piece = tail[off:off + chunk]
-            if off + chunk < len(tail):
-                padded = np.zeros((1, self._bucket(len(piece))), np.int64)
-                padded[0, :len(piece)] = piece
-                gen.prefill_into_pages(
-                    self.params, self._upload(padded), len(piece), self._cache,
-                    table_dev, P + off, self.cfg, self.page_tokens)
-                with self._lock:
-                    resident = any(r is not None for r in self._slots)
-                if resident:
-                    self._decode_once()
-            else:
-                tok = self._first_token(req, piece, table_dev, P + off, gen_)
+        with tracing.start_span(
+                "serve.prefill", parent=req.trace_ctx, slot=slot,
+                prompt_tokens=n, chunk_tokens=chunk,
+                chunks=-(-len(tail) // chunk)):
+            for off in range(0, len(tail), chunk):
+                piece = tail[off:off + chunk]
+                t0 = time.monotonic()
+                if off + chunk < len(tail):
+                    padded = np.zeros((1, self._bucket(len(piece))), np.int64)
+                    padded[0, :len(piece)] = piece
+                    gen.prefill_into_pages(
+                        self.params, self._upload(padded), len(piece), self._cache,
+                        table_dev, P + off, self.cfg, self.page_tokens)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    M.SERVE_PREFILL_CHUNK_SECONDS.observe(
+                        time.monotonic() - t0, self._trace_id(req))
+                    with self._lock:
+                        resident = any(r is not None for r in self._slots)
+                    if resident:
+                        self._decode_once()
+                else:
+                    tok = self._first_token(req, piece, table_dev, P + off, gen_)
+                    M.SERVE_PREFILL_CHUNK_SECONDS.observe(
+                        time.monotonic() - t0, self._trace_id(req))
         self._tables[slot, :] = table_row
         self._tables_dev = None
         if draft_row is not None:
@@ -975,9 +1118,17 @@ class ServeEngine:
             reason = "length"
         else:
             return False
+        # Fault point: a crash AT retirement, before any page returns.
+        faultinject.fire("serve.retire", engine=self.name, reason=reason)
         self._release_slot(slot, req)
         with self._lock:
             self._slots[slot] = None
+        if reason == "cancelled":
+            # eos/length retirement is the steady state; an eviction by
+            # cancel is an incident for the flight recorder.
+            events.emit(events.SLOT_EVICTED, trace_id=self._trace_id(req),
+                        slot=slot, reason=reason, tokens=req.emitted)
+        self._occupancy()
         self._finish(req, reason)
         return True
 
@@ -985,6 +1136,9 @@ class ServeEngine:
         self._release_slot(slot, req)
         with self._lock:
             self._slots[slot] = None
+        events.emit(events.SLOT_EVICTED, trace_id=self._trace_id(req),
+                    slot=slot, reason="cancelled", tokens=req.emitted)
+        self._occupancy()
         self._finish(req, "cancelled")
 
     def _decode_once(self) -> None:
@@ -992,6 +1146,9 @@ class ServeEngine:
         when a draft is configured, the valve is open and a live slot holds
         a draft cache; one plain lockstep step otherwise (a closed valve's
         plain rounds tick the re-probe cooldown)."""
+        # Fault point: an armed fault wedges the engine; the loop's
+        # catch-all fails every request and stops admissions.
+        faultinject.fire("serve.decode", engine=self.name)
         if self.spec_tokens:
             if self._valve.open:
                 with self._lock:
@@ -1046,11 +1203,28 @@ class ServeEngine:
         accepted = sum(int(n_emit[i]) - 1 for i, _ in live if spec_rows[i])
         self._spec_proposed += proposed
         self._spec_accepted += accepted
-        if self._valve.observe(proposed, accepted):
+        if proposed:
+            M.SERVE_SPEC_PROPOSED.inc(proposed)
+            if accepted:
+                M.SERVE_SPEC_ACCEPTED.inc(accepted)
+        closed_now = self._valve.observe(proposed, accepted)
+        rolling = self._valve.rate()
+        if rolling is not None:
+            # The valve's own window (the fallback signal), not the
+            # lifetime ratio.
+            M.SERVE_SPEC_ACCEPT_ROLLING.set(round(rolling, 4))
+        if closed_now:
             # The draft stopped predicting this traffic: fall back to plain
             # decode, release the live rows' draft pages now, re-probe
             # after the cooldown.
             self._spec_fallbacks += 1
+            M.SERVE_SPEC_FALLBACK.inc()
+            events.emit(events.SPEC_FALLBACK,
+                        accept_floor=self._valve.floor,
+                        window_rounds=self._valve.window_rounds,
+                        reprobe_rounds=self._valve.reprobe_rounds,
+                        proposed_total=self._spec_proposed,
+                        accepted_total=self._spec_accepted)
             from_context().info("speculation fell back to plain decode",
                                 accept_floor=self._valve.floor)
             for i, _ in live:

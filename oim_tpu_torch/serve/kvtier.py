@@ -1,6 +1,7 @@
 """Host-RAM tier for the prefix KV store (``oim_tpu/serve/kvtier.py``):
-demote instead of drop. The JAX package's gauges are not ported;
-``HostTier.stats()`` carries the counts.
+demote instead of drop. The serving engine's tier sets the
+``oim_kvtier_host_*`` gauges and counts demotions and promotions;
+``HostTier.stats()`` carries the same counts.
 
     hbm (PagePool page, zero-copy shareable)
       |  demote: D2H copy on eviction of a store-only page
@@ -30,6 +31,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics as M
+
 
 class _HostBlock:
     """One demoted block: K and V for ``page_tokens`` positions of one
@@ -49,13 +52,17 @@ class HostTier:
     ``capacity_bytes`` of host RAM. ``capacity_bytes=0`` disables the tier
     (puts are dropped)."""
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, track_metrics: bool = True):
         self.capacity_bytes = max(0, int(capacity_bytes))
+        self.track_metrics = track_metrics
         self._blocks: OrderedDict[str, _HostBlock] = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
         self.demotions = 0
         self.promotions = 0
+        if track_metrics:
+            M.KVTIER_HOST_PAGES.set(0)
+            M.KVTIER_HOST_BYTES.set(0)
 
     def put(self, key: str, k: np.ndarray, v: np.ndarray) -> bool:
         """Admit one demoted block (MRU), LRU-evicting to fit. False when
@@ -74,6 +81,9 @@ class HostTier:
             self._blocks[key] = block
             self._bytes += block.nbytes
             self.demotions += 1
+            self._update_locked()
+        if self.track_metrics:
+            M.KVTIER_DEMOTIONS.inc()
         return True
 
     def get(self, key: str) -> tuple[np.ndarray, np.ndarray] | None:
@@ -95,6 +105,9 @@ class HostTier:
             self._bytes -= block.nbytes
             if promoted:
                 self.promotions += 1
+            self._update_locked()
+        if promoted and self.track_metrics:
+            M.KVTIER_PROMOTIONS.inc()
         return True
 
     def __contains__(self, key: str) -> bool:
@@ -117,6 +130,7 @@ class HostTier:
             n = len(self._blocks)
             self._blocks.clear()
             self._bytes = 0
+            self._update_locked()
         return n
 
     def stats(self) -> dict:
@@ -128,6 +142,11 @@ class HostTier:
                 "demotions": self.demotions,
                 "promotions": self.promotions,
             }
+
+    def _update_locked(self) -> None:
+        if self.track_metrics:
+            M.KVTIER_HOST_PAGES.set(len(self._blocks))
+            M.KVTIER_HOST_BYTES.set(self._bytes)
 
 
 # -- device <-> host block movement (engine-thread only) -----------------

@@ -1,6 +1,6 @@
 """Host-side accounting for the paged KV cache (``oim_tpu/serve/pagepool.py``):
-page ids, refcounts, and the free list. The JAX package's Prometheus
-gauges are not ported; every count is in ``stats()``.
+page ids, refcounts, and the free list. The serving pool sets the
+``oim_serve_kv_pages_*`` gauges; every count is also in ``stats()``.
 
 The device tensors, {"k","v"} of [L, n_pages, page_tokens, kv_heads,
 head_dim] from ``models/generate.py init_page_pool``, belong to the engine.
@@ -26,6 +26,8 @@ from __future__ import annotations
 import threading
 from typing import Iterable
 
+from oim_tpu_torch.common import metrics as M
+
 
 class PagePool:
     """Thread-safe page-id allocator over ``n_pages`` usable pages
@@ -36,7 +38,7 @@ class PagePool:
     """
 
     def __init__(self, n_pages: int, page_tokens: int, page_bytes: int = 0,
-                 tier: str = "hbm"):
+                 track_metrics: bool = True, tier: str = "hbm"):
         if n_pages < 1:
             raise ValueError(f"need >= 1 usable page, got {n_pages}")
         if page_tokens < 1:
@@ -49,6 +51,10 @@ class PagePool:
         # ONE census call covers every rung (a block lives in exactly one).
         self.tier = tier
         self._tiers: dict[str, object] = {}
+        # The oim_serve_kv_pages_* gauges describe the replica's ONE
+        # serving pool; a secondary pool (the speculative-decoding draft
+        # model's) keeps its census in stats() only.
+        self.track_metrics = track_metrics
         # pop() from the end => pages allocate 1, 2, 3, ...: deterministic
         # tests and readable page tables.
         self._free = list(range(n_pages, 0, -1))
@@ -56,6 +62,10 @@ class PagePool:
         self._shared = 0  # pages with refcount >= 2
         self._peak_used = 0
         self._lock = threading.Lock()
+        if track_metrics:
+            M.SERVE_KV_PAGES_TOTAL.set(n_pages)
+            M.SERVE_KV_PAGES_USED.set(0)
+            M.SERVE_KV_PAGES_SHARED.set(0)
 
     # -- allocation --------------------------------------------------------
 
@@ -145,3 +155,6 @@ class PagePool:
         used = self.n_pages - len(self._free)
         if used > self._peak_used:
             self._peak_used = used
+        if self.track_metrics:
+            M.SERVE_KV_PAGES_USED.set(used)
+            M.SERVE_KV_PAGES_SHARED.set(self._shared)

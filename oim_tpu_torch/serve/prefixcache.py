@@ -1,6 +1,7 @@
 """Content-addressed prefix KV store over the page pool
-(``oim_tpu/serve/prefixcache.py``). The JAX package's gauges are not
-ported; ``stats()`` carries the counts.
+(``oim_tpu/serve/prefixcache.py``). Every change of the store sets
+``oim_serve_prefix_cache_bytes`` and ``oim_kvtier_hbm_pages``; ``stats()``
+carries the same counts.
 
 The store holds no K/V of its own: an entry is a REFERENCE (a refcounted
 physical page id, ``serve/pagepool.py``) to the very page a retiring
@@ -27,6 +28,7 @@ import threading
 from collections import OrderedDict
 from typing import Sequence
 
+from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.serve.pagepool import PagePool
 
 
@@ -134,6 +136,8 @@ class PrefixStore:
                     self._entries.move_to_end(h)
             while self._bytes > self.capacity_bytes and self._entries:
                 self._evict_lru_locked()
+            M.SERVE_PREFIX_CACHE_BYTES.set(self._bytes)
+            M.KVTIER_HBM_PAGES.set(len(self._entries))
         return added
 
     def install(self, key: str, page: int) -> bool:
@@ -153,6 +157,8 @@ class PrefixStore:
             self._bytes += entry.nbytes
             while self._bytes > self.capacity_bytes and self._entries:
                 self._evict_lru_locked()
+            M.SERVE_PREFIX_CACHE_BYTES.set(self._bytes)
+            M.KVTIER_HBM_PAGES.set(len(self._entries))
             return True
 
     # -- eviction ----------------------------------------------------------
@@ -166,7 +172,10 @@ class PrefixStore:
         if self._demote is not None \
                 and self.pool.refcount(entry.page) == 1:
             self._demote(entry.key, entry.page)
-        return self.pool.unref([entry.page])
+        freed = self.pool.unref([entry.page])
+        M.SERVE_PREFIX_CACHE_BYTES.set(self._bytes)
+        M.KVTIER_HBM_PAGES.set(len(self._entries))
+        return freed
 
     def release(self, want_pages: int) -> int:
         """The pool-pressure valve: walk the LRU end dropping entries whose
@@ -188,6 +197,8 @@ class PrefixStore:
                 if self._demote is not None:
                     self._demote(entry.key, entry.page)
                 freed += self.pool.unref([entry.page])
+            M.SERVE_PREFIX_CACHE_BYTES.set(self._bytes)
+            M.KVTIER_HBM_PAGES.set(len(self._entries))
         return freed
 
     def evict_all(self) -> int:

@@ -10,8 +10,11 @@ active parameters), ``peak_flops_per_device`` and
 ``peak_hbm_bw_per_device`` (keyed on the CUDA device name), and
 ``Trainer`` with ``init_or_resume``, ``evaluate`` and ``run``. A model's
 stats (an MoE model's ``moe_drop_frac``) ride the step's stats, averaged
-over the microbatches, into the history. Meshes (fsdp, tp_sp, pipe) and
-the metrics gauges are not ported yet.
+over the microbatches, into the history. Each step runs in a
+``train.step`` span; each logged step sets the ``oim_train_*``,
+``oim_feed_wait_seconds`` and ``oim_moe_drop_fraction`` gauges from the
+values it logs, and each eval pass ``oim_eval_loss`` (and
+``oim_eval_accuracy``). Meshes (fsdp, tp_sp, pipe) are not ported yet.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, then the optimizer's in-place update.
@@ -28,6 +31,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics as M
+from oim_tpu_torch.common import tracing
 from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.models import llama, resnet
@@ -333,7 +338,11 @@ class Trainer:
             # Zero batches is not a perfect loss: no plausible-looking 0.0.
             return float("nan")
         self.last_eval_stats = {k: v / ran for k, v in totals.items()}
-        return self.last_eval_stats["loss"]
+        loss = self.last_eval_stats["loss"]
+        M.EVAL_LOSS.set(loss)
+        if "accuracy" in self.last_eval_stats:
+            M.EVAL_ACCURACY.set(self.last_eval_stats["accuracy"])
+        return loss
 
     def _fast_forward(self, data, start_step: int) -> None:
         """Position a resumed feed at ``start_step``: ``seek`` where the feed
@@ -391,12 +400,15 @@ class Trainer:
         feed_wait = 0.0
         for i in range(start_step, steps):
             batch = pending
-            self.state, stats = self.step_fn(self.state, batch)
-            if i + 1 < steps:
-                t_feed = time.monotonic()
-                nxt = next(data)
-                feed_wait += time.monotonic() - t_feed
-                pending = self.place_batch(nxt)
+            # The host side of the step (dispatch and the feed wait); the
+            # kernels' time shows in a torch.profiler trace beside it.
+            with tracing.start_span("train.step", step=i + 1):
+                self.state, stats = self.step_fn(self.state, batch)
+                if i + 1 < steps:
+                    t_feed = time.monotonic()
+                    nxt = next(data)
+                    feed_wait += time.monotonic() - t_feed
+                    pending = self.place_batch(nxt)
             if (i + 1) % cfg.log_every == 0 or i + 1 == steps:
                 last_loss = float(stats["loss"])  # sync point
                 now = time.monotonic()
@@ -414,6 +426,12 @@ class Trainer:
                        if k not in ("loss", "grad_norm")},
                 }
                 self.history.append(record)
+                M.TRAIN_STEP_SECONDS.set(dt)
+                M.TRAIN_EXAMPLES_PER_SEC.set(cfg.batch_size / dt)
+                M.FEED_WAIT_SECONDS.set(record["feed_wait_s"])
+                M.TRAIN_MFU.set(mfu)
+                if "moe_drop_frac" in record:
+                    M.MOE_DROP_FRAC.set(record["moe_drop_frac"])
                 log.info("step", **{k: round(v, 4) if isinstance(v, float) else v
                                     for k, v in record.items()})
                 feed_wait = 0.0
