@@ -18,10 +18,13 @@ Phases, in order; any failure exits nonzero:
    ``oim_tpu_torch/data/build/`` and loaded (g++'s version and whether
    libjpeg was found printed). A failed build fails the run.
 3. kernels: each kernel (K1 forward, K2 dK/dV, K3 dQ) held against its
-   plain PyTorch version on the same inputs, at the attention shape of
-   each training path the script drives (llama3-8b's, GQA group 4, for
-   phases 5, 8 and 9; the MoE flagship's, group 2, for phase 11; both bf16
-   causal at head_dim 128 and required to take the wgmma route) and
+   plain PyTorch version on the same inputs, at the attention call of
+   each path the script drives, each bf16 at head_dim 128 and required to
+   take the wgmma route: llama3-8b's, GQA group 4, for phases 5, 8 and 9;
+   the MoE flagship's, group 2, for phase 11; phase 15's blocks at 2048
+   positions a rank with the lse cotangent in delta (the causal diagonal,
+   a ring's full block, zigzag's 2048 x 1024 and 1024 x 2048 rectangles),
+   Ulysses' 16 heads over all 4096 positions, and one rank's 4096; and
    on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
    with fully masked rows, lengths not a multiple of the tile, a delta that
    carries an lse cotangent, a bf16 head_dim that the kernels serve by the
@@ -195,11 +198,53 @@ Phases, in order; any failure exits nonzero:
    kind prints its stage GB/s and breakdown against its bound (the slower
    of its source read alone and the pinned H2D); the ``sources`` JSON
    line carries them. Phase 8's staging read-backs hold for each kind.
-15. the host cost of one ``Histogram.observe`` and one ``events.emit``;
+15. multi-rank training on the one card (``phase_parallel``). The card
+   holds one device and NCCL refuses two ranks on one, so two ranks
+   share ``cuda:0`` over gloo and NCCL runs at world size 1: a check of
+   the multi-GPU path, not a multi-GPU speed. Ranks are spawned processes
+   (a FileStore rendezvous) that only load the kernels phase 2 built;
+   each job has a time limit, and a rank that fails fails the run.
+   First one rank's history (STEPS steps) of the zigzag run's global
+   batch (B=1, T=2 x SEQ) in this process; phase 5's is dp's and fsdp's.
+   NCCL, world 1: each collective of ``parallel/collectives.py`` once on
+   a CUDA tensor, equal to its value and staging nothing; then phase 5's
+   config for 2 steps through the meshed path (``--mesh data=1``), whose
+   losses and grad norms must equal phase 5's first two to the bit
+   (size-1 axes are elided, so the step makes no collective call). gloo,
+   2 ranks: the collectives on CUDA tensors equal to their values; ring,
+   zigzag and Ulysses attention at llama3-8b's width (q [1,4096,32,128],
+   k/v [1,4096,8,128], bf16, causal, 2048 positions a rank) against the
+   plain versions of K1-K3 over all 4096 on one rank (output within
+   phase 3's K1 tolerance, dq/dk/dv within its K2/K3 tolerance), with
+   each rank's K1-K3 launches equal to the schedule's (ring 1 and 2,
+   zigzag 2 and 2, Ulysses 1 and 1; K2 = K3 = K1), all on ``wgmma``; then
+   the trainer CLI for STEPS steps under ``--rules dp --mesh data=2``,
+   ``--rules fsdp --mesh data=1,fsdp=2`` (B=2) and ``--rules tp_sp
+   --mesh data=1,fsdp=1,seq=2,model=1 --seq-parallel zigzag`` (B=1, T=2
+   x SEQ; the JAX trainer refuses a mesh that lacks an axis its rules
+   name, and so does the port). Each run: every loss finite and equal on
+   both ranks, every step's loss and grad_norm within PAR_LOSS_REL and
+   PAR_NORM_REL of one rank on the same global batch and initial params,
+   K1-K3 at LAYERS x STEPS launches a rank (twice that for zigzag), all
+   ``wgmma``, every leaf piece held by both ranks equal by a digest of
+   its bits after the last step, and under fsdp each rank holding half
+   the unsharded parameter bytes plus the norms held whole. Last, the
+   faults of PAR_FAULTS are planted in the ranks' trainer one at a time
+   (each rank on its own rows only; the gradients' sum over data
+   dropped; zigzag's tokens at contiguous RoPE positions), and each
+   must break one of those two limits. It prints per-rank step_s and
+   peak memory, the backend, the collectives' calls and bytes, those
+   staged through host memory apart, and each fault's readings.
+16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
-   7's and 12's decode step ms beside them) and the kernels line (JSON),
+   7's and 12's decode step ms beside them), the ``parallel`` line (phase
+   15) and the kernels line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
+   ``parallel_launches`` (phase 15's, by path and rank),
+   ``parallel_max_abs_err`` (phase 15's sequence-parallel attention
+   against the plain versions on one rank: K1 its output, K2 dk and dv,
+   K3 dq),
    ``oim_fed_launches`` (phase 8's launches), ``sources_launches`` (phase
    14's), ``resnet_launches`` and
    ``llama_remat_launches`` (phase 9's), ``moe_launches`` and
@@ -336,10 +381,10 @@ def attention_inputs(b, tq, tk, h, hkv, d, dtype, seed):
 
 
 def phase_kernels(shapes: dict, odd_cases) -> list[dict]:
-    """Phase 3: the odd cases, then each driven path's attention shape
-    (``shapes``: path -> (b, t, h, hkv, d), bf16 causal), each on the
-    wgmma route its path's launch gate demands; returns one record per
-    kernel, timed at the first path's shape."""
+    """Phase 3: the odd cases, then each driven path's attention call
+    (``shapes``: path -> run_case's arguments, bf16), each on the wgmma
+    route its path's launch gate demands; returns one record per kernel,
+    timed at the first path's call (a causal square)."""
     import importlib
 
     import torch
@@ -401,9 +446,9 @@ def phase_kernels(shapes: dict, odd_cases) -> list[dict]:
         fail("odd cases: " + "; ".join(errors))
 
     by_path, timed = {}, None
-    for seed, (path, (b, t, h, hkv, d)) in enumerate(shapes.items(), start=1):
-        say(f" {path} path's shape: q [{b},{t},{h},{d}] k/v [{b},{t},{hkv},{d}] bf16 causal")
-        by_path[path], tensors = run_case(b, t, t, h, hkv, d, True, torch.bfloat16, seed)
+    for path, case in shapes.items():
+        say(f" {path}:")
+        by_path[path], tensors = run_case(*case)
         if kernels.bwd_route(*tensors[:4]) != "wgmma":
             errors.append(f"the {path} path's shape takes route "
                           f"{kernels.bwd_route(*tensors[:4])}, its gate wants wgmma")
@@ -615,7 +660,7 @@ def phase_main_path(profile: bool) -> dict:
         f"wall {wall:.1f} s")
     result = {"launches": launches, "routes": routes, "step_s": step_s, "mfu": mfu,
               "losses": losses, "tokens_per_s": tokens / step_s, "peak_mem_gb": peak_gb,
-              "obs": obs}
+              "obs": obs, "history": hist}
     if profile:
         result["profile"] = profile_step(trainer)
     return result
@@ -3208,6 +3253,610 @@ def phase_sources(others: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- 15. multi-rank ----
+#
+# Two ranks share the one card over gloo: NCCL refuses two ranks on one
+# device, so NCCL runs at world size 1 only. Neither is a multi-GPU speed.
+
+PAR_T = 4096            # the attention check's global length: 2048 positions a rank
+PAR_WORLD = 2
+PAR_RANK_TIMEOUT = 480  # seconds a rank of the two-rank job may take
+PAR_NCCL_TIMEOUT = 240  # seconds the NCCL world-1 process may take
+# A meshed run against one rank on the same global batch and initial
+# params, every step: the rows (or the sequence halves) go through the
+# same kernels and cuBLAS products at other shapes, and each rank's bf16
+# gradient share is summed after its own rounding, so the runs differ by
+# bf16 roundings in other places. The limits sit between the sound runs'
+# readings (loss 2.3e-5, grad_norm 2.9e-5 at worst on one H100) and the
+# weakest planted fault's (contiguous RoPE: loss 6.4e-4, grad_norm
+# 2.4e-3); PERF.md §6 has the readings.
+PAR_LOSS_REL = 1.5e-4
+PAR_NORM_REL = 3e-4
+# Faults planted in a run of par_runs, which the limits above must catch:
+# each rank trains on its own rows only (no sum over data of the kept
+# count, the loss or the gradients); the gradients' sum over data alone
+# dropped; zigzag's tokens at contiguous RoPE positions.
+PAR_FAULTS = (("half_batch", "dp"), ("no_grad_sum", "dp"),
+              ("contiguous_rope", "tp_sp_zigzag"))
+PAR_FAULT_STEPS = 3  # lr is 0 at step 1: step 3's loss is the first after an update
+
+
+def par_runs(world: int) -> tuple:
+    """The trainer runs of phase 15 on ``world`` ranks: (name, trainer flags
+    beyond phase 5's, global batch, sequence length, K1 launches a rank per
+    layer and step). dp and fsdp take phase 5's batch (one row a rank at
+    least), zigzag tp_sp one row of twice its length."""
+    b = max(BATCH, world)
+    return (
+        ("dp", ["--rules", "dp", "--mesh", f"data={world}"], b, SEQ, 1),
+        ("fsdp", ["--rules", "fsdp", "--mesh", f"data=1,fsdp={world}"], b, SEQ, 1),
+        ("tp_sp_zigzag", ["--rules", "tp_sp", "--mesh", f"data=1,fsdp=1,seq={world},model=1",
+                          "--seq-parallel", "zigzag"], 1, 2 * SEQ, world),
+    )
+
+
+def run_argv(flags: list, batch: int, seq: int, device: str, steps: int = STEPS) -> list:
+    return main_path_argv() + flags + ["--batch-size", str(batch), "--seq-len", str(seq),
+                                       "--steps", str(steps), "--device", device,
+                                       "--log-level", "warning"]
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_entry(fn, rank: int, world: int, backend: str, store: str, device, queue) -> None:
+    """A spawned rank on ``device`` (None: ``cuda:<rank>``, a card a rank):
+    join the group (FileStore rendezvous), run ``fn(rank, world, device)``
+    and put ("ok", rank, result) or ("error", rank, traceback) on the
+    queue."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    device = device or f"cuda:{rank}"
+    try:
+        import torch
+        import torch.distributed as dist
+
+        kw = {}
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(device)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            if backend == "nccl":
+                kw["device_id"] = torch.device(device)
+        dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                                world_size=world, **kw)
+        try:
+            result = fn(rank, world, device)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        queue.put(("ok", rank, result))
+    except BaseException:  # the parent fails the run with this traceback
+        queue.put(("error", rank, traceback.format_exc()))
+
+
+def run_ranks(fn, world: int, backend: str, timeout: float, device) -> list:
+    """``fn`` on ``world`` spawned ranks of one group, every rank on
+    ``device`` (None: rank r on ``cuda:r``); each rank's result, in rank
+    order. A rank that fails or outlives ``timeout`` fails the run, every
+    rank stopped first."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="oim-ranks-"), "store")
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, backend, store, device, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline, err = {}, time.monotonic() + timeout, None
+    while len(results) < world and err is None:
+        try:
+            status, rank, value = queue.get(timeout=1.0)
+        except queue_mod.Empty:
+            waiting = sorted(set(range(world)) - set(results))
+            dead = [r for r in waiting if procs[r].exitcode is not None]
+            if dead:
+                err = f"ranks {dead} exited {[procs[r].exitcode for r in dead]} with no result"
+            elif time.monotonic() > deadline:
+                err = f"ranks {waiting} still running after {timeout} s"
+            continue
+        if status == "error":
+            err = f"rank {rank} failed:\n{value}"
+        else:
+            results[rank] = value
+    for p in procs:
+        p.join(timeout=30 if err is None else 1)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    if err is not None:
+        fail(f"multi-rank ({backend}, world {world}): {err}")
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        fail(f"multi-rank ({backend}, world {world}): ranks exited {bad}")
+    return [results[r] for r in range(world)]
+
+
+def check_collectives(rank: int, world: int, device: str) -> dict:
+    """Each collective of ``parallel/collectives.py`` once on a tensor on
+    ``device``, over a one-axis mesh of the world, against its value from
+    the inputs every rank can make (rank r's block is full[r])."""
+    import torch
+
+    from oim_tpu_torch.parallel import collectives as C
+    from oim_tpu_torch.parallel.mesh import build_mesh
+
+    axis = build_mesh([("x", world)], device=device).axis("x")
+    g = torch.Generator(device=device).manual_seed(150)
+    full = torch.randn((world, 4 * world, 6), generator=g, device=device)
+    mine = full[rank]
+    chunk = full.shape[1] // world
+    want = {
+        "psum": full.sum(0),
+        "pmean": full.mean(0),
+        "all_gather": torch.cat(list(full), 0),
+        "reduce_scatter": full.sum(0)[rank * chunk:(rank + 1) * chunk],
+        "all_to_all": torch.cat([full[j][rank * chunk:(rank + 1) * chunk]
+                                 for j in range(world)], 0),
+        "ppermute_ring": full[(rank - 1) % world],
+    }
+    got = {
+        "psum": C.psum(mine, axis),
+        "pmean": C.pmean(mine, axis),
+        "all_gather": C.all_gather(mine, axis),
+        "reduce_scatter": C.reduce_scatter(mine, axis),
+        "all_to_all": C.all_to_all(mine, axis, split_dim=0, concat_dim=0),
+        "ppermute_ring": C.ppermute_ring(mine, axis),
+    }
+    _sync(device)
+    errs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    return {"backend": axis.backend, "errors": errs, "index": C.axis_index(axis),
+            "size": C.axis_size(axis),
+            "on_device": all(t.device == torch.device(device) for t in got.values()),
+            "staged_calls": dict(C.STAGED_CALLS), "staged_bytes": dict(C.STAGED_BYTES)}
+
+
+def _digests(trainer) -> list:
+    """(leaf, piece, 2 x int64 digest of its bits) for each leaf this rank
+    holds: ranks with the same piece must hold the same bits."""
+    import torch
+
+    from oim_tpu_torch.train.state import tree_leaves
+
+    out = []
+    names = [n for n, _ in _named_leaves(trainer.state.params)]
+    for name, p, s in zip(names, tree_leaves(trainer.state.params),
+                          tree_leaves(trainer.shardings)):
+        flat = p.detach().reshape(-1)
+        ints = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+        s1 = torch.zeros((), dtype=torch.int64, device=p.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=p.device)
+        for start in range(0, ints.numel(), 1 << 26):
+            c = ints[start:start + (1 << 26)].long()
+            w = torch.arange(start, start + c.numel(), device=p.device) % 65521 + 1
+            s1 += c.sum()
+            s2 += (c * w).sum()
+        piece = tuple(s.parts(trainer.mesh, d)[1] for d in range(len(s.dims)))
+        out.append((name, piece, int(s1), int(s2)))
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _attention_inputs_full(device):
+    import torch
+
+    cfg_h, cfg_hkv, d = 32, 8, 128  # llama3-8b's attention
+    g = torch.Generator(device=device).manual_seed(151)
+    shape_q, shape_kv = (1, PAR_T, cfg_h, d), (1, PAR_T, cfg_hkv, d)
+    q, do = (torch.randn(shape_q, generator=g, device=device).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(shape_kv, generator=g, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def plain_attention(q, k, v, do, causal: bool) -> dict:
+    """out, dq, dk and dv of one attention call by the plain versions of
+    K1-K3 (f32 sums; phase 3's reference), delta formed as the autograd
+    Functions form it."""
+    import importlib
+
+    A = importlib.import_module("oim_tpu_torch.ops.attention")
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    out, lse = A.flash_forward_plain(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, t).contiguous()
+    dk, dv = A.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    dq = A.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    return {"out": out, "dq": dq, "dk": dk, "dv": dv}
+
+
+def sp_attention_check(rank: int, world: int, device: str) -> dict:
+    """Ring, zigzag and Ulysses at llama3-8b's attention width (q
+    [1,4096,32,128], k/v [1,4096,8,128], bf16, causal), each rank holding
+    its 2048 positions, against the plain versions of K1-K3 over all 4096
+    on one rank: output and dq/dk/dv on this rank's positions. K1-K3
+    launches and routes counted over each sequence-parallel run alone."""
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.parallel.mesh import build_mesh
+    from oim_tpu_torch.parallel.ring import make_sequence_parallel_attention, shard_positions
+
+    q, k, v, do = _attention_inputs_full(device)
+    ref = plain_attention(q, k, v, do, causal=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the reference's f32 scores
+    mesh = build_mesh([("data", 1), ("seq", world)], device=device)
+    out = {}
+    for kind in ("ring", "zigzag", "ulysses"):
+        pos = shard_positions(PAR_T, world, rank, "zigzag" if kind == "zigzag" else "ring")
+        idx = torch.from_numpy(pos.astype(np.int64)).to(device)
+        q_r, k_r, v_r = (x[:, idx].detach().requires_grad_(True) for x in (q, k, v))
+        fn = make_sequence_parallel_attention(mesh, kind=kind, causal=True)
+        _sync(device)
+        kernels.reset_launches()
+        o = fn(q_r, k_r, v_r)
+        o.backward(do[:, idx])
+        _sync(device)
+        launches = dict(kernels.LAUNCHES)
+        routes = {n: dict(r) for n, r in kernels.ROUTES.items()}
+        errs, tols = {}, {}
+        for name, got in (("out", o), ("dq", q_r.grad), ("dk", k_r.grad), ("dv", v_r.grad)):
+            errs[name] = max_err(got.detach(), ref[name][:, idx])
+            # phase 3's tolerance: relative to the largest value of the whole
+            # tensor, which every rank holds in its reference
+            tols[name] = BF16_REL_TOL * float(ref[name].abs().max())
+            if not bool(got.isfinite().all()):
+                errs[name] = float("inf")
+        out[kind] = {"launches": launches, "routes": routes, "errors": errs, "tols": tols}
+    return out
+
+
+def train_runs(rank: int, world: int, device: str) -> dict:
+    """The trainer CLI on each of ``par_runs(world)`` at llama3-8b width, LAYERS
+    layers, STEPS steps, on ``device``; per run: the history,
+    K1-K3 launches and routes, collectives staged through host memory,
+    peak memory, the bytes of params this rank holds, and its leaves'
+    digests."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.parallel import collectives as C
+    from oim_tpu_torch.train.state import tree_leaves
+
+    out = {}
+    for name, flags, batch, seq, _ in par_runs(world):
+        argv = run_argv(flags, batch, seq, device)
+        gc.collect()
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        C.reset_counts()
+        trainer = oim_trainer.run(argv)
+        _sync(device)
+        held = full = whole = 0
+        for (_, p), sh in zip(_named_leaves(trainer.state.params),
+                              tree_leaves(trainer.shardings)):
+            nbytes = p.numel() * p.element_size()
+            pieces = math.prod(sh.parts(trainer.mesh, d)[0] for d in range(len(sh.dims)))
+            held, full = held + nbytes, full + nbytes * pieces
+            whole += nbytes if pieces == 1 else 0
+        out[name] = {
+            "history": trainer.history, "launches": dict(kernels.LAUNCHES),
+            "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
+            "staged_calls": dict(C.STAGED_CALLS), "staged_bytes": dict(C.STAGED_BYTES),
+            "calls": dict(C.CALLS), "bytes": dict(C.BYTES),
+            "backend": trainer.mesh.axis(trainer.mesh.axis_names[0]).backend,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+            "held_bytes": held,
+            "full_bytes": full, "whole_bytes": whole,
+            "digests": _digests(trainer),
+        }
+        del trainer
+    return out
+
+
+def planted(fault: str):
+    """A ``patched`` context planting ``fault`` (of PAR_FAULTS) in this
+    rank's trainer."""
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.train import trainer as T
+
+    if fault == "contiguous_rope":
+        import torch.distributed as dist
+
+        def wrap(loss_and_stats):
+            def contiguous(*a, positions=None, **k):
+                if positions is not None:  # this rank's run of the sequence
+                    t, i = len(positions), dist.get_rank()
+                    positions = np.arange(i * t, (i + 1) * t, dtype=positions.dtype)
+                return loss_and_stats(*a, positions=positions, **k)
+            return contiguous
+        return patched(llama, "loss_and_stats", wrap)
+
+    def wrap(psum):
+        def dropped(x, axes):
+            # the gradients are the step's only psums of more than a scalar
+            if fault == "half_batch" or x.dim():
+                axes = [a for a in axes if a.name != "data"]
+            return psum(x, axes)
+        return dropped
+    return patched(T, "psum", wrap)
+
+
+def fault_runs(rank: int, world: int, device: str) -> dict:
+    """Each of PAR_FAULTS: its run of ``par_runs(world)`` for
+    PAR_FAULT_STEPS steps with the fault planted; the history."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+
+    runs = {name: (flags, batch, seq) for name, flags, batch, seq, _ in par_runs(world)}
+    out = {}
+    for fault, run in PAR_FAULTS:
+        flags, batch, seq = runs[run]
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        with planted(fault):
+            trainer = oim_trainer.run(run_argv(flags, batch, seq, device, PAR_FAULT_STEPS))
+        out[fault] = trainer.history
+        del trainer
+    return out
+
+
+def ranks_job(rank: int, world: int, device: str) -> dict:
+    return {"collectives": check_collectives(rank, world, device),
+            "attention": sp_attention_check(rank, world, device),
+            "train": train_runs(rank, world, device),
+            "faults": fault_runs(rank, world, device)}
+
+
+def nccl_world1_job(rank: int, world: int, device: str) -> dict:
+    """NCCL at world size 1: each collective once on a CUDA tensor, then
+    phase 5's config for 2 steps through the meshed path (--mesh data=1)."""
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.parallel import collectives as C
+
+    coll = check_collectives(rank, world, device)
+    C.reset_counts()
+    kernels.reset_launches()
+    trainer = oim_trainer.run(run_argv(["--mesh", "data=1"], BATCH, SEQ, device, steps=2))
+    _sync(device)
+    return {"collectives": coll, "history": trainer.history,
+            "launches": dict(kernels.LAUNCHES),
+            "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
+            "calls": dict(C.CALLS), "staged_calls": dict(C.STAGED_CALLS),
+            "backend": trainer.mesh.axis("data").backend}
+
+
+def _check_collective_result(res: dict, what: str, backend: str) -> None:
+    errs = res["errors"]
+    say(f"  {what}: backend {res['backend']}, index {res['index']} of {res['size']}, "
+        f"max |err| {max(errs.values()):.2e} ({', '.join(errs)}), "
+        f"staged through host memory {sum(res['staged_calls'].values())} call(s)")
+    if res["backend"] != backend or not res["on_device"]:
+        fail(f"{what}: backend {res['backend']} (want {backend}), results on the rank's "
+             f"device {res['on_device']}")
+    if max(errs.values()) > 1e-5:
+        fail(f"{what}: collectives disagree with their values: {errs}")
+    if backend == "nccl" and sum(res["staged_calls"].values()):
+        fail(f"{what}: NCCL staged {res['staged_calls']} through host memory")
+
+
+def one_rank_references(world: int, device: str, main: dict | None = None) -> dict:
+    """The history (STEPS steps) of each of ``par_runs(world)`` on one
+    process with the run's global batch and initial params: phase 5's
+    where the batch is phase 5's, else a run of the CLI here."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+
+    by_batch = {(BATCH, SEQ): main["history"]} if main is not None else {}
+    refs = {}
+    for name, _, batch, seq, _ in par_runs(world):
+        if (batch, seq) not in by_batch:
+            by_batch[(batch, seq)] = oim_trainer.run(run_argv([], batch, seq, device)).history
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        refs[name] = by_batch[(batch, seq)]
+    return refs
+
+
+def deviation(hists: list, ref: list) -> tuple[float, float]:
+    """The largest relative difference of loss and of grad_norm, over the
+    steps of every rank's history, from the one-rank history ``ref``."""
+    def rel(key):
+        return max(abs(h[key] - r[key]) / abs(r[key])
+                   for hist in hists for h, r in zip(hist, ref, strict=False))
+    if any(len(hist) > len(ref) for hist in hists):
+        fail(f"a run of {max(map(len, hists))} steps against a reference of {len(ref)}")
+    return rel("loss"), rel("grad_norm")
+
+
+def check_ranks(ranks: list, world: int, single: dict, backend: str) -> dict:
+    """The checks of phase 15 on the results of ``ranks_job`` on every rank:
+    the collectives, sequence-parallel attention against one rank with the
+    schedule's launches, and each trainer run against ``single`` (from
+    ``one_rank_references``)."""
+    for r, res in enumerate(ranks):
+        _check_collective_result(res["collectives"], f"{backend} collectives, rank {r}",
+                                 backend)
+    # Sequence-parallel attention against one rank.
+    k1_want = {"ring": [i + 1 for i in range(world)], "zigzag": [world] * world,
+               "ulysses": [1] * world}
+    attn = {}
+    for kind, want in k1_want.items():
+        per_rank = [res["attention"][kind] for res in ranks]
+        launches = [{n: pr["launches"][n] for n, _ in KERNELS} for pr in per_rank]
+        errs = {t: max(pr["errors"][t] for pr in per_rank) for t in ("out", "dq", "dk", "dv")}
+        tols = per_rank[0]["tols"]
+        say(f"  {kind:<8s} q [1,{PAR_T},32,128] k/v [1,{PAR_T},8,128] bf16 causal, "
+            f"{PAR_T // world} positions a rank: max |err| vs one rank "
+            + ", ".join(f"{t} {errs[t]:.3e} (tol {tols[t]:.3e})" for t in errs)
+            + f"; launches by rank {launches}")
+        for t in errs:
+            if not errs[t] <= tols[t]:
+                fail(f"{kind} attention: {t} max |err| {errs[t]} > {tols[t]}")
+        for r, (pr, lw) in enumerate(zip(per_rank, want)):
+            for n, _ in KERNELS:
+                if pr["launches"][n] != lw or pr["routes"][n]["wgmma"] != lw:
+                    fail(f"{kind} attention, rank {r}: {n} launched {pr['launches'][n]} "
+                         f"({pr['routes'][n]}), the schedule implies {lw} on wgmma")
+        attn[kind] = {"launches_by_rank": launches, "max_abs_err": errs, "tol": tols}
+
+    # The trainer under each rules table.
+    train = {}
+    for name, _, batch, seq, k1_per in par_runs(world):
+        per_rank = [res["train"][name] for res in ranks]
+        hists = [pr["history"] for pr in per_rank]
+        losses = [[h["loss"] for h in hist] for hist in hists]
+        want_launch = k1_per * LAYERS * STEPS
+        step_s = [sum(h["step_s"] for h in hist[1:]) / max(1, len(hist) - 1) for hist in hists]
+        ref = single[name]
+        loss_rel, norm_rel = deviation(hists, ref)
+        staged = [sum(pr["staged_calls"].values()) for pr in per_rank]
+        staged_b = [sum(pr["staged_bytes"].values()) for pr in per_rank]
+        say(f"  {name} (B={batch}, T={seq}): losses {losses[0]}, grad_norms "
+            f"{[h['grad_norm'] for h in hists[0]]}; one rank: losses "
+            f"{[r['loss'] for r in ref]}, grad_norms {[r['grad_norm'] for r in ref]}; "
+            f"worst step: loss rel {loss_rel:.3e} (tol {PAR_LOSS_REL}), grad_norm rel "
+            f"{norm_rel:.3e} (tol {PAR_NORM_REL})")
+        say(f"    backend {per_rank[0]['backend']}; step_s by rank "
+            f"{[round(s, 4) for s in step_s]} (steps 2..{STEPS}); peak mem by rank "
+            f"{[round(pr['peak_mem_gb'], 2) for pr in per_rank]} GB; held params "
+            f"{[pr['held_bytes'] for pr in per_rank]} B; staged through host memory "
+            f"{staged} call(s), {staged_b} B; collectives {per_rank[0]['calls']}")
+        if any(len(ls) != STEPS or not all(math.isfinite(x) for x in ls) for ls in losses):
+            fail(f"{name}: losses not finite or missing: {losses}")
+        if any(ls != losses[0] for ls in losses):
+            fail(f"{name}: ranks report different global losses {losses}")
+        if loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+            fail(f"{name}: differs from one rank: loss rel {loss_rel}, "
+                 f"grad_norm rel {norm_rel}")
+        for r, pr in enumerate(per_rank):
+            for n, _ in KERNELS:
+                if pr["launches"][n] != want_launch or pr["routes"][n]["wgmma"] != want_launch:
+                    fail(f"{name}, rank {r}: {n} launched {pr['launches'][n]} "
+                         f"({pr['routes'][n]}), want {want_launch} on wgmma")
+        pieces: dict = {}
+        for pr in per_rank:
+            for leaf, piece, s1, s2 in pr["digests"]:
+                pieces.setdefault((leaf, tuple(piece)), []).append((s1, s2))
+        split = [key for key, seen in pieces.items() if len(set(seen)) > 1]
+        replicas = sum(1 for seen in pieces.values() if len(seen) > 1)
+        say(f"    replicas: {replicas} leaf pieces held by more than one rank, "
+            f"{len(split)} differing after step {STEPS}")
+        if split:
+            fail(f"{name}: replicas differ across ranks after the last step: {split}")
+        for r, pr in enumerate(per_rank):
+            want_held = ((pr["full_bytes"] - pr["whole_bytes"]) // world + pr["whole_bytes"]
+                         if name == "fsdp" else pr["full_bytes"])
+            if pr["held_bytes"] != want_held:
+                fail(f"{name}, rank {r}: holds {pr['held_bytes']} B of params, want "
+                     f"{want_held} ({pr['full_bytes']} B unsharded, {pr['whole_bytes']} B "
+                     "held whole)")
+        train[name] = {
+            "batch": batch, "seq": seq,
+            "losses_by_rank": losses, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+            "step_s_by_rank": step_s,
+            "peak_mem_gb_by_rank": [pr["peak_mem_gb"] for pr in per_rank],
+            "held_bytes_by_rank": [pr["held_bytes"] for pr in per_rank],
+            "unsharded_bytes": per_rank[0]["full_bytes"],
+            "launches_by_rank": [{n: pr["launches"][n] for n, _ in KERNELS} for pr in per_rank],
+            "staged_calls_by_rank": staged, "staged_bytes_by_rank": staged_b,
+            "collective_calls": per_rank[0]["calls"], "collective_bytes": per_rank[0]["bytes"],
+            "replica_pieces_checked": replicas, "backend": per_rank[0]["backend"],
+        }
+    # The planted faults: each must break a limit the sound runs keep.
+    faults = {}
+    for fault, run in PAR_FAULTS:
+        hists = [res["faults"][fault] for res in ranks]
+        loss_rel, norm_rel = deviation(hists, single[run])
+        caught = loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL
+        say(f"  planted {fault} in {run}: losses by rank {[[h['loss'] for h in hist] for hist in hists]}, "
+            f"grad_norms {[[h['grad_norm'] for h in hist] for hist in hists]}; worst step: loss rel "
+            f"{loss_rel:.3e}, grad_norm rel {norm_rel:.3e}: "
+            f"{'caught' if caught else 'NOT caught'}")
+        if not caught:
+            fail(f"planted fault {fault} in {run} stays within the limits: loss rel "
+                 f"{loss_rel} (<= {PAR_LOSS_REL}), grad_norm rel {norm_rel} (<= {PAR_NORM_REL})")
+        faults[fault] = {"run": run, "loss_rel": loss_rel, "grad_norm_rel": norm_rel}
+    return {"attention": attn, "train": train, "faults": faults}
+
+
+def phase_parallel(main: dict, device: str = "cuda:0") -> dict:
+    """Phase 15: NCCL at world size 1, then PAR_WORLD ranks on ``device``
+    over gloo: the collectives, ring/zigzag/Ulysses attention against one
+    rank, and the trainer under dp, fsdp and zigzag tp_sp against one
+    rank."""
+    import gc
+
+    import torch
+
+    t_phase = time.monotonic()
+    say("  (two ranks sharing one card over gloo: a check of the multi-GPU path, "
+        "not a multi-GPU speed)")
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    single = one_rank_references(PAR_WORLD, device, main)
+
+    say("  NCCL, world size 1")
+    (nccl,) = run_ranks(nccl_world1_job, 1, "nccl", PAR_NCCL_TIMEOUT, device)
+    _check_collective_result(nccl["collectives"], "NCCL collectives", "nccl")
+    n_losses = [r["loss"] for r in nccl["history"]]
+    n_norms = [r["grad_norm"] for r in nccl["history"]]
+    m_norms = [r["grad_norm"] for r in main["history"][:2]]
+    say(f"  --mesh data=1 over NCCL: losses {n_losses}, grad_norms {n_norms} against phase "
+        f"5's {main['losses'][:2]}, {m_norms} (equal to the bit wanted); backend "
+        f"{nccl['backend']}; collective calls {nccl['calls']}; launches {nccl['launches']}")
+    if nccl["backend"] != "nccl" or n_losses != main["losses"][:2] or n_norms != m_norms:
+        fail(f"NCCL world 1: losses {n_losses} and grad_norms {n_norms} are not phase 5's "
+             f"{main['losses'][:2]} and {m_norms} (backend {nccl['backend']})")
+    for name, _ in KERNELS:
+        if nccl["routes"][name]["wgmma"] != LAYERS * 2 or nccl["launches"][name] != LAYERS * 2:
+            fail(f"NCCL world 1: {name} launched {nccl['launches'][name]} "
+                 f"({nccl['routes'][name]}), want {LAYERS * 2} on wgmma")
+
+    say(f"  gloo, {PAR_WORLD} ranks on {device}")
+    ranks = run_ranks(ranks_job, PAR_WORLD, "gloo", PAR_RANK_TIMEOUT, device)
+    out = check_ranks(ranks, PAR_WORLD, single, "gloo")
+    return {"nccl_world1": {"losses": n_losses, "grad_norms": n_norms,
+                            "launches": nccl["launches"], "calls": nccl["calls"]},
+            **out, "wall_s": time.monotonic() - t_phase,
+            "note": "two ranks share one card over gloo: not a multi-GPU speed"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3249,10 +3898,26 @@ def main() -> int:
 
     say("== 3. kernels against their plain versions")
     cfg, moe_cfg = llama.LLAMA3_8B, moe_flagship()
-    shapes = {  # the attention of each training path phases 5-11 drive
-        "llama3-8b (phases 5, 8, 9)": (BATCH, SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
-        "MoE flagship (phase 11)": (BATCH, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads,
-                                    moe_cfg.head_dim),
+    bf16 = torch.bfloat16
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t_rank = PAR_T // PAR_WORLD  # phase 15's positions a rank
+    shapes = {  # the attention call of each path phases 5-15 drive:
+        # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
+        "llama3-8b (phases 5, 8, 9)": (BATCH, SEQ, SEQ, h, hkv, d, True, bf16, 1),
+        "MoE flagship (phase 11)": (BATCH, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads,
+                                    moe_cfg.head_dim, True, bf16, 2),
+        # Phase 15: a ring's or a zigzag's blocks carry the lse cotangent.
+        "phase 15 ring and zigzag diagonal; dp, fsdp a rank":
+            (1, t_rank, t_rank, h, hkv, d, True, bf16, 10, True),
+        "phase 15 ring, a full block": (1, t_rank, t_rank, h, hkv, d, False, bf16, 11, True),
+        "phase 15 zigzag, q against the held low half":
+            (1, t_rank, t_rank // 2, h, hkv, d, False, bf16, 12, True),
+        "phase 15 zigzag, q's high half against both held halves":
+            (1, t_rank // 2, t_rank, h, hkv, d, False, bf16, 13, True),
+        "phase 15 Ulysses, a rank's heads over the whole sequence":
+            (1, PAR_T, PAR_T, h // PAR_WORLD, hkv // PAR_WORLD, d, True, bf16, 14),
+        "phase 15 one rank: the references, tp_sp's row":
+            (1, PAR_T, PAR_T, h, hkv, d, True, bf16, 15),
     }
     odd = [
         # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
@@ -3328,7 +3993,20 @@ def main() -> int:
     for rec in records:
         rec["sources_launches"] = sources["train"]["launches"][rec["name"]]
 
-    say("== 15. summary")
+    say("== 15. multi-rank training on the one card (NCCL at world size 1; two ranks "
+        "over gloo)")
+    par = phase_parallel(main)
+    part = {"flash_fwd": ("out",), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
+    for rec in records:
+        n = rec["name"]
+        rec["parallel_launches"] = {
+            "nccl_world1": par["nccl_world1"]["launches"][n],
+            **{kind: [lr[n] for lr in a["launches_by_rank"]] for kind, a in par["attention"].items()},
+            **{run: [lr[n] for lr in t["launches_by_rank"]] for run, t in par["train"].items()}}
+        rec["parallel_max_abs_err"] = max(a["max_abs_err"][t] for a in par["attention"].values()
+                                          for t in part[n])
+
+    say("== 16. summary")
     obs = {"main_path": {"step_s": main["step_s"], **main.pop("obs")},
            "serve": {"decode_step_ms": serve["decode_step_ms"], **serve.pop("obs")},
            "oim_fed": fed.pop("obs"), "moe_train": moe_main.pop("obs"),
@@ -3349,6 +4027,7 @@ def main() -> int:
                             "oim_infer": infer}, "card": card}))
     say(json.dumps({"sources": sources, "card": card}))
     say(json.dumps({"obs": obs, "card": card}))
+    say(json.dumps({"parallel": par, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,9 @@ parameters, 1.04e9 active).
     python -m oim_tpu_torch.cli.oim_trainer --model resnet50 --steps 20 \\
         --batch-size 128 --checkpoint-dir ckpt --checkpoint-every 10 \\
         --eval-every 10 --eval-steps 2
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m oim_tpu_torch.cli.oim_trainer --model llama3-8b --override n_layers=2 \\
+        --rules fsdp --mesh data=1,fsdp=4 --steps 5 --batch-size 4 --seq-len 2048
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the same step
 with the kernels' plain versions. ``--metrics-port`` serves the trainer's
@@ -20,19 +23,31 @@ gauges at ``/metrics`` and its ``train.step`` spans at ``/debug/spans``;
 ``--trace-dir`` streams the spans to ``oim-trainer-<pid>.trace.json``. Checkpoints are the port's own format,
 not orbax's: the JAX trainer cannot resume from them, nor this one from
 the JAX trainer's. The feeder, registry and volume flags (the OIM-fed
-feed), webdataset input and multi-GPU meshes are not ported yet.
+feed) and webdataset input are not ported yet.
+
+Several ranks: under ``torchrun`` (``WORLD_SIZE`` set) each process joins
+the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``/``MASTER_PORT``; NCCL when each rank has its own card,
+gloo otherwise) and trains on ``cuda:LOCAL_RANK``; ``--rules``, ``--mesh``
+and ``--seq-parallel`` are the JAX trainer's. Without ``WORLD_SIZE`` it is
+one process with no group.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+
+import torch
+import torch.distributed as dist
 
 from oim_tpu_torch.cli.common import add_observability_flags, start_observability
 from oim_tpu_torch.common import logging as oimlog
 from oim_tpu_torch.common.profiling import profile_trace
 from oim_tpu_torch.data.augment import augment_batches
+from oim_tpu_torch.parallel.mesh import backend_for, parse_axes
 from oim_tpu_torch.train import TrainConfig, Trainer
 from oim_tpu_torch.train.trainer import synthetic_batches
 
@@ -54,10 +69,22 @@ def _parse_value(val: str):
     return val
 
 
+def parse_mesh(spec: str):
+    """'data=4,model=2' -> [("data", 4), ("model", 2)]."""
+    try:
+        return parse_axes(spec)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}") from e
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("oim-trainer (torch)")
     p.add_argument("--model", default="llama-tiny",
                    choices=("llama-tiny", "llama-tiny-moe", "llama3-8b", "resnet50"))
+    p.add_argument("--rules", default="dp", choices=("dp", "fsdp", "tp_sp", "pipe"))
+    p.add_argument("--seq-parallel", default="ring", choices=("ring", "zigzag", "ulysses"),
+                   help="zigzag = load-balanced causal ring (rules=tp_sp only)")
+    p.add_argument("--mesh", default="", help="e.g. data=4,model=2")
     p.add_argument("--override", "--model-override", dest="override", action="append",
                    default=[], metavar="KEY=VALUE",
                    help="override a model-config field (repeatable), e.g. "
@@ -107,7 +134,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             raise SystemExit(f"--override {item!r}: expected KEY=VALUE")
         overrides[key] = _parse_value(val)
     return TrainConfig(
-        model=args.model, remat=args.remat, remat_policy=args.remat_policy,
+        model=args.model, rules=args.rules, seq_parallel=args.seq_parallel,
+        remat=args.remat, remat_policy=args.remat_policy,
         accum_steps=args.accum_steps, batch_size=args.batch_size, seq_len=args.seq_len,
         image_size=args.image_size, num_classes=args.num_classes, lr=args.lr,
         warmup_steps=args.warmup_steps, total_steps=args.steps, log_every=args.log_every,
@@ -116,16 +144,36 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         model_overrides=overrides)
 
 
+def init_distributed(device: str) -> tuple[str, bool]:
+    """Join torchrun's process group when ``WORLD_SIZE`` is set and no group
+    exists; returns (this rank's device, whether this call made the
+    group). ``cuda`` becomes ``cuda:LOCAL_RANK``."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, False
+    if device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    if dist.is_initialized():
+        return device, False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    dist.init_process_group(backend_for(dev, local), init_method="env://")
+    return device, True
+
+
 def run(argv: list[str] | None = None) -> Trainer:
     """Parse flags, build the Trainer, run it; returns the Trainer (its
     ``history`` holds every logged step and eval pass)."""
     args = parse_args(argv)
     oimlog.set_global(oimlog.Logger(level=oimlog.parse_level(args.log_level),
                                     fmt=args.log_format))
+    axes = parse_mesh(args.mesh)
+    device, made_group = init_distributed(args.device)
     obs = start_observability(args, "oim-trainer")
     try:
         cfg = config_from_args(args)
-        trainer = Trainer(cfg, device=args.device)
+        trainer = Trainer(cfg, device=device, axes=axes)
         data = eval_data = None
         if args.augment:
             if args.eval_every:
@@ -139,6 +187,8 @@ def run(argv: list[str] | None = None) -> Trainer:
             trainer.run(steps=args.steps, data=data, eval_data=eval_data)
     finally:
         obs.stop()
+        if made_group:
+            dist.destroy_process_group()
     return trainer
 
 

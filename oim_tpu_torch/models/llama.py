@@ -11,8 +11,12 @@ versions on the CPU. bf16 params and activations; the router, logits,
 softmax statistics and loss in f32.
 
 ``remat`` recomputes each layer in the backward pass under
-``remat_policy`` (``models/remat.py``). The pipelined losses, sequence
-parallelism and the logical-axis tables are not ported yet.
+``remat_policy`` (``models/remat.py``). ``param_logical_axes`` names each
+dense weight's dims for the sharding rules (``parallel/sharding.py``).
+Under sequence parallelism a rank runs the model on its shard of the
+sequence: ``hidden_states`` and ``loss_and_stats`` take the shard's global
+positions for RoPE, its labels (shifted before the sequence was cut) and
+the global count of kept labels. The pipelined losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from oim_tpu_torch.ops.attention import attention as default_attention
 from oim_tpu_torch.ops.losses import chunked_softmax_cross_entropy, softmax_cross_entropy
 from oim_tpu_torch.ops.norms import rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from oim_tpu_torch.parallel.sharding import EMBED, HEAD, KV_HEAD, LAYER, MLP, VOCAB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +137,32 @@ def init(rng: torch.Generator, cfg: Config = LLAMA3_8B, device=None) -> dict:
             "lm_head": dense((D, cfg.vocab), fan)}
 
 
+def param_logical_axes(cfg: Config = LLAMA3_8B) -> dict:
+    """Each leaf's dims by logical name, the tree of ``init``. The MoE
+    subtree's (the expert axis) comes with expert parallelism."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "logical axes of the MoE subtree: expert parallelism is not ported yet "
+            "(a later multi-GPU slice)")
+    layers = {
+        "attn_norm": (LAYER, None),
+        "wq": (LAYER, EMBED, HEAD),
+        "wk": (LAYER, EMBED, KV_HEAD),
+        "wv": (LAYER, EMBED, KV_HEAD),
+        "wo": (LAYER, HEAD, EMBED),
+        "mlp_norm": (LAYER, None),
+        "w_gate": (LAYER, EMBED, MLP),
+        "w_up": (LAYER, EMBED, MLP),
+        "w_down": (LAYER, MLP, EMBED),
+    }
+    return {
+        "embed": (VOCAB, EMBED),
+        "layers": layers,
+        "final_norm": (None,),
+        "lm_head": (EMBED, VOCAB),
+    }
+
+
 def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s weights from the stacked [L, ...] tree, nested
     subtrees (``moe``) included."""
@@ -168,15 +199,26 @@ def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn):
 
 
 def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
-                  attn_fn: AttentionFn | None = None):
+                  attn_fn: AttentionFn | None = None, positions=None):
     """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2]:
-    the summed MoE load-balance loss and per-layer drop fraction)."""
+    the summed MoE load-balance loss and per-layer drop fraction).
+    ``positions`` [T] (host ints: numpy or a CPU tensor) are the tokens'
+    global positions (a sequence shard's; default 0..T-1). A negative
+    token id counts from the end of the vocabulary, as a JAX gather does."""
     check_supported(cfg)
     if attn_fn is None:
         attn_fn = default_attention
     T = tokens.shape[1]
-    cos, sin = rope_frequencies(cfg.head_dim, T, cfg.rope_theta, device=tokens.device)
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+    if positions is None:
+        cos, sin = rope_frequencies(cfg.head_dim, T, cfg.rope_theta, device=tokens.device)
+    else:
+        positions = np.asarray(positions, dtype=np.int64)
+        cos, sin = rope_frequencies(cfg.head_dim, int(positions.max()) + 1, cfg.rope_theta,
+                                    device=tokens.device)
+        index = torch.from_numpy(positions).to(tokens.device)
+        cos, sin = cos[index], sin[index]
+    ids = tokens.long()
+    x = F.embedding(torch.where(ids < 0, ids + cfg.vocab, ids), params["embed"]).to(cfg.dtype)
     layers = params["layers"]
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
@@ -200,34 +242,43 @@ def apply(params, tokens, cfg: Config = LLAMA3_8B,
     return logits
 
 
-def _z_term(logits, labels, ignore_index, z_loss):
+def _z_term(logits, labels, ignore_index, z_loss, denom=None):
     """z_loss * masked mean of logsumexp^2, as reported in stats."""
     logz = torch.logsumexp(logits, dim=-1)
     mask = (labels != ignore_index).float()
-    return z_loss * (torch.sum(torch.square(logz) * mask)
-                     / torch.clamp(torch.sum(mask), min=1.0))
+    count = torch.sum(mask) if denom is None else denom
+    return z_loss * (torch.sum(torch.square(logz) * mask) / torch.clamp(count, min=1.0))
 
 
 def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
-                   attn_fn: AttentionFn | None = None, ignore_index: int = -1):
+                   attn_fn: AttentionFn | None = None, ignore_index: int = -1,
+                   labels=None, positions=None, denom=None):
     """Next-token CE (plus the weighted MoE aux) over tokens [B, T+1];
     returns (loss, stats). An MoE model reports stats["moe_drop_frac"],
     the mean per-layer share of routing assignments over capacity. With
-    cfg.vocab_chunk the CE comes straight from the hidden states."""
+    cfg.vocab_chunk the CE comes straight from the hidden states.
+
+    A shard of a sharded batch passes its inputs [B, T] as ``tokens`` with
+    their ``labels`` [B, T] (shifted before the sequence was cut), their
+    global ``positions`` and ``denom``, the count of kept labels over the
+    global batch: the loss and the z-loss term are then this shard's
+    shares of the global means, which sum over the shards to them."""
     stats = {}
-    x, aux = hidden_states(params, tokens[:, :-1], cfg, attn_fn)
-    labels = tokens[:, 1:]
+    if labels is None:
+        tokens, labels = tokens[:, :-1], tokens[:, 1:]
+    x, aux = hidden_states(params, tokens, cfg, attn_fn, positions)
     if cfg.vocab_chunk:
         loss = chunked_softmax_cross_entropy(
             x, params["lm_head"], labels, cfg.vocab_chunk, ignore_index,
-            z_loss=cfg.z_loss, return_z_term=bool(cfg.z_loss))
+            z_loss=cfg.z_loss, return_z_term=bool(cfg.z_loss), denom=denom)
         if cfg.z_loss:
             loss, stats["z_loss_term"] = loss
     else:
         logits = (x @ params["lm_head"]).float()
-        loss = softmax_cross_entropy(logits, labels, ignore_index, z_loss=cfg.z_loss)
+        loss = softmax_cross_entropy(logits, labels, ignore_index, z_loss=cfg.z_loss,
+                                     denom=denom)
         if cfg.z_loss:
-            stats["z_loss_term"] = _z_term(logits, labels, ignore_index, cfg.z_loss)
+            stats["z_loss_term"] = _z_term(logits, labels, ignore_index, cfg.z_loss, denom)
     if cfg.n_experts:
         loss = loss + cfg.moe_aux_weight * aux[0]
         stats["moe_drop_frac"] = aux[1] / cfg.n_layers

@@ -17,8 +17,10 @@ The router runs in float32 with autocast off and refuses TF32: a route is
 an argmax, which a low-precision product can flip. Expert products run in
 the model dtype and lower to ``aten.bmm``, so remat's
 "dots_with_no_batch_dims" recomputes them as JAX's policy does (batch dim
-E). Expert parallelism (``param_logical_axes``) waits for the port's
-sharding rules.
+E). Expert parallelism (``param_logical_axes``, the "expert" mesh axis
+and its all-to-alls) comes with a later multi-GPU slice (ROADMAP A.6,
+item 3); until then the trainer refuses MoE under a mesh of several
+ranks.
 """
 
 from __future__ import annotations

@@ -10,21 +10,27 @@ import torch
 
 
 def _masked_mean(v: torch.Tensor, labels: torch.Tensor,
-                 ignore_index: int | None) -> torch.Tensor:
+                 ignore_index: int | None, denom=None) -> torch.Tensor:
+    """Mean of ``v`` over the kept labels; with ``denom`` (the kept count
+    over every shard of a sharded batch), this shard's share of it."""
     if ignore_index is not None:
         mask = (labels != ignore_index).float()
-        return torch.sum(v * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        count = torch.sum(mask) if denom is None else denom
+        return torch.sum(v * mask) / torch.clamp(count, min=1.0)
+    if denom is not None:
+        return torch.sum(v) / denom
     return torch.mean(v)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_index: int | None = None,
-                          z_loss: float = 0.0) -> torch.Tensor:
+                          z_loss: float = 0.0, denom=None) -> torch.Tensor:
     """Mean token cross entropy (+ optional z-loss).
 
     logits: [..., vocab]; labels: [...] int. ``ignore_index`` labels are
     masked out of the mean. ``z_loss`` adds z_loss * mean(logsumexp^2) over
-    the same tokens.
+    the same tokens. ``denom`` divides the sum instead of this call's own
+    count (a shard's share of a global mean).
     """
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -35,7 +41,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - label_logits
     if z_loss:
         nll = nll + z_loss * torch.square(logz)
-    return _masked_mean(nll, labels, ignore_index)
+    return _masked_mean(nll, labels, ignore_index, denom)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -104,12 +110,13 @@ class _ChunkedNLL(torch.autograd.Function):
 def chunked_softmax_cross_entropy(
     x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
     vocab_chunk: int, ignore_index: int | None = None,
-    z_loss: float = 0.0, return_z_term: bool = False,
+    z_loss: float = 0.0, return_z_term: bool = False, denom=None,
 ):
     """CE straight from hidden states, never materializing [N, vocab].
 
     x: [..., D] final hidden states; lm_head: [D, V]; labels: [...] int.
-    Returns the scalar mean CE (and the z-loss term when return_z_term).
+    Returns the scalar mean CE (and the z-loss term when return_z_term);
+    ``denom`` as in ``softmax_cross_entropy``.
     """
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -118,7 +125,7 @@ def chunked_softmax_cross_entropy(
     z_sq = torch.square(logz)
     if z_loss:
         nll = nll + z_loss * z_sq
-    total = _masked_mean(nll, yf, ignore_index)
+    total = _masked_mean(nll, yf, ignore_index, denom)
     if return_z_term:
-        return total, z_loss * _masked_mean(z_sq, yf, ignore_index)
+        return total, z_loss * _masked_mean(z_sq, yf, ignore_index, denom)
     return total

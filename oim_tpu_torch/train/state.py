@@ -108,10 +108,14 @@ class AdamW:
         return OptState(count=0, mu=_map(zeros, params), nu=_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params) -> torch.Tensor:
+    def update(self, grads, state: OptState, params, norm=None) -> torch.Tensor:
         """Apply one update in place to ``params``, ``state.mu`` and
-        ``state.nu``; returns the pre-clip global grad norm (f32 scalar)."""
-        norm = global_norm(grads)
+        ``state.nu``; returns the pre-clip global grad norm (f32 scalar).
+        ``norm`` is that norm when the caller holds shards of the gradients
+        (the trainer under a mesh sums their squares over the shards); by
+        default it is ``global_norm(grads)``."""
+        if norm is None:
+            norm = global_norm(grads)
         clip = bool(norm >= self.grad_clip)
         count = state.count + 1
         # bias corrections in f32 (optax: 1 - decay**count, f32 count)

@@ -1,35 +1,50 @@
-"""The trainer (``oim_tpu/train/trainer.py``): a single-device train step,
-its evaluation, and the loop that logs loss, grad_norm, step_s and mfu,
-evaluates and checkpoints.
+"""The trainer (``oim_tpu/train/trainer.py``): the train step over a mesh
+of ranks, its evaluation, and the loop that logs loss, grad_norm, step_s
+and mfu, evaluates and checkpoints.
 
 Ported: ``TrainConfig`` for the llama models (dense and MoE) and resnet50
-(with remat and its policies), ``make_train_step`` with rules "dp" on one
-device and gradient accumulation, ``synthetic_batches`` (the same numpy
-streams as the JAX package), ``flops_per_step`` (an MoE model's on its
-active parameters), ``peak_flops_per_device`` and
-``peak_hbm_bw_per_device`` (keyed on the CUDA device name), and
-``Trainer`` with ``init_or_resume``, ``evaluate`` and ``run``. A model's
-stats (an MoE model's ``moe_drop_frac``) ride the step's stats, averaged
-over the microbatches, into the history. Each step runs in a
-``train.step`` span; each logged step sets the ``oim_train_*``,
+(with remat and its policies), ``make_train_step`` with gradient
+accumulation, ``synthetic_batches`` (the same numpy streams as the JAX
+package), ``flops_per_step`` (an MoE model's on its active parameters),
+``peak_flops_per_device`` and ``peak_hbm_bw_per_device`` (keyed on the
+CUDA device name), and ``Trainer`` with ``init_or_resume``, ``evaluate``
+and ``run``. A model's stats (an MoE model's ``moe_drop_frac``) ride the
+step's stats, averaged over the microbatches, into the history. Each step
+runs in a ``train.step`` span; each logged step sets the ``oim_train_*``,
 ``oim_feed_wait_seconds`` and ``oim_moe_drop_fraction`` gauges from the
 values it logs, and each eval pass ``oim_eval_loss`` (and
-``oim_eval_accuracy``). Meshes (fsdp, tp_sp, pipe) are not ported yet.
+``oim_eval_accuracy``).
+
+Meshes: the rules "dp", "fsdp" and "tp_sp" over the axes data, fsdp and
+seq (``model`` of size 1), each rank one process of ``torch.distributed``
+holding its rows of the batch, its part of the sequence when ``seq`` > 1
+(ring, zigzag or Ulysses attention, ``parallel/ring.py``) and its shards
+of the parameters and moments. The step computes the JAX meshed step's
+function: the label shift is taken on the global tokens, the loss is the
+global mean (each rank's sum over the global count of kept labels,
+summed over the axes that split the batch or the sequence), a weight
+sharded over fsdp is gathered before use and its gradient reduce-scattered
+(its backward), every gradient is then summed over the other splitting
+axes, and the clip sees the global norm. Still to come, each refused by
+``check_supported``: "pipe", ``model`` > 1, expert parallelism (MoE under
+a mesh of several ranks), ResNet across ranks, and checkpoints under such
+a mesh.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
-through ``torch.autograd.grad``, then the optimizer's in-place update.
-Checkpoints are the port's own format (``train/checkpoint.py``), not
-orbax's.
+through ``torch.autograd.grad``, the gradients' sums over ranks, then the
+optimizer's in-place update. Checkpoints are the port's own format
+(``train/checkpoint.py``), not orbax's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterator
+from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common import tracing
@@ -37,6 +52,21 @@ from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.models import llama, resnet
 from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
+from oim_tpu_torch.parallel.collectives import psum
+from oim_tpu_torch.parallel.mesh import Mesh, build_mesh
+from oim_tpu_torch.parallel.ring import make_sequence_parallel_attention, shard_positions
+from oim_tpu_torch.parallel.sharding import (
+    BATCH,
+    DP_RULES,
+    FSDP_RULES,
+    PIPE_RULES,
+    TP_SP_RULES,
+    gather_params,
+    logical_sharding,
+    param_shardings,
+    shard_batch,
+    tree_map,
+)
 from oim_tpu_torch.train.checkpoint import Checkpointer
 from oim_tpu_torch.train.state import (
     TrainState,
@@ -44,6 +74,15 @@ from oim_tpu_torch.train.state import (
     tree_leaves,
     tree_unflatten,
 )
+
+RULES = {
+    "dp": DP_RULES,
+    "fsdp": FSDP_RULES,
+    "tp_sp": TP_SP_RULES,
+    "pipe": PIPE_RULES,
+}
+# The mesh axes a rules table may split over more than one rank.
+PORTED_AXES = ("data", "fsdp", "seq")
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
 # roofline accounting, matched against torch.cuda.get_device_name() in
@@ -86,7 +125,9 @@ def peak_hbm_bw_per_device(device="cuda") -> float:
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "llama-tiny"  # llama-tiny | llama-tiny-moe | llama3-8b | resnet50
-    rules: str = "dp"  # only "dp" on one device is ported
+    rules: str = "dp"  # dp | fsdp | tp_sp ("pipe" is not ported yet)
+    seq_parallel: str = "ring"  # ring | zigzag | ulysses (mesh seq axis > 1;
+    # zigzag = load-balanced causal ring: equal per-step work on every rank)
     remat: bool = False  # recompute activations in bwd (fit big configs)
     remat_policy: str = ""  # "", "dots", "dots_with_no_batch_dims", "nothing"
     accum_steps: int = 1  # gradient accumulation: split the batch, one update
@@ -134,42 +175,115 @@ class TrainConfig:
             mcfg = dataclasses.replace(mcfg, **self.model_overrides)
         return mcfg
 
-    def check_supported(self) -> None:
-        if self.rules != "dp":
-            raise NotImplementedError(f"rules {self.rules!r}: only 'dp' is ported")
+    def check_supported(self, mesh: Mesh | None = None) -> None:
+        """Refuse what the port cannot run yet, naming what brings it."""
+        if self.rules not in RULES:
+            raise ValueError(f"unknown rules {self.rules!r} (valid: {sorted(RULES)})")
+        if self.rules == "pipe":
+            raise NotImplementedError(
+                "rules 'pipe' (GPipe, 1F1B) are not ported yet: a later multi-GPU slice")
         mcfg = self.model_config()
         if self.model.startswith("llama"):
             llama.check_supported(mcfg)
+        if mesh is None:
+            return
+        for name, size in mesh.shape.items():
+            if size > 1 and name == "model":
+                raise NotImplementedError(
+                    "tensor parallelism (model > 1) is not ported yet: it comes with "
+                    "serve/shard.py and a vocab-parallel loss in the next multi-GPU slice")
+            if size > 1 and name not in PORTED_AXES:
+                raise NotImplementedError(
+                    f"mesh axis {name!r} of size {size}: only {PORTED_AXES} (and model=1) "
+                    "are ported")
+        if mesh.size > 1:
+            if self.model == "resnet50":
+                raise NotImplementedError(
+                    "ResNet across ranks is not ported yet (its batch norm takes "
+                    "statistics over the global batch): a later multi-GPU slice")
+            if mcfg.n_experts:
+                raise NotImplementedError(
+                    "MoE across ranks waits for expert parallelism: a later multi-GPU slice")
+            if self.checkpoint_dir:
+                raise NotImplementedError(
+                    "checkpoint and resume under a mesh of several ranks are not "
+                    "ported yet: a later multi-GPU slice")
 
 
-def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable, Callable]:
-    """Returns (step_fn, init_fn, eval_fn).
+def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
+    """Returns (step_fn, shardings, init_fn, eval_fn).
 
+    ``mesh`` (``parallel.mesh.build_mesh``) places this rank; None is one
+    device with no communication. ``shardings`` is the params tree's
+    ``Sharding`` tree (the moments follow their params), or None for a
+    model held whole on its one rank (MoE, ResNet).
     ``init_fn(rng, params=None, extra=None)`` builds the TrainState:
-    params (and the model's mutable state) drawn from the torch.Generator
-    ``rng`` on ``device``, or the given ones. ``step_fn(state, batch)``
-    runs one update in place and returns (state, stats) with
-    stats["loss"] and stats["grad_norm"] as f32 scalars on the device.
+    the full params (and the model's mutable state) drawn from the
+    torch.Generator ``rng`` on ``device``, or the given ones, cut to this
+    rank's shards. ``step_fn(state, batch)`` runs one update in place on
+    this rank's rows of the global batch (``Trainer.place_batch``) and returns
+    (state, stats) with stats["loss"] and stats["grad_norm"] as f32
+    scalars on the device, global and equal on every rank.
     ``eval_fn(state, batch)`` is the forward-only stats: no gradient, no
     update, the model in inference mode (ResNet: running BN statistics,
     the state untouched, and its accuracy).
     """
-    cfg.check_supported()
+    if mesh is None:
+        mesh = Mesh([("data", 1)], [0], device)
+    cfg.check_supported(mesh)
+    rules = RULES[cfg.rules]
     mcfg = cfg.model_config()
     accum = max(1, cfg.accum_steps)
+    batch_axes = [mesh.axis(a) for a in logical_sharding(mesh, rules, (BATCH,)).axes]
+    n_seq = mesh.shape.get("seq", 1)
+    # The axes whose ranks hold different tokens: a loss or a gradient is
+    # summed over them. An axis of size 1 splits nothing and is left out,
+    # as XLA elides it.
+    split = [a for a in batch_axes if a.size > 1] + ([mesh.axis("seq")] if n_seq > 1 else [])
 
     if cfg.model.startswith("llama"):
+        attn_fn = None
+        if n_seq > 1:
+            sp = make_sequence_parallel_attention(mesh, kind=cfg.seq_parallel, axis="seq",
+                                                  causal=True)
+            attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731
+        logical = None if mcfg.n_experts else llama.param_logical_axes(mcfg)
+        positions: dict[int, tuple] = {}
+
+        def seq_shard(t: int):
+            """(global positions, their index on the device) of this rank's
+            part of a length-t sequence; None without a seq axis."""
+            if n_seq == 1:
+                return None, None
+            if t not in positions:
+                pos = shard_positions(t, n_seq, mesh.axis("seq").index, cfg.seq_parallel)
+                positions[t] = (pos, torch.from_numpy(pos.astype(np.int64)).to(device))
+            return positions[t]
+
         def init_params(rng):
             return llama.init(rng, mcfg, device=device), {}
 
         def loss_fn(params, extra, batch):
-            loss, stats = llama.loss_and_stats(params, batch["tokens"], mcfg)
+            full = params if shardings is None else gather_params(mesh, shardings, params)
+            tokens = batch["tokens"]
+            # The label shift is global: taken before the sequence is cut.
+            inputs, labels = tokens[:, :-1], tokens[:, 1:]
+            pos, index = seq_shard(inputs.shape[1])
+            if index is not None:
+                inputs, labels = inputs[:, index], labels[:, index]
+            ignore = -1  # loss_and_stats' ignore_index, as in the JAX step
+            with torch.no_grad():
+                kept = psum((labels != ignore).sum().float(), split)
+            loss, stats = llama.loss_and_stats(full, inputs, mcfg, attn_fn, ignore, labels=labels,
+                                               positions=pos, denom=kept)
             return loss, extra, stats
 
         def eval_stats(params, extra, batch):
             loss, _, stats = loss_fn(params, extra, batch)
             return {"loss": loss, **stats}
     else:
+        logical = None
+
         def init_params(rng):
             return resnet.init(rng, mcfg, device=device)
 
@@ -183,9 +297,19 @@ def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable, C
             return {"loss": softmax_cross_entropy(logits, batch["labels"]),
                     "accuracy": accuracy(logits, batch["labels"])}
 
+    shardings = None if logical is None else param_shardings(mesh, rules, logical)
+
     def init_fn(rng: torch.Generator | None, params=None, extra=None) -> TrainState:
         if params is None:
             params, extra = init_params(rng)
+
+        def piece(p, s):
+            # A shard is a copy, so the full tensor can go.
+            part = s.shard(p, mesh)
+            return part if part is p else part.clone(memory_format=torch.contiguous_format)
+
+        if shardings is not None:
+            params = tree_map(piece, params, shardings)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return TrainState(step=0, params=params, opt_state=tx.init(params),
@@ -196,6 +320,21 @@ def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable, C
         loss, new_extra, stats = loss_fn(params, extra, batch)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), new_extra, stats, grads
+
+    def reduce_grads(grads):
+        """Sum each gradient over the splitting axes its shard's gather did
+        not already sum over (a sharded leaf's backward reduce-scattered
+        it); then the global norm, each replicated part counted once."""
+        out, squares = [], {}
+        held = ([s.axes for s in tree_leaves(shardings)] if shardings is not None
+                else [()] * len(grads))
+        for g, axes in zip(grads, held):
+            g = psum(g, [a for a in split if a.name not in axes])
+            out.append(g)
+            squares[axes] = squares.get(axes, 0.0) + torch.sum(torch.square(g.float()))
+        total = sum(psum(sq, [mesh.axis(a) for a in axes if mesh.shape[a] > 1])
+                    for axes, sq in squares.items())
+        return out, torch.sqrt(total)
 
     def step_fn(state: TrainState, batch: dict):
         leaves = list(tree_leaves(state.params))
@@ -224,21 +363,23 @@ def make_train_step(cfg: TrainConfig, tx, device) -> tuple[Callable, Callable, C
             grads = [(a / accum).to(p.dtype) for a, p in zip(gsum, leaves)]
             loss = loss_sum / accum
             stats = {k: v / accum for k, v in stats_sum.items()}
-        grad_tree = tree_unflatten(state.params, grads)
-        grad_norm = tx.update(grad_tree, state.opt_state, state.params)
+        with torch.no_grad():
+            grads, norm = reduce_grads(grads)
+        tx.update(tree_unflatten(state.params, grads), state.opt_state, state.params, norm)
         state.extra = extra
         state.step += 1
         return state, {
-            "loss": loss.float(),
-            "grad_norm": grad_norm,
-            **{k: v.detach().float() for k, v in stats.items()},
+            "loss": psum(loss.float(), split),
+            "grad_norm": norm,
+            **{k: psum(v.detach().float(), split) for k, v in stats.items()},
         }
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: dict) -> dict:
-        return {k: v.float() for k, v in eval_stats(state.params, state.extra, batch).items()}
+        return {k: psum(v.float(), split)
+                for k, v in eval_stats(state.params, state.extra, batch).items()}
 
-    return step_fn, init_fn, eval_fn
+    return step_fn, shardings, init_fn, eval_fn
 
 
 def synthetic_batches(cfg: TrainConfig) -> Iterator[dict]:
@@ -266,16 +407,37 @@ def flops_per_step(cfg: TrainConfig) -> float:
 
 
 class Trainer:
-    """Owns the state and the step; run() drives the loop, evaluates,
-    checkpoints and logs."""
+    """Owns the mesh, the state and the step; run() drives the loop,
+    evaluates, checkpoints and logs.
 
-    def __init__(self, cfg: TrainConfig, device="cuda"):
+    The mesh: ``mesh``, else one built over every rank of the
+    ``torch.distributed`` world from ``axes`` (default: pure DP, one
+    "data" axis over the world), else, in a process without a group, one
+    device. Every rank draws the same global batches and the same initial
+    params (one seed) and keeps its part of each."""
+
+    def __init__(self, cfg: TrainConfig, device="cuda", mesh: Mesh | None = None,
+                 axes=None):
         self.cfg = cfg
         self.device = require(device)
+        if mesh is None:
+            if axes is None and not dist.is_initialized() and cfg.rules != "dp":
+                raise NotImplementedError(
+                    f"rules {cfg.rules!r} on one process without a mesh: pass axes "
+                    "(--mesh) that name the rules' axes, e.g. data=1,fsdp=1, or start "
+                    "ranks with torchrun")
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = build_mesh(axes or [("data", world)], device=self.device)
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the trainer on {self.device}")
+        if mesh.coordinate is None:
+            raise ValueError(f"this rank lies outside the mesh {mesh}")
+        self.mesh = mesh
         self.tx = make_optimizer(lr=cfg.lr, warmup_steps=cfg.warmup_steps,
                                  total_steps=cfg.total_steps,
                                  weight_decay=cfg.weight_decay)
-        self.step_fn, self.init_fn, self.eval_fn = make_train_step(cfg, self.tx, self.device)
+        self.step_fn, self.shardings, self.init_fn, self.eval_fn = make_train_step(
+            cfg, self.tx, self.device, mesh)
         self.state: TrainState | None = None
         self.last_eval_stats: dict[str, float] = {}
         # One record per logged step (step, loss, grad_norm, step_s, mfu,
@@ -284,8 +446,9 @@ class Trainer:
         self.checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
 
     def init(self, params=None, extra=None) -> None:
-        """Fresh state from cfg.seed, or from the given params tree (and
-        the model's mutable state: ResNet's BN statistics)."""
+        """Fresh state from cfg.seed, or from the given full params tree (and
+        the model's mutable state: ResNet's BN statistics); under a mesh
+        each rank keeps its shards."""
         rng = None
         if params is None:
             rng = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
@@ -306,12 +469,36 @@ class Trainer:
         return 0
 
     def place_batch(self, batch: dict) -> dict:
-        """Batch values onto the trainer's device: a tensor already there
-        passes through untouched (a feed gathered from a staged volume),
-        other tensors and numpy arrays are copied over."""
-        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
-                .to(self.device, non_blocking=True)
+        """This rank's rows of the global batch on the trainer's device. Each
+        leaf is split into the accumulation microbatches first and each
+        microbatch cut over the BATCH axes (``shard_batch``), so that a
+        rank's i-th local microbatch is its part of the global i-th one, as
+        the JAX step splits the global batch before sharding each
+        microbatch. Where one piece holds every row (one rank), a tensor
+        already on the device passes through untouched (a feed gathered
+        from a staged volume)."""
+        rules, accum = RULES[self.cfg.rules], max(1, self.cfg.accum_steps)
+        batch = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
+                 for k, v in batch.items()}
+        if logical_sharding(self.mesh, rules, (BATCH,)).parts(self.mesh, 0)[0] > 1:
+            micro = {}
+            for k, v in batch.items():
+                if v.shape[0] % accum:
+                    raise ValueError(f"batch {v.shape[0]} not divisible by accum_steps {accum}")
+                micro[k] = v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
+            rows = shard_batch(self.mesh, rules, micro, {k: (None, BATCH) for k in micro})
+            batch = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in rows.items()}
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
+
+    @torch.no_grad()
+    def full_params(self) -> dict:
+        """The full params tree, gathered from every rank's shards (each
+        rank of the mesh must call it)."""
+        params = self.state.params
+        if self.shardings is not None:
+            params = gather_params(self.mesh, self.shardings, params)
+        return tree_map(lambda p: p.detach(), params)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -390,7 +577,7 @@ class Trainer:
             # across run() calls means the caller's feed is positioned.
             self._fast_forward(data, start_step)
         fps = flops_per_step(cfg)
-        peak = peak_flops_per_device(self.device)
+        peak = peak_flops_per_device(self.device) * self.mesh.size
         last_loss = float("nan")
         self._sync()
         t_prev = time.monotonic()
