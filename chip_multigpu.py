@@ -15,14 +15,26 @@ K1-K3 launches equal to the schedule's, all on ``wgmma``; the trainer
 CLI at llama3-8b width (2 layers, 4 steps) under ``--rules dp --mesh
 data=N``, ``--rules fsdp --mesh data=1,fsdp=N`` (a batch of N rows) and
 ``--rules tp_sp --mesh data=1,fsdp=1,seq=N,model=1 --seq-parallel
-zigzag`` (one row of 4096), each run's every step against one rank on
-the same global batch and initial params (run here on cuda:0 before the
-ranks start), its replicas equal to the bit and, under fsdp, 1/N of the
-unsharded parameter bytes a rank; then the planted faults, each of which
-must break a limit. It fails on any miss, prints per-rank
-step_s and peak memory and the collectives' calls and bytes, a
-``multigpu`` JSON line, the cards' names and power limits, and last
-``{"ok": true, "device": {...}}``.
+zigzag`` (one row of 4096), tensor parallelism ``--mesh
+data=1,fsdp=1,seq=1,model=N`` (the same row; its collectives equal to
+``tp_collectives``' count) and, on four cards, ``seq=2,model=2`` with
+zigzag, each run's every step against one rank on the same global batch
+and initial params (run here on cuda:0 before the ranks start), its
+replicas equal to the bit and, under fsdp and tensor parallelism, 1/N of
+the split leaves' bytes a rank; then the planted faults, each of which
+must break a limit. Last, tensor-parallel serving with its members on
+distinct cards: llama3-8b at full depth, phase 7's 12 requests on one
+card (shard 1), then ``ServeEngine(shard=2, devices=["cuda:0",
+"cuda:1"])`` with chip_smoke's sharded checks: the member-memory gate,
+the members' weight bytes, every replayed request ending by length and
+its agreement with shard 1's stream reported, one allreduce per target
+dispatch, shard 1's greedy streams teacher-forced through the paged
+prefill, decode and verify of both (every generated position's logits
+within SERVE_LOGIT_REL x max|logit| of shard 1's), and the decode step
+at shard 1 and 2. It fails on any miss, prints per-rank step_s and peak memory
+and the collectives' calls and bytes, a ``multigpu`` JSON line, the
+cards' names and power limits, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -67,6 +79,19 @@ def main() -> int:
     cs.say(f"== NCCL, {n} ranks, one card a rank")
     ranks = cs.run_ranks(cs.ranks_job, n, "nccl", RANK_TIMEOUT, None)
     out = cs.check_ranks(ranks, n, single, "nccl")
+    cs.say("== tensor-parallel serving, members on cuda:0 and cuda:1")
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import ServeEngine
+
+    cfg = llama.LLAMA3_8B
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    eng = ServeEngine(params, cfg, device="cuda", **cs.SERVE_ENGINE)
+    streams = cs.replay_streams(eng, cs.serve_traffic(cfg.vocab))
+    eng.stop(drain=True)
+    del eng
+    out["serve_sharded"] = cs.phase_serve_sharded(cfg, params, streams,
+                                                  devices=("cuda:0", "cuda:1"))
+    del params
     cs.say(f"  total {time.monotonic() - t0:.1f} s")
     cs.say(json.dumps({"multigpu": {"world": n, **out}, "cards": cards}))
     for card in cards:

@@ -24,7 +24,9 @@ Phases, in order; any failure exits nonzero:
    the MoE flagship's, group 2, for phase 11; phase 15's blocks at 2048
    positions a rank with the lse cotangent in delta (the causal diagonal,
    a ring's full block, zigzag's 2048 x 1024 and 1024 x 2048 rectangles),
-   Ulysses' 16 heads over all 4096 positions, and one rank's 4096; and
+   Ulysses' 16 heads over all 4096 positions, and one rank's 4096;
+   tensor parallelism's heads a rank over 4096 positions (16/4 at
+   model=2, phase 15's, and 8/2 at model=4); and
    on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
    with fully masked rows, lengths not a multiple of the tile, a delta that
    carries an lse cotangent, a bf16 head_dim that the kernels serve by the
@@ -50,7 +52,9 @@ Phases, in order; any failure exits nonzero:
    CPU; the engine's greedy streams on the card equal to solo
    ``generate()`` on the card; a self-draft speculating engine's greedy
    streams equal to the plain engine's; a host-tier demote -> promote
-   round trip of a bf16 page exact to the bit.
+   round trip of a bf16 page exact to the bit; the plain and the
+   speculating engine at shard 2 (``devices=["cuda:0", "cuda:0"]``, two
+   members sharing the card) with greedy streams equal to shard 1's.
 7. serving main path: ``ServeEngine`` on llama3-8b at full width and full
    depth (32 layers, bf16, weights from ``llama.init`` on the card), 12
    requests from a seeded numpy generator (prompts of 17..1500 tokens,
@@ -83,6 +87,25 @@ Phases, in order; any failure exits nonzero:
    every request must end "error" and a later submit be refused.
    ``--profile`` adds a torch.profiler breakdown of one 8-row decode step
    (``chiprun_out/chip_smoke_serve_profile.json``).
+   Then tensor-parallel serving (``phase_serve_sharded``), the same
+   weights: a member-memory budget of exactly what a member needs at
+   shard 2 must refuse the model at shard 1 and admit it at shard 2;
+   ``ServeEngine(shard=2, devices=["cuda:0", "cuda:0"])`` (two members
+   sharing the card, the member group of ``serve/shard.py``) must hold
+   ``member_weight_bytes`` a member, replay the 12 requests in phase 7's
+   order and observe one allreduce per target dispatch; each greedy
+   stream of phase 7 (shard 1), fed through the engine's own paged target
+   forwards (the prompt's prefill, one decode step, a verify of the
+   rest) on one device and on the two members with their KV-head slices
+   of the page pool, must give logits within SERVE_LOGIT_REL x
+   max|logit| of one device's at every generated position. How far the replayed streams equal phase 7's is reported,
+   not required: at bf16 the sharded products sum in other orders than
+   the whole ones and round differently in places, and this random
+   model's greedy streams turn on such differences within tens of tokens, as
+   phase 7's own streams do against solo ``generate()`` and against
+   speculation (phase 6 requires the byte identity in f32). It prints
+   the 8-row decode step at shard 1 and at shard 2 (a reading, not a
+   claim: both members share one card) and one 1 KiB allreduce.
 8. OIM-fed training: a 4 GiB int32 token volume (FED_TOKENS tokens from a
    seeded generator) written as .npy to a temporary directory and staged
    through ``CUDABackend`` (64 MiB chunks, an 8 GiB stage cache). First
@@ -222,17 +245,22 @@ Phases, in order; any failure exits nonzero:
    ``--rules fsdp --mesh data=1,fsdp=2`` (B=2) and ``--rules tp_sp
    --mesh data=1,fsdp=1,seq=2,model=1 --seq-parallel zigzag`` (B=1, T=2
    x SEQ; the JAX trainer refuses a mesh that lacks an axis its rules
-   name, and so does the port). Each run: every loss finite and equal on
+   name, and so does the port) and ``--rules tp_sp --mesh
+   data=1,fsdp=1,seq=1,model=2`` (tensor parallelism, the same row; its
+   attention at 16/4 heads a rank, its collective calls and bytes equal
+   to ``tp_collectives``' count written down before the run). Each run:
+   every loss finite and equal on
    both ranks, every step's loss and grad_norm within PAR_LOSS_REL and
    PAR_NORM_REL of one rank on the same global batch and initial params,
    K1-K3 at LAYERS x STEPS launches a rank (twice that for zigzag), all
    ``wgmma``, every leaf piece held by both ranks equal by a digest of
-   its bits after the last step, and under fsdp each rank holding half
-   the unsharded parameter bytes plus the norms held whole. Last, the
-   faults of PAR_FAULTS are planted in the ranks' trainer one at a time
-   (each rank on its own rows only; the gradients' sum over data
-   dropped; zigzag's tokens at contiguous RoPE positions), and each
-   must break one of those two limits. It prints per-rank step_s and
+   its bits after the last step, and under fsdp and tensor parallelism
+   each rank holding half the bytes of the split leaves (embed and
+   lm_head among them) plus the norms held whole. Last, the faults of
+   PAR_FAULTS are planted in the ranks' trainer one at a time (each rank
+   on its own rows only; the gradients' sum over data dropped; zigzag's
+   tokens at contiguous RoPE positions; the plain psum in place of
+   ``reduce_from``), and each must break one of those two limits. It prints per-rank step_s and
    peak memory, the backend, the collectives' calls and bytes, those
    staged through host memory apart, and each fault's readings.
 16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
@@ -1165,16 +1193,30 @@ def phase_serve_agreement(device="cuda"):
     spec = run(eng)
     spec_stats = eng.stats()
     eng.stop()
+    # Tensor-parallel serving, two members sharing the card (f32, TF32
+    # off: the members' summed partials round as the whole product does).
+    sharded = {}
+    for name, kw in (("plain", {}), ("spec", dict(draft_params=params, draft_cfg=cfg,
+                                                    spec_tokens=3))):
+        eng = ServeEngine(params, cfg, shard=2, devices=list(SHARD_DEVICES), **kw,
+                          **engine_kw)
+        sharded[name] = run(eng)
+        eng.stop()
     say(f"  engine greedy streams equal to solo generate() on the card: "
         f"{sum(a == b for a, b in zip(plain, solo))}/{len(reqs)}  (prefix hits {hits})")
     say(f"  self-draft spec engine greedy streams equal to the plain engine's: "
         f"{sum(a == b for a, b in zip(spec, plain))}/{len(reqs)}  "
         f"(accepted {spec_stats['spec_accepted']} of {spec_stats['spec_proposed']})")
+    say(f"  shard 2 on {list(SHARD_DEVICES)}: plain and spec greedy streams equal to "
+        f"shard 1's: {sum(a == b for a, b in zip(sharded['plain'], plain))}/{len(reqs)}, "
+        f"{sum(a == b for a, b in zip(sharded['spec'], plain))}/{len(reqs)}")
     if plain != solo or hits != 2:
         fail(f"serving: engine greedy streams differ from solo generate() or the prefix "
              f"store missed ({hits} hits, want 2): {plain} vs {solo}")
     if spec != plain or not spec_stats["spec_accepted"]:
         fail(f"serving: spec streams differ from plain or accepted nothing: {spec} vs {plain}")
+    if sharded["plain"] != plain or sharded["spec"] != plain:
+        fail(f"serving: shard-2 greedy streams differ from shard 1's: {sharded} vs {plain}")
 
     gb = torch.Generator(device=device).manual_seed(2)
     pool = {n: torch.randn(2, 6, 16, 8, 128, generator=gb, device=device).to(torch.bfloat16)
@@ -1372,6 +1414,8 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     torch.cuda.empty_cache()
 
     result.update(serve_measure(cfg, params, reqs, device, profile))
+    # The streams of this run, for the shard-2 replay (not printed).
+    result["_streams"] = {r["name"]: r["out"] for r in reqs}
 
     spec_names = [r["name"] for r in reqs if not r["temperature"] and not r.get("shared")]
     eng = ServeEngine(params, cfg, device=device, max_batch=8, max_seq=2048, queue_depth=16,
@@ -1516,6 +1560,241 @@ def serve_measure(cfg, params, reqs, device, profile, moe_inputs: list | None = 
             f"{profiled['busy_ms']:.2f} of {step_ms:.2f} ms -> {out['decode_idle_share']:.3f}; "
             f"{step_ms * 1e3 / max(profiled['aten_ops'], 1):.1f} us of step per aten op")
     return out
+
+
+SHARD_DEVICES = ("cuda:0", "cuda:0")  # two members on the one card
+
+
+def replay_streams(eng, reqs) -> dict:
+    """Phase 7's submission order on ``eng``: SERVE_ALONE alone (it leaves
+    the shared prefix in the store), then the rest at once; each request's
+    stream by name. Every request must end by length."""
+    by = {r["name"]: r for r in reqs}
+    first = by[SERVE_ALONE]
+    out = {first["name"]: _submit(eng, first).result(timeout=RESULT_TIMEOUT)}
+    handles = {r["name"]: _submit(eng, r) for r in reqs if r is not first}
+    for name, h in handles.items():
+        out[name] = h.result(timeout=RESULT_TIMEOUT)
+        if h.finish_reason != "length":
+            fail(f"sharded serving: {name} ended {h.finish_reason!r}; engine error: "
+                 f"{eng.error}")
+    return out
+
+
+def decode_step_ms(cfg, params, reqs, device, group=None) -> float:
+    """One 8-row paged decode step (serve_measure's batch: the prompts of
+    SERVE_LENGTHS after their prefill) timed by CUDA events, through the
+    engine's target forwards: one device (``group`` None) or the members of
+    ``group``, whose params and pools are then the members'."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.serve import engine as E
+    from oim_tpu_torch.serve import shard as S
+
+    page, rows = SERVE_ENGINE["prefix_block"], [r for r in reqs if not r.get("shared")]
+    n_blocks = SERVE_ENGINE["max_seq"] // page
+    n_pages = len(rows) * n_blocks + 1
+    decode, prefill, _ = E.target_forwards(cfg, page, group)
+    if group is None:
+        pool = gen.init_page_pool(cfg, n_pages, page, device=device)
+    else:
+        lcfg = gen.shard_config(cfg, group.size)
+        params = [S.member_params(params, group.size, k, d) for k, d in enumerate(group.devices)]
+        pool = [gen.init_page_pool(lcfg, n_pages, page, device=d) for d in group.devices]
+    tables = torch.zeros(len(rows), n_blocks, dtype=torch.long)
+    firsts = []
+    for b, r in enumerate(rows):
+        n = len(r["prompt"])
+        tables[b, :-(-(n + 1) // page)] = torch.arange(-(-(n + 1) // page)) + 1 + b * n_blocks
+        padded = torch.zeros(1, max(8, 1 << (n - 1).bit_length()), dtype=torch.long)
+        padded[0, :n] = torch.tensor(r["prompt"])
+        last, _ = prefill(params, padded.to(device), n, pool, tables[b].to(device), 0)
+        firsts.append(int(last.argmax()))
+    tables = tables.to(device)
+    tokens = torch.tensor(firsts, device=device)
+    pos = torch.tensor([len(r["prompt"]) for r in rows], device=device)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: decode(params, tokens, pool, tables, pos), 10)
+    del params, pool
+    return ms
+
+
+def phase_serve_sharded(cfg, params, streams: dict, device="cuda",
+                        devices=SHARD_DEVICES) -> dict:
+    """Phase 7's tensor-parallel half: the member-memory gate refuses the
+    model at shard 1 and admits it at shard 2; ``ServeEngine(shard=2,
+    devices=devices)`` at full width and depth, each member holding
+    ``member_weight_bytes``; phase 7's requests replayed in its order, each
+    ending by length, their agreement with ``streams`` (phase 7's, shard 1)
+    reported; one allreduce observation per target dispatch; shard 1's
+    greedy streams teacher-forced through both (``teacher_forced``); then
+    the 8-row decode step at shard 1 and shard 2, a reading beside each
+    other."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.common import metrics as M
+    from oim_tpu_torch.serve import ServeEngine
+    from oim_tpu_torch.serve import shard as S
+
+    t0 = time.monotonic()
+    # The budget: exactly what a member needs at shard 2 (half the split
+    # weights, the replicated ones, half the pool), which one device
+    # holding everything exceeds.
+    pool_bytes = (SERVE_ENGINE["max_batch"] * SERVE_ENGINE["max_seq"] * 2 * cfg.n_layers
+                  * cfg.kv_dim * cfg.dtype.itemsize)
+    budget = S.check_member_budget(params, 2, pool_bytes, 0)
+    try:
+        ServeEngine(params, cfg, device=device, member_hbm_budget=budget, **SERVE_ENGINE)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("sharded serving: shard=1 was admitted past a member budget of the weights alone")
+    say(f"  member budget {budget} B (a member's need at shard 2): shard 1 refused "
+        f"({refused})")
+    torch.cuda.reset_peak_memory_stats()
+    ici = M.SERVE_ICI_ALLREDUCE.count
+    eng = ServeEngine(params, cfg, device=device, shard=2, devices=list(devices),
+                      member_hbm_budget=budget, **SERVE_ENGINE)
+    want_bytes = S.member_weight_bytes(params, 2)
+    held = [sum(t.numel() * t.element_size() for t in _leaf_tensors(p)) for p in eng.params]
+    say(f"  shard 2 on {list(devices)} admitted; weight bytes by member {held} "
+        f"(member_weight_bytes {want_bytes}; the full tree {S.member_weight_bytes(params, 1)})")
+    if held != [want_bytes] * 2:
+        fail(f"sharded serving: members hold {held} B of weights, want {want_bytes} each")
+    reqs = serve_traffic(cfg.vocab)
+    t_run = time.monotonic()
+    got = replay_streams(eng, reqs)
+    wall = time.monotonic() - t_run
+    stats = eng.stats()
+    observed = M.SERVE_ICI_ALLREDUCE.count - ici
+    eng.stop(drain=True)
+    if eng.error:
+        fail(f"sharded serving: the engine thread died:\n{eng.error}")
+    greedy = [r["name"] for r in reqs if r["temperature"] == 0]
+    same = {n: first_divergence(got[n], streams[n]) for n in greedy}
+    sampled = {r["name"]: first_divergence(got[r["name"]], streams[r["name"]])
+               for r in reqs if r["temperature"] and r["name"] != SERVE_CANCEL}
+    say(f"  shard 2: {stats['decode_tokens']} decode tokens in {stats['target_steps']} target "
+        f"steps, wall {wall:.2f} s; tokens equal to shard 1's before the first divergence "
+        f"(reported: at bf16 the sharded products round differently from the whole ones, "
+        f"as other shapes do against solo above): greedy {same} (of "
+        f"{[len(streams[n]) for n in greedy]}), sampled {sampled}; allreduce "
+        f"observations {observed}")
+    if observed != stats["target_steps"]:
+        fail(f"sharded serving: {observed} allreduce observations for "
+             f"{stats['target_steps']} target dispatches")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = S.member_group(S.member_devices(2, list(devices)))
+    forced = teacher_forced(cfg, params, {r["name"]: r["prompt"] for r in reqs
+                                          if r["temperature"] == 0}, streams, device, group)
+    one = decode_step_ms(cfg, params, reqs, device)
+    two = decode_step_ms(cfg, params, reqs, device, group)
+    allreduce_ms = 1e3 * min(S.time_allreduce(group) for _ in range(5))
+    # The members' meetings of one decode step alone: two a layer, on the
+    # 8 rows' [8, dim] f32 partials.
+    parts = [torch.zeros(8, cfg.dim, device=d) for d in group.devices]
+
+    def meet(k):
+        for _ in range(2 * cfg.n_layers):
+            group.allreduce(parts[k])
+        torch.cuda.synchronize(group.devices[k])
+
+    group.run(meet)
+    t_meet = time.perf_counter()
+    group.run(meet)
+    rendezvous_ms = (time.perf_counter() - t_meet) * 1e3
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  8-row decode step (a reading, not a claim): shard 1 {one:.2f} ms, shard 2 "
+        f"{two:.2f} ms on {list(devices)}, of which the {2 * cfg.n_layers} rendezvous "
+        f"alone take {rendezvous_ms:.2f} ms (host clock); one 1 KiB allreduce "
+        f"{allreduce_ms:.3f} ms; peak memory {peak:.1f} GB; phase "
+        f"{time.monotonic() - t0:.1f} s")
+    return {"devices": list(devices), "refused_at_shard1": refused,
+            "member_weight_bytes": want_bytes, "held_bytes_by_member": held,
+            "greedy_equal_prefix": same, "sampled_equal_prefix": sampled,
+            "teacher_forced": forced,
+            "target_steps": stats["target_steps"], "allreduce_observations": observed,
+            "wall_s": wall, "decode_step_ms": {"shard1": one, "shard2": two},
+            "allreduce_1kib_ms": allreduce_ms, "rendezvous_ms_a_step": rendezvous_ms,
+            "peak_mem_gb": peak,
+            "note": ("two members sharing one card: a check of the sharded path, "
+                     "not a multi-GPU speed" if len(set(devices)) == 1
+                     else "members on distinct cards")}
+
+
+def teacher_forced(cfg, params, prompts: dict, streams: dict, device, group) -> dict:
+    """Each greedy stream of shard 1 (``streams``) after its prompt, fed
+    through the engine's own target forwards (``target_forwards``) on one
+    device and on the members of ``group``, each with its page pool (the
+    members': their KV-head slices) behind one page table: the prompt's
+    paged prefill, a decode step on the stream's first token, then one
+    verify of the rest. The logits at every generated position must lie
+    within SERVE_LOGIT_REL x max|logit| of one device's (a head, page or
+    sum fault reads O(1)); the share of positions whose argmax agrees is
+    reported."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.serve import engine as E
+    from oim_tpu_torch.serve import shard as S
+
+    page = SERVE_ENGINE["prefix_block"]
+    n_pages = SERVE_ENGINE["max_seq"] // page + 1
+    lcfg = gen.shard_config(cfg, group.size)
+    members = [S.member_params(params, group.size, k, d) for k, d in enumerate(group.devices)]
+    runs = ((None, params, lambda: gen.init_page_pool(cfg, n_pages, page, device=device)),
+            (group, members, lambda: [gen.init_page_pool(lcfg, n_pages, page, device=d)
+                                      for d in group.devices]))
+    table = torch.arange(1, n_pages, device=device)
+    errs, agree = {}, {}
+    for name, prompt in prompts.items():
+        stream, n = streams[name], len(prompt)
+        padded = torch.zeros(1, max(8, 1 << (n - 1).bit_length()), dtype=torch.long)
+        padded[0, :n] = torch.tensor(prompt)
+        padded = padded.to(device)
+        logits = []
+        for g, p, new_pool in runs:
+            decode, prefill, verify = E.target_forwards(cfg, page, g)
+            pool = new_pool()
+            with torch.inference_mode():
+                last, _ = prefill(p, padded, n, pool, table, 0)
+                step, _ = decode(p, torch.tensor(stream[:1], device=device), pool, table[None],
+                                 torch.tensor([n], device=device))
+                rest, _ = verify(p, torch.tensor([stream[1:-1]], device=device), pool,
+                                 table[None], torch.tensor([n + 1], device=device))
+            logits.append(torch.cat([last[None].to(device), step.to(device),
+                                     rest[0].to(device)]))
+            del pool
+        one, two = logits
+        errs[name] = float((two - one).abs().max() / one.abs().max())
+        agree[name] = float((two.argmax(-1) == one.argmax(-1)).float().mean())
+        del one, two, logits
+    del members
+    say(f"  teacher-forced through the paged target forwards (prefill, decode, verify), "
+        f"shard 1's greedy streams at shard 2: max|diff| / max|logit| at the generated "
+        f"positions {({k: round(v, 5) for k, v in errs.items()})} (limit "
+        f"{SERVE_LOGIT_REL:.4f}); argmax agreement "
+        f"{({k: round(v, 4) for k, v in agree.items()})}")
+    bad = {k: v for k, v in errs.items() if not v <= SERVE_LOGIT_REL}
+    if bad:
+        fail(f"sharded serving: shard 2's logits on shard 1's streams differ beyond "
+             f"{SERVE_LOGIT_REL} x max|logit|: {bad}")
+    return {"logit_rel_err": errs, "argmax_agreement": agree}
+
+
+def _leaf_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_tensors(v)
+    else:
+        yield tree
 
 
 SERVE_CATEGORIES = (
@@ -3275,24 +3554,54 @@ PAR_NORM_REL = 3e-4
 # Faults planted in a run of par_runs, which the limits above must catch:
 # each rank trains on its own rows only (no sum over data of the kept
 # count, the loss or the gradients); the gradients' sum over data alone
-# dropped; zigzag's tokens at contiguous RoPE positions.
+# dropped; zigzag's tokens at contiguous RoPE positions; tensor
+# parallelism's reduce_from replaced by the plain psum (whose backward
+# sums the replicated cotangent again, doubling every gradient below it).
 PAR_FAULTS = (("half_batch", "dp"), ("no_grad_sum", "dp"),
-              ("contiguous_rope", "tp_sp_zigzag"))
+              ("contiguous_rope", "tp_sp_zigzag"), ("plain_psum", "tp_sp_model"))
 PAR_FAULT_STEPS = 3  # lr is 0 at step 1: step 3's loss is the first after an update
 
 
 def par_runs(world: int) -> tuple:
     """The trainer runs of phase 15 on ``world`` ranks: (name, trainer flags
     beyond phase 5's, global batch, sequence length, K1 launches a rank per
-    layer and step). dp and fsdp take phase 5's batch (one row a rank at
-    least), zigzag tp_sp one row of twice its length."""
+    layer and step, the pieces each split leaf is cut into). dp and fsdp
+    take phase 5's batch (one row a rank at least), zigzag and tensor
+    parallelism (model=world) one row of twice its length; on four ranks
+    also seq=2,model=2 with zigzag."""
     b = max(BATCH, world)
-    return (
-        ("dp", ["--rules", "dp", "--mesh", f"data={world}"], b, SEQ, 1),
-        ("fsdp", ["--rules", "fsdp", "--mesh", f"data=1,fsdp={world}"], b, SEQ, 1),
+    runs = [
+        ("dp", ["--rules", "dp", "--mesh", f"data={world}"], b, SEQ, 1, 1),
+        ("fsdp", ["--rules", "fsdp", "--mesh", f"data=1,fsdp={world}"], b, SEQ, 1, world),
         ("tp_sp_zigzag", ["--rules", "tp_sp", "--mesh", f"data=1,fsdp=1,seq={world},model=1",
-                          "--seq-parallel", "zigzag"], 1, 2 * SEQ, world),
-    )
+                          "--seq-parallel", "zigzag"], 1, 2 * SEQ, world, 1),
+        ("tp_sp_model", ["--rules", "tp_sp", "--mesh", f"data=1,fsdp=1,seq=1,model={world}"],
+         1, 2 * SEQ, 1, world),
+    ]
+    if world == 4:
+        runs.append(("tp_sp_seq_model", ["--rules", "tp_sp", "--mesh",
+                                         "data=1,fsdp=1,seq=2,model=2",
+                                         "--seq-parallel", "zigzag"], 1, 2 * SEQ, 2, 2))
+    return tuple(runs)
+
+
+def tp_collectives(batch: int, seq: int, dim: int, layers: int, steps: int,
+                   itemsize: int = 2) -> dict:
+    """The collective calls and bytes (per rank) of the tensor-parallel run
+    (``--mesh data=1,fsdp=1,seq=1,model=N``), written down before it runs.
+    A step's forward sums the embedding's rows and, in each layer, the
+    attention and MLP outputs ([B, T, D] in the model's dtype of
+    ``itemsize`` bytes, ``reduce_from``), takes one pmax of the CE's row
+    maxima and sums its sum-exp and label logit ([B*T] f32 each); its
+    backward sums each layer's two ``copy_to`` cotangents and the CE's dy
+    ([B, T, D]); the grad norm sums the split leaves' squares (one f32).
+    Nothing else crosses ranks: the batch and the sequence are whole on
+    every rank."""
+    act, rows = batch * seq * dim * itemsize, batch * seq * 4
+    calls = (1 + 2 * layers + 2) + (2 * layers + 1) + 1
+    nbytes = (1 + 2 * layers + 2 * layers + 1) * act + 2 * rows + 4
+    return {"calls": {"psum": steps * calls, "pmax": steps},
+            "bytes": {"psum": steps * nbytes, "pmax": steps * rows}}
 
 
 def run_argv(flags: list, batch: int, seq: int, device: str, steps: int = STEPS) -> list:
@@ -3543,8 +3852,18 @@ def train_runs(rank: int, world: int, device: str) -> dict:
     from oim_tpu_torch.parallel import collectives as C
     from oim_tpu_torch.train.state import tree_leaves
 
+    from oim_tpu_torch.models import llama
+
+    heads: set = set()
+
+    def wrap(attention):
+        def seen(q, k, v, **kw):
+            heads.add((q.shape[2], k.shape[2]))
+            return attention(q, k, v, **kw)
+        return seen
+
     out = {}
-    for name, flags, batch, seq, _ in par_runs(world):
+    for name, flags, batch, seq, _, _ in par_runs(world):
         argv = run_argv(flags, batch, seq, device)
         gc.collect()
         cuda = torch.device(device).type == "cuda"
@@ -3553,7 +3872,9 @@ def train_runs(rank: int, world: int, device: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         C.reset_counts()
-        trainer = oim_trainer.run(argv)
+        heads.clear()
+        with patched(llama, "default_attention", wrap):
+            trainer = oim_trainer.run(argv)
         _sync(device)
         held = full = whole = 0
         for (_, p), sh in zip(_named_leaves(trainer.state.params),
@@ -3566,7 +3887,10 @@ def train_runs(rank: int, world: int, device: str) -> dict:
             "history": trainer.history, "launches": dict(kernels.LAUNCHES),
             "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
             "staged_calls": dict(C.STAGED_CALLS), "staged_bytes": dict(C.STAGED_BYTES),
-            "calls": dict(C.CALLS), "bytes": dict(C.BYTES),
+            "calls": dict(C.CALLS), "bytes": dict(C.BYTES), "heads": sorted(heads),
+            "model_dims": {**{k: getattr(trainer.cfg.model_config(), k)
+                              for k in ("n_heads", "n_kv_heads", "dim", "n_layers")},
+                           "itemsize": trainer.cfg.model_config().dtype.itemsize},
             "backend": trainer.mesh.axis(trainer.mesh.axis_names[0]).backend,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
             "held_bytes": held,
@@ -3581,8 +3905,11 @@ def planted(fault: str):
     """A ``patched`` context planting ``fault`` (of PAR_FAULTS) in this
     rank's trainer."""
     from oim_tpu_torch.models import llama
+    from oim_tpu_torch.parallel import collectives as C
     from oim_tpu_torch.train import trainer as T
 
+    if fault == "plain_psum":
+        return patched(C, "reduce_from", lambda reduce_from: C.psum)
     if fault == "contiguous_rope":
         import torch.distributed as dist
 
@@ -3614,7 +3941,7 @@ def fault_runs(rank: int, world: int, device: str) -> dict:
 
     from oim_tpu_torch.cli import oim_trainer
 
-    runs = {name: (flags, batch, seq) for name, flags, batch, seq, _ in par_runs(world)}
+    runs = {name: (flags, batch, seq) for name, flags, batch, seq, _, _ in par_runs(world)}
     out = {}
     for fault, run in PAR_FAULTS:
         flags, batch, seq = runs[run]
@@ -3682,7 +4009,7 @@ def one_rank_references(world: int, device: str, main: dict | None = None) -> di
 
     by_batch = {(BATCH, SEQ): main["history"]} if main is not None else {}
     refs = {}
-    for name, _, batch, seq, _ in par_runs(world):
+    for name, _, batch, seq, _, _ in par_runs(world):
         if (batch, seq) not in by_batch:
             by_batch[(batch, seq)] = oim_trainer.run(run_argv([], batch, seq, device)).history
             gc.collect()
@@ -3736,8 +4063,9 @@ def check_ranks(ranks: list, world: int, single: dict, backend: str) -> dict:
 
     # The trainer under each rules table.
     train = {}
-    for name, _, batch, seq, k1_per in par_runs(world):
+    for name, _, batch, seq, k1_per, split_by in par_runs(world):
         per_rank = [res["train"][name] for res in ranks]
+        dims = per_rank[0]["model_dims"]
         hists = [pr["history"] for pr in per_rank]
         losses = [[h["loss"] for h in hist] for hist in hists]
         want_launch = k1_per * LAYERS * STEPS
@@ -3778,15 +4106,41 @@ def check_ranks(ranks: list, world: int, single: dict, backend: str) -> dict:
             f"{len(split)} differing after step {STEPS}")
         if split:
             fail(f"{name}: replicas differ across ranks after the last step: {split}")
+        # The leaves held whole are the norms (and everything, unsplit);
+        # a split leaf's bytes divide by its pieces.
         for r, pr in enumerate(per_rank):
-            want_held = ((pr["full_bytes"] - pr["whole_bytes"]) // world + pr["whole_bytes"]
-                         if name == "fsdp" else pr["full_bytes"])
+            want_held = (pr["full_bytes"] - pr["whole_bytes"]) // split_by + pr["whole_bytes"]
             if pr["held_bytes"] != want_held:
                 fail(f"{name}, rank {r}: holds {pr['held_bytes']} B of params, want "
                      f"{want_held} ({pr['full_bytes']} B unsharded, {pr['whole_bytes']} B "
                      "held whole)")
+        # The heads each rank's attention took (recorded where the layer
+        # calls the model's attention; the sequence-parallel runs call the
+        # ring's instead).
+        model = split_by if name == "tp_sp_model" else 1
+        want_heads = [(dims["n_heads"] // model, dims["n_kv_heads"] // model)]
+        if name in ("dp", "fsdp", "tp_sp_model") and any(pr["heads"] != want_heads
+                                                          for pr in per_rank):
+            fail(f"{name}: attention ran at (q, kv) heads {[pr['heads'] for pr in per_rank]}, "
+                 f"want {want_heads} a rank")
+        expected = None
+        if name == "tp_sp_model":
+            expected = tp_collectives(batch, seq, dims["dim"], dims["n_layers"], STEPS,
+                                      dims["itemsize"])
+            got = {k: {op: per_rank[0][k][op] for op in expected[k]} for k in expected}
+            others = {op: n for op, n in per_rank[0]["calls"].items()
+                      if op not in expected["calls"] and n}
+            say(f"    collectives a rank: {got['calls']} calls, {got['bytes']} B; written "
+                f"down beforehand {expected['calls']}, {expected['bytes']} B")
+            if any(pr["calls"] != per_rank[0]["calls"] or pr["bytes"] != per_rank[0]["bytes"]
+                   for pr in per_rank) or got != expected or others:
+                fail(f"{name}: collectives {per_rank[0]['calls']} calls, "
+                     f"{per_rank[0]['bytes']} B (by rank equal: "
+                     f"{all(pr['calls'] == per_rank[0]['calls'] for pr in per_rank)}), "
+                     f"want {expected}")
         train[name] = {
-            "batch": batch, "seq": seq,
+            "batch": batch, "seq": seq, "heads_by_rank": [pr["heads"] for pr in per_rank],
+            "collectives_written_down": expected,
             "losses_by_rank": losses, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
             "step_s_by_rank": step_s,
             "peak_mem_gb_by_rank": [pr["peak_mem_gb"] for pr in per_rank],
@@ -3918,6 +4272,11 @@ def main() -> int:
             (1, PAR_T, PAR_T, h // PAR_WORLD, hkv // PAR_WORLD, d, True, bf16, 14),
         "phase 15 one rank: the references, tp_sp's row":
             (1, PAR_T, PAR_T, h, hkv, d, True, bf16, 15),
+        # Tensor parallelism: a rank's heads at model=2 (phase 15) and 4.
+        "phase 15 tensor parallel, model=2 (16/4 heads a rank)":
+            (1, PAR_T, PAR_T, h // 2, hkv // 2, d, True, bf16, 16),
+        "tensor parallel, model=4 (8/2 heads a rank)":
+            (1, PAR_T, PAR_T, h // 4, hkv // 4, d, True, bf16, 17),
     }
     odd = [
         # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
@@ -3957,6 +4316,8 @@ def main() -> int:
         f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB, "
         f"{time.monotonic() - t0:.1f} s")
     serve = phase_serve_main(cfg, params, "cuda", args.profile)
+    say("  tensor-parallel serving: two members sharing the card")
+    serve["sharded"] = phase_serve_sharded(cfg, params, serve.pop("_streams"))
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -40,6 +40,8 @@ STAGE_CACHE_EVICTION = "stage_cache_eviction"
 SLOT_EVICTED = "slot_evicted"
 PAGE_POOL_EXHAUSTED = "page_pool_exhausted"
 SPEC_FALLBACK = "spec_fallback"
+SHARD_MEMBER_LOST = "shard_member_lost"
+SHARD_MEMBER_HEALED = "shard_member_healed"
 
 DEFAULT_CAPACITY = 2048
 

@@ -553,6 +553,24 @@ SERVE_SPEC_FALLBACK = DEFAULT.counter(
     "times the adaptive valve disabled speculation because the rolling "
     "acceptance rate fell below the floor (the engine decodes plainly "
     "until the re-probe cooldown lapses)")
+# Tensor-parallel serving (serve/shard.py): one logical replica spans N
+# member processes over ICI; member TTL leases under
+# serve/<id>.member.<k> feed the ready/stale split, and the allreduce
+# probe times one compiled psum over the same tp mesh per target
+# dispatch (the fused per-layer collectives cannot be host-timed).
+SERVE_SHARD_MEMBERS = DEFAULT.gauge(
+    "oim_serve_shard_members",
+    "member processes of this sharded replica by lease state: ready = "
+    "TTL lease live, stale = lease lapsed but the row not yet swept "
+    "(any stale member flips the replica not-ready)",
+    labelnames=("state",))
+SERVE_ICI_ALLREDUCE = DEFAULT.histogram(
+    "oim_serve_ici_allreduce_seconds",
+    "one tp-mesh allreduce (compiled psum probe timed once per target "
+    "dispatch on sharded replicas); buckets carry trace_id exemplars "
+    "linking a slow collective to the request it stalled",
+    buckets=(0.00001, 0.000025, 0.00005, 0.0001, 0.00025, 0.0005,
+             0.001, 0.0025, 0.005, 0.01, 0.05))
 # The replica's serving role (only "mixed" is ported) and chunked prefill.
 SERVE_ROLE = DEFAULT.gauge(
     "oim_serve_role",

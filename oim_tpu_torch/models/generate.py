@@ -32,8 +32,18 @@ for token.
 MoE configs decode with no drops (``_no_drop``: capacity == tokens of
 the call), so routing is per token and a row's logits do not depend on
 its batch-mates; every expert runs on every token's slot, E x N expert
-rows for N tokens, as in the reference. ``axis`` (tensor-parallel decode)
-raises ``NotImplementedError``: multi-GPU serving is not ported yet.
+rows for N tokens, as in the reference.
+
+Tensor-parallel decode (``axis``, a ``serve.shard.MemberGroup``): each
+member runs these functions on its Megatron slices of the weights and its
+KV heads of the pool, with ``shard_config``'s member-local cfg; ``_reduce``
+after wo and after w_down is the only point where members meet. The
+partial products there are taken in f32 and their sum is rounded once to
+the model dtype, as the unsharded product rounds its f32 accumulator
+once (the reference sums the rounded partials; in f32 the two agree). In
+bf16 the sharded products still sum in other orders than the whole ones,
+so a greedy stream may part from one member's after some tokens where
+two logits nearly tie.
 """
 
 from __future__ import annotations
@@ -80,11 +90,42 @@ def _no_drop(cfg: Config) -> Config:
 
 
 def _check(cfg: Config, axis) -> Config:
-    if axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel decode (axis) is not ported yet")
+    if axis is not None and cfg.n_experts:
+        raise ValueError(
+            "tensor-parallel decode does not support MoE configs yet "
+            f"(n_experts={cfg.n_experts})")
     check_supported(cfg)
     return _no_drop(cfg)
+
+
+def _partial(a, w):
+    """``a @ w`` with an f32 result: one member's share of a row-split
+    product. bf16/fp16 CUDA operands go through cuBLAS's f32-output GEMM;
+    elsewhere the operands are upcast (exact)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+    return a.float() @ w.float()
+
+
+def _reduce(x, axis):
+    """Sum a partial projection product over the members (no-op when
+    unsharded). With wq/wk/wv column-split and wo/w_down row-split, every
+    other tensor of a layer is either member-local (per-head attention,
+    the gated MLP halves) or replicated (the residual stream), so one sum
+    after the attention-out projection and one after the FFN-down
+    projection reassemble the unsharded products."""
+    if axis is None:
+        return x
+    return axis.allreduce(x)
+
+
+def _project(a, w, axis):
+    """``a @ w`` in ``a``'s dtype; under ``axis`` the members' f32
+    partials summed and rounded once."""
+    if axis is None:
+        return a @ w
+    return _reduce(_partial(a, w), axis).to(a.dtype)
 
 
 def init_cache(cfg: Config, batch: int, max_seq: int, device="cuda"):
@@ -122,7 +163,7 @@ def _cache_attention(q, ck, cv, pos, cfg: Config):
     return out.reshape(B, T, H, hd).to(q.dtype)
 
 
-def _block(x, layer, cfg: Config, cos, sin, positions, kv_into):
+def _block(x, layer, cfg: Config, cos, sin, positions, kv_into, axis=None):
     """One decoder layer around the cache: ``kv_into(k, v)`` writes this
     step's K/V and returns the (ck, cv, pos) the queries attend."""
     B, T, _ = x.shape
@@ -134,9 +175,13 @@ def _block(x, layer, cfg: Config, cos, sin, positions, kv_into):
     k = apply_rope(k, cos, sin, positions)
     ck, cv, pos = kv_into(k, v)
     attn = _cache_attention(q, ck, cv, pos, cfg)
-    x = x + attn.reshape(B, T, cfg.q_dim) @ layer["wo"]
+    x = x + _project(attn.reshape(B, T, cfg.q_dim), layer["wo"], axis)
     h = rmsnorm(x, layer["mlp_norm"])
-    ffn, _ = _ffn(h, layer, cfg)
+    if axis is None:
+        ffn, _ = _ffn(h, layer, cfg)
+    else:
+        ffn = _project(F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"]), layer["w_down"],
+                       axis)
     return x + ffn
 
 
@@ -150,12 +195,12 @@ def _rope_positions(positions, S: int):
 
 
 @torch.no_grad()
-def cached_forward(params, tokens, cache, pos: int, cfg: Config,
-                   axis: str | None = None):
+def cached_forward(params, tokens, cache, pos: int, cfg: Config, axis=None):
     """Forward ``tokens`` [B,T] at absolute positions pos..pos+T-1, writing
     their K/V into ``cache`` in place. Returns (logits [B,T,vocab] f32,
     cache). Serves prefill (T = prompt length, pos = 0) and decode
-    (T = 1)."""
+    (T = 1). Under ``axis`` (a member group) ``params``, ``cache`` and
+    ``cfg`` are the calling member's (see the module docstring)."""
     cfg = _check(cfg, axis)
     B, T = tokens.shape
     S = cache["k"].shape[2]
@@ -174,7 +219,8 @@ def cached_forward(params, tokens, cache, pos: int, cfg: Config,
             cv[:, start:start + T] = v
             return ck, cv, pos
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+                   axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), cache
 
@@ -209,8 +255,7 @@ def _gather(pages, table, S: int):
 
 @torch.no_grad()
 def prefill_into_pages(params, tokens, n_tokens: int, pool, page_table,
-                       start: int, cfg: Config, page_tokens: int,
-                       axis: str | None = None):
+                       start: int, cfg: Config, page_tokens: int, axis=None):
     """Prefill ``tokens`` [1, T] (the first ``n_tokens`` real, the rest
     pad) through ``page_table`` [n_blocks] into the pool, at logical
     positions [start, start + n_tokens). ``n_tokens`` and ``start`` are
@@ -245,14 +290,15 @@ def prefill_into_pages(params, tokens, n_tokens: int, pool, page_table,
             pv.index_put_((phys, off), v[0, :keep])
             return _gather(pk, table, S), _gather(pv, table, S), start
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+                   axis)
     last = rmsnorm(x[:, n_tokens - 1], params["final_norm"])
     return (last @ params["lm_head"]).float()[0], pool
 
 
 @torch.no_grad()
 def decode_step(params, tokens, pool, page_tables, pos, cfg: Config,
-                page_tokens: int, axis: str | None = None):
+                page_tokens: int, axis=None):
     """One lockstep decode step over the slot batch: ``tokens`` [B] (each
     slot's previous token) at absolute positions ``pos`` [B], written and
     attended through ``page_tables`` [B, n_blocks]. Returns (logits
@@ -284,14 +330,15 @@ def decode_step(params, tokens, pool, page_tables, pos, cfg: Config,
             pv.index_put_((phys, off), v[:, 0])
             return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+                   axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float()[:, 0], pool
 
 
 @torch.no_grad()
 def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
-                page_tokens: int, axis: str | None = None):
+                page_tokens: int, axis=None):
     """The multi-token sibling of ``decode_step``: forward ``tokens``
     [B, T] (each row's previous token and T-1 speculated candidates) at
     positions pos..pos+T-1 (``pos`` [B]). Returns (logits [B, T, vocab]
@@ -325,7 +372,8 @@ def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
             pv.index_put_((phys, off), v)
             return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into)
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+                   axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), pool
 

@@ -17,6 +17,18 @@ Under sequence parallelism a rank runs the model on its shard of the
 sequence: ``hidden_states`` and ``loss_and_stats`` take the shard's global
 positions for RoPE, its labels (shifted before the sequence was cut) and
 the global count of kept labels. The pipelined losses are not ported yet.
+
+Tensor parallelism (``tp``, the ``model`` mesh axis; Megatron's split, as
+``TP_SP_RULES`` lays the leaves out): each rank holds a contiguous slice
+of the query and KV heads (wq/wk/wv by column, wo by row), of the MLP
+(w_gate/w_up by column, w_down by row) and of the vocabulary (embed's
+rows, lm_head's columns). A layer enters each half through
+``copy_to`` and leaves it through ``reduce_from`` after wo and w_down; the
+embedding is looked up on the local rows and summed the same way, and the
+loss is ``vocab_parallel_cross_entropy`` on the local head. Where the
+axis divides the query heads but not the KV heads (llama-tiny's 4/2 at
+4), wk/wv are gathered over the axis and each rank takes the KV head of
+each of its query heads.
 """
 
 from __future__ import annotations
@@ -31,9 +43,14 @@ import torch.nn.functional as F
 from oim_tpu_torch.models import moe as moelib
 from oim_tpu_torch.models import remat as rematlib
 from oim_tpu_torch.ops.attention import attention as default_attention
-from oim_tpu_torch.ops.losses import chunked_softmax_cross_entropy, softmax_cross_entropy
+from oim_tpu_torch.ops.losses import (
+    chunked_softmax_cross_entropy,
+    softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
+)
 from oim_tpu_torch.ops.norms import rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from oim_tpu_torch.parallel import collectives
 from oim_tpu_torch.parallel.sharding import EMBED, HEAD, KV_HEAD, LAYER, MLP, VOCAB
 
 
@@ -183,29 +200,91 @@ def _ffn(h, layer, cfg: Config):
     return gated @ layer["w_down"], torch.zeros(2, dtype=torch.float32, device=h.device)
 
 
-def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn):
+def check_tensor_parallel(cfg: Config, n: int) -> None:
+    """Refuse a ``model`` axis of ``n`` the port's TP layer cannot split:
+    an MoE FFN (expert parallelism comes later), or ``n`` not dividing the
+    query heads (the JAX package then lets XLA split inside a head)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE under tensor parallelism waits for expert parallelism: a later "
+            "multi-GPU slice")
+    if cfg.n_heads % n:
+        raise NotImplementedError(
+            f"a model axis of {n} that does not divide n_heads ({cfg.n_heads}): the port "
+            "splits whole query heads")
+
+
+def _kv_heads(h, w, cfg: Config, tp):
+    """This rank's K or V heads [B, T, h_kv, hd] from ``w``'s piece: its
+    own contiguous KV heads where the axis divides them (all of them
+    without ``tp``), else the KV head of each of its query heads out of
+    ``w`` gathered over the axis."""
+    B, T, _ = h.shape
+    n = tp.size if tp is not None else 1
+    if cfg.n_kv_heads % n == 0:
+        return (h @ w).reshape(B, T, cfg.n_kv_heads // n, cfg.head_dim)
+    full = (h @ collectives.all_gather(w, tp, gather_dim=w.dim() - 1)).reshape(
+        B, T, cfg.n_kv_heads, cfg.head_dim)
+    h_local = cfg.n_heads // n
+    group = cfg.n_heads // cfg.n_kv_heads
+    index = (torch.arange(h_local, device=h.device) + tp.index * h_local) // group
+    return full[:, :, index]
+
+
+def _enter(x, tp):
+    return x if tp is None else collectives.copy_to(x, tp)
+
+
+def _leave(x, tp):
+    return x if tp is None else collectives.reduce_from(x, tp)
+
+
+def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn, tp=None):
+    """One block. Under ``tp`` it runs on this rank's slice of the heads
+    and the MLP: each half enters through ``copy_to`` and leaves through
+    ``reduce_from``, the residual stream replicated."""
     B, T, _ = x.shape
-    h = rmsnorm(x, layer["attn_norm"])
-    q = (h @ layer["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ layer["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    h_local = cfg.n_heads // (tp.size if tp is not None else 1)
+    h = _enter(rmsnorm(x, layer["attn_norm"]), tp)
+    q = (h @ layer["wq"]).reshape(B, T, h_local, cfg.head_dim)
+    k = _kv_heads(h, layer["wk"], cfg, tp)
+    v = _kv_heads(h, layer["wv"], cfg, tp)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, k, v, causal=True)
-    x = x + attn.reshape(B, T, cfg.q_dim) @ layer["wo"]
-    h = rmsnorm(x, layer["mlp_norm"])
+    x = x + _leave(attn.reshape(B, T, h_local * cfg.head_dim) @ layer["wo"], tp)
+    h = _enter(rmsnorm(x, layer["mlp_norm"]), tp)
     ffn, aux = _ffn(h, layer, cfg)
-    return x + ffn, aux
+    return x + _leave(ffn, tp), aux
+
+
+def _embed(params, ids, cfg: Config, tp=None):
+    """The embedding rows of ``ids`` (a negative id counts from the end of
+    the vocabulary, as a JAX gather does). Under ``tp`` each rank looks up
+    the ids of its vocabulary slice, zeros the others, and the slices sum."""
+    ids = torch.where(ids < 0, ids + cfg.vocab, ids)
+    table = params["embed"]
+    if tp is None:
+        return F.embedding(ids, table).to(cfg.dtype)
+    rows = table.shape[0]
+    local = ids - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table)
+    return collectives.reduce_from(torch.where(mine[..., None], x, 0).to(cfg.dtype), tp)
 
 
 def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
-                  attn_fn: AttentionFn | None = None, positions=None):
+                  attn_fn: AttentionFn | None = None, positions=None, tp=None):
     """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2]:
     the summed MoE load-balance loss and per-layer drop fraction).
     ``positions`` [T] (host ints: numpy or a CPU tensor) are the tokens'
     global positions (a sequence shard's; default 0..T-1). A negative
-    token id counts from the end of the vocabulary, as a JAX gather does."""
+    token id counts from the end of the vocabulary, as a JAX gather does.
+    ``tp`` (an ``Axis``): ``params`` hold this rank's tensor-parallel
+    slices; the hidden states come out whole on every rank."""
     check_supported(cfg)
+    if tp is not None:
+        check_tensor_parallel(cfg, tp.size)
     if attn_fn is None:
         attn_fn = default_attention
     T = tokens.shape[1]
@@ -217,17 +296,16 @@ def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
                                     device=tokens.device)
         index = torch.from_numpy(positions).to(tokens.device)
         cos, sin = cos[index], sin[index]
-    ids = tokens.long()
-    x = F.embedding(torch.where(ids < 0, ids + cfg.vocab, ids), params["embed"]).to(cfg.dtype)
+    x = _embed(params, tokens.long(), cfg, tp)
     layers = params["layers"]
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         layer = layer_params(layers, i)
         if cfg.remat:
-            x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn,
+            x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn, tp,
                                        policy=cfg.remat_policy)
         else:
-            x, a = _layer(x, layer, cfg, cos, sin, attn_fn)
+            x, a = _layer(x, layer, cfg, cos, sin, attn_fn, tp)
         aux = aux + a
     return rmsnorm(x, params["final_norm"]), aux
 
@@ -252,7 +330,7 @@ def _z_term(logits, labels, ignore_index, z_loss, denom=None):
 
 def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
                    attn_fn: AttentionFn | None = None, ignore_index: int = -1,
-                   labels=None, positions=None, denom=None):
+                   labels=None, positions=None, denom=None, tp=None):
     """Next-token CE (plus the weighted MoE aux) over tokens [B, T+1];
     returns (loss, stats). An MoE model reports stats["moe_drop_frac"],
     the mean per-layer share of routing assignments over capacity. With
@@ -262,12 +340,23 @@ def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
     their ``labels`` [B, T] (shifted before the sequence was cut), their
     global ``positions`` and ``denom``, the count of kept labels over the
     global batch: the loss and the z-loss term are then this shard's
-    shares of the global means, which sum over the shards to them."""
+    shares of the global means, which sum over the shards to them.
+
+    Under ``tp`` the params are this rank's tensor-parallel slices and the
+    CE is ``vocab_parallel_cross_entropy`` on the local head (chunked by
+    ``cfg.vocab_chunk`` within the slice); the loss and stats come out
+    equal on every rank of the axis."""
     stats = {}
     if labels is None:
         tokens, labels = tokens[:, :-1], tokens[:, 1:]
-    x, aux = hidden_states(params, tokens, cfg, attn_fn, positions)
-    if cfg.vocab_chunk:
+    x, aux = hidden_states(params, tokens, cfg, attn_fn, positions, tp)
+    if tp is not None:
+        loss = vocab_parallel_cross_entropy(
+            x, params["lm_head"], labels, tp, ignore_index, z_loss=cfg.z_loss,
+            denom=denom, vocab_chunk=cfg.vocab_chunk, return_z_term=bool(cfg.z_loss))
+        if cfg.z_loss:
+            loss, stats["z_loss_term"] = loss
+    elif cfg.vocab_chunk:
         loss = chunked_softmax_cross_entropy(
             x, params["lm_head"], labels, cfg.vocab_chunk, ignore_index,
             z_loss=cfg.z_loss, return_z_term=bool(cfg.z_loss), denom=denom)

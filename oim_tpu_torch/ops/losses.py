@@ -2,11 +2,15 @@
 
 Cross entropy takes logits in any dtype, reduces in float32, and never
 materializes one-hot targets over the full vocabulary.
+``vocab_parallel_cross_entropy`` is the loss of an LM head whose vocab is
+split over a mesh axis (tensor parallelism; the pipeline's head later).
 """
 
 from __future__ import annotations
 
 import torch
+
+from oim_tpu_torch.parallel import collectives
 
 
 def _masked_mean(v: torch.Tensor, labels: torch.Tensor,
@@ -128,4 +132,102 @@ def chunked_softmax_cross_entropy(
     total = _masked_mean(nll, yf, ignore_index, denom)
     if return_z_term:
         return total, z_loss * _masked_mean(z_sq, yf, ignore_index, denom)
+    return total
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """(nll, logz) per row for a head split over ``axis`` by vocab: this
+    rank's logits are ``y @ w`` over its contiguous slice, ``chunk``
+    columns at a time (0: the whole slice at once).
+
+    Forward: the local online max and sum-exp, then one pmax of the local
+    max (no gradient: a numerical shift the value and gradient do not
+    depend on), one psum of the sum-exp rescaled to it, and one psum of
+    the picked label logit (zero on the ranks that do not own the label).
+    Backward: this rank's logits recomputed chunk by chunk from the saved
+    y, w and logz; it returns the head slice's gradient and this slice's
+    share of dy. The caller enters ``y`` through ``copy_to``, whose
+    backward sums the shares over the axis."""
+
+    @staticmethod
+    def forward(ctx, y, w, labels, axis, chunk):
+        n, vshard = y.shape[0], w.shape[1]
+        offset = axis.index * vshard
+        m = torch.full((n,), float("-inf"), dtype=torch.float32, device=y.device)
+        s = torch.zeros((n,), dtype=torch.float32, device=y.device)
+        lab = torch.zeros((n,), dtype=torch.float32, device=y.device)
+        bounds = _chunk_bounds(vshard, chunk or vshard)
+        for c0, c1 in bounds:
+            z = (y @ w[:, c0:c1]).float()
+            m_new = torch.maximum(m, z.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(z - m_new[:, None]).sum(-1)
+            m = m_new
+            local = labels - offset - c0
+            hit = (local >= 0) & (local < c1 - c0)
+            picked = torch.gather(z, 1, local.clamp(0, c1 - c0 - 1)[:, None].long())[:, 0]
+            lab = torch.where(hit, picked, lab)
+        gmax = collectives.pmax(m, axis)
+        sumexp = collectives._psum(s * torch.exp(m - gmax), axis)
+        logz = gmax + torch.log(sumexp)
+        label = collectives._psum(lab, axis)
+        ctx.save_for_backward(y, w, labels, logz)
+        ctx.offset, ctx.bounds = offset, bounds
+        return logz - label, logz
+
+    @staticmethod
+    def backward(ctx, g, gz):
+        # d nll/d z = softmax - onehot, d logz/d z = softmax; dy sums in f32.
+        y, w, labels, logz = ctx.saved_tensors
+        gp = g + gz
+        dy = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+        dw = torch.empty_like(w)
+        for c0, c1 in ctx.bounds:
+            w_c = w[:, c0:c1]
+            z = (y @ w_c).float()
+            dz = torch.exp(z - logz[:, None]) * gp[:, None]
+            local = labels - ctx.offset - c0
+            rows = torch.nonzero((local >= 0) & (local < c1 - c0)).squeeze(-1)
+            dz[rows, local[rows].long()] -= g[rows]
+            dz = dz.to(y.dtype)
+            dy += (dz @ w_c.T).float()
+            dw[:, c0:c1] = y.T @ dz
+        return dy.to(y.dtype), dw, None, None, None
+
+
+def vocab_parallel_cross_entropy(
+    y: torch.Tensor, lm_head_shard: torch.Tensor, labels: torch.Tensor, axis,
+    ignore_index: int | None = None, reduction: str = "mean", z_loss: float = 0.0,
+    *, denom=None, vocab_chunk: int = 0, return_z_term: bool = False,
+):
+    """Token CE with the LM head split by vocab over the mesh ``axis`` (an
+    ``Axis``, ``Mesh.axis(name)``).
+
+    ``y`` [..., D] is the same on every rank of the axis and enters
+    through ``collectives.copy_to``; ``lm_head_shard`` [D, V/n] is this
+    rank's contiguous vocab slice (rank i owns ids [i*V/n, (i+1)*V/n));
+    ``labels`` are global ids. The full [..., V] logits never exist on a
+    rank. ``reduction`` "mean" is the masked mean (``denom``: a shard's
+    share of a global mean, as ``softmax_cross_entropy`` takes it), "sum"
+    the masked sum. ``vocab_chunk`` > 0 walks the local slice that many
+    columns at a time. With ``return_z_term``, also z_loss x the masked
+    mean of logsumexp^2."""
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"unknown reduction {reduction!r}")
+    d = y.shape[-1]
+    yf = collectives.copy_to(y.reshape(-1, d), axis)
+    lf = labels.reshape(-1)
+    nll, logz = _VocabParallelNLL.apply(yf, lm_head_shard, lf, axis, vocab_chunk)
+    z_sq = torch.square(logz)
+    if z_loss:
+        nll = nll + z_loss * z_sq
+
+    def reduce(v):
+        if reduction == "sum":
+            keep = (lf != ignore_index).float() if ignore_index is not None else 1.0
+            return torch.sum(v * keep)
+        return _masked_mean(v, lf, ignore_index, denom)
+
+    total = reduce(nll)
+    if return_z_term:
+        return total, z_loss * reduce(z_sq)
     return total

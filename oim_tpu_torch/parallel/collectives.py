@@ -13,6 +13,16 @@ Ulysses swaps sequence for heads, FSDP gathers weights) are
 concat, ``all_gather`` reduce-scatters and ``reduce_scatter`` gathers,
 ``psum`` sums the cotangents (``pmean`` averages them).
 
+Tensor parallelism (Megatron's split) uses a conjugate pair instead of
+``psum``: ``copy_to`` (identity forward, psum backward) where a
+replicated activation enters a region whose ranks each hold a slice of
+the weights, and ``reduce_from`` (psum forward, identity backward) where
+their partial products leave it. Past ``reduce_from`` the cotangent is
+the same on every rank of the axis, so a psum there (``psum``'s own
+backward) would multiply every gradient below it by the axis size.
+``pmax`` is forward only (the softmax shift of the vocab-parallel loss,
+taken on a value with no gradient).
+
 Backends. NCCL carries CUDA tensors when each rank has its own card, gloo
 carries CPU tensors and also CUDA tensors of ranks that share a card. What
 a backend cannot take on the device goes through pinned host memory: the
@@ -43,7 +53,7 @@ from oim_tpu_torch.parallel.mesh import Axis
 # pinned host buffers). NCCL takes every operation on the device.
 HOST_STAGED = {"gloo": frozenset({"ppermute"})}
 
-OPS = ("psum", "all_gather", "reduce_scatter", "all_to_all", "ppermute")
+OPS = ("psum", "pmax", "all_gather", "reduce_scatter", "all_to_all", "ppermute")
 CALLS = {op: 0 for op in OPS}
 BYTES = {op: 0 for op in OPS}
 STAGED_CALLS = {op: 0 for op in OPS}
@@ -87,6 +97,15 @@ def _psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     y = x.contiguous().clone()
     _staged("psum", axis, y)
     dist.all_reduce(y, group=axis.group)
+    return y
+
+
+def _pmax(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    if axis.group is None:
+        return x
+    y = x.contiguous().clone()
+    _staged("pmax", axis, y)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=axis.group)
     return y
 
 
@@ -157,6 +176,27 @@ class _Psum(torch.autograd.Function):
         return _psum(g, ctx.axis), None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
@@ -219,6 +259,25 @@ def pmean(x: torch.Tensor, axes: Axis | Iterable[Axis]) -> torch.Tensor:
     for axis in axes:
         n *= axis.size
     return psum(x, axes) / n
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` unchanged, entering a tensor-parallel region over ``axis``:
+    the backward sums the ranks' partial cotangents (a psum)."""
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial products, leaving a
+    tensor-parallel region: the backward passes the (replicated)
+    cotangent through unchanged."""
+    return _ReduceFrom.apply(x, axis)
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The elementwise max over ``axis`` (no gradient)."""
+    return _pmax(x.detach(), axis)
 
 
 def all_gather(x: torch.Tensor, axis: Axis, *, tiled: bool = True,

@@ -79,10 +79,12 @@ class Axis:
 
 class Mesh:
     """Named axes over ranks; ``shape`` maps each axis name to its size in
-    order, as ``jax.sharding.Mesh.shape`` does."""
+    order, as ``jax.sharding.Mesh.shape`` does. Without a DeviceMesh, the
+    mesh is seen from ``rank`` (default its first rank) and has no
+    process groups: a shape to cut pieces by."""
 
     def __init__(self, axes: MeshAxes, ranks: Sequence[int], device,
-                 device_mesh=None):
+                 device_mesh=None, rank: int | None = None):
         self.axis_names = tuple(n for n, _ in axes)
         self.shape = {n: s for n, s in axes}
         self.size = int(np.prod([s for _, s in axes])) if axes else 1
@@ -91,7 +93,8 @@ class Mesh:
         self.device_mesh = device_mesh
         grid = np.asarray(self.ranks, dtype=np.int64).reshape(
             tuple(s for _, s in axes))
-        rank = dist.get_rank() if device_mesh is not None else self.ranks[0]
+        if rank is None:
+            rank = dist.get_rank() if device_mesh is not None else self.ranks[0]
         where = np.argwhere(grid == rank)
         # None for a rank outside a mesh over a subset of the world.
         self.coordinate = tuple(int(c) for c in where[0]) if len(where) else None

@@ -152,15 +152,16 @@ class Sharding:
             x = x[tuple(index)]
         return x
 
-    def gather(self, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, mesh: Mesh, keep: tuple[str, ...] = ()) -> torch.Tensor:
         """The full array from every rank's piece: all_gather over each
         split dim's axes, innermost axis first (an axis of size 1 splits
         nothing and is skipped, as XLA elides it). Differentiable; its
-        backward reduce-scatters."""
+        backward reduce-scatters. The pieces of the axes in ``keep`` stay
+        local (tensor parallelism computes on its ``model`` slice)."""
         for dim, names in enumerate(self.dims):
             for name in reversed(names):
                 axis = mesh.axis(name)
-                if axis.size > 1:
+                if axis.size > 1 and name not in keep:
                     x = collectives.all_gather(x, axis, gather_dim=dim)
         return x
 
@@ -202,10 +203,20 @@ def shard_params(mesh: Mesh, rules: ShardingRules, params, logical_axes):
     return tree_map(lambda p, s: s.shard(p, mesh), params, shardings)
 
 
-def gather_params(mesh: Mesh, shardings, params):
+def rank_params(params, logical_axes, rules: ShardingRules, axes, rank: int):
+    """Rank ``rank``'s pieces of a full parameter tree (tensors, as
+    ``llama.from_numpy`` gives them, or numpy arrays) under ``rules`` over a
+    mesh of ``axes`` (ranks in row-major order), computed without a
+    process group: what ``shard_params`` gives that rank."""
+    n = int(np.prod([s for _, s in axes])) if axes else 1
+    return shard_params(Mesh(axes, range(n), "cpu", rank=rank), rules, params, logical_axes)
+
+
+def gather_params(mesh: Mesh, shardings, params, keep: tuple[str, ...] = ()):
     """The full tree from every rank's shards (the inverse of
-    ``shard_params``); differentiable."""
-    return tree_map(lambda p, s: s.gather(p, mesh), params, shardings)
+    ``shard_params``); differentiable. Pieces split over the axes in
+    ``keep`` stay this rank's."""
+    return tree_map(lambda p, s: s.gather(p, mesh, keep), params, shardings)
 
 
 def shard_batch(mesh: Mesh, rules: ShardingRules, batch, logical_axes=None):

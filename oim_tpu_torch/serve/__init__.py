@@ -8,9 +8,11 @@ continuous-batching engine over a paged KV cache.
   bounded-queue backpressure and graceful drain.
 * ``spec``        speculative decoding: acceptance math and the adaptive
   valve.
+* ``shard``       tensor-parallel serving: one replica over several
+  members, the Megatron split of the weights and the pool.
 
-Not ported yet: the gRPC service, registration, weight publish/restore,
-KV volumes and tensor-parallel serving.
+Not ported yet: the gRPC service, registration (with the members' leases),
+weight publish/restore and KV volumes.
 """
 
 from oim_tpu_torch.serve.engine import (  # noqa: F401

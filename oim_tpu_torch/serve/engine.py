@@ -52,10 +52,16 @@ What the port keeps of the reference, and what it changes:
   replica_drain events, and the fault points ``serve.admit``,
   ``spec.propose``, ``serve.retire`` and ``serve.decode``. Every metric
   reads a value the host already holds: recording adds no device sync.
-* Not ported: tensor-parallel serving (``shard > 1``,
-  ``member_hbm_budget``), the fleet tier (``kv_fetch``) and the
-  prefill/decode roles, which the constructor refuses with
-  ``NotImplementedError``.
+* Tensor-parallel serving (``shard > 1``, ``serve/shard.py``): the target
+  programs (prefill, decode, the spec verify) run on ``shard`` members,
+  each holding its Megatron slice of the weights and its KV heads of the
+  pool on ``devices[k]``; page tables, sampling and the draft stay on the
+  engine's device. ``member_hbm_budget`` refuses a model whose member
+  share does not fit, ``set_member_watch`` folds the members' liveness
+  into ``stats()``' readiness, and one allreduce probe a target dispatch
+  feeds ``oim_serve_ici_allreduce_seconds``.
+* Not ported: the fleet tier (``kv_fetch``) and the prefill/decode roles,
+  which the constructor refuses with ``NotImplementedError``.
 
 Invariants (``tests/test_torch_serve.py``): greedy streams equal solo
 ``generate()``; a retired slot leaks nothing into its next occupant; a
@@ -84,6 +90,7 @@ from oim_tpu_torch.models import generate as gen
 from oim_tpu_torch.models.llama import Config, check_supported
 from oim_tpu_torch.serve.kvtier import HostTier, page_kv, stage_page
 from oim_tpu_torch.serve.pagepool import PagePool
+from oim_tpu_torch.serve import shard as shardlib
 from oim_tpu_torch.serve.prefixcache import PrefixStore
 from oim_tpu_torch.serve.spec import DRAFT_KEY_FOLD, AcceptanceValve, accept_tokens
 
@@ -175,23 +182,47 @@ class GenHandle:
 # _spec_programs, as plain functions) --------------------------------------
 
 
-def decode_program(params, pool, tokens, pos, temps, uniforms, tables,
-                   cfg: Config, page: int, max_seq: int):
-    """One lockstep decode step with sampling. Returns the step's next
-    operands: (tokens [B], positions [B]). Positions advance for every row;
-    idle rows' positions clamp at ``max_seq`` (a live row retires before
-    it could reach the clamp)."""
-    logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
-    return gen.sample(logits, temps, uniforms), torch.clamp(pos + 1, max=max_seq)
+def target_forwards(cfg: Config, page: int, group=None):
+    """The target model's three forwards with the unsharded signatures,
+    (decode, prefill, verify): ``decode(params, tokens, pool, tables,
+    pos)``, ``prefill(params, tokens, n_tokens, pool, table, start)``,
+    ``verify(params, tokens, pool, tables, pos)``, each returning (logits,
+    pool). With a member ``group`` (``serve/shard.py``) they run on every
+    member with the member-local cfg: ``params`` and ``pool`` are then the
+    lists of member trees and pools, and the logits member 0's."""
+    if group is None:
+        return (lambda p, t, c, tb, ps: gen.decode_step(p, t, c, tb, ps, cfg, page),
+                lambda p, t, n, c, tb, st: gen.prefill_into_pages(p, t, n, c, tb, st, cfg,
+                                                                  page),
+                lambda p, t, c, tb, ps: gen.verify_step(p, t, c, tb, ps, cfg, page))
+    lcfg = gen.shard_config(cfg, group.size)
+    return (shardlib.wrap_forward(group, lambda p, t, c, tb, ps: gen.decode_step(
+                p, t, c, tb, ps, lcfg, page, axis=group), cache_arg=1),
+            shardlib.wrap_forward(group, lambda p, t, n, c, tb, st: gen.prefill_into_pages(
+                p, t, n, c, tb, st, lcfg, page, axis=group), cache_arg=2),
+            shardlib.wrap_forward(group, lambda p, t, c, tb, ps: gen.verify_step(
+                p, t, c, tb, ps, lcfg, page, axis=group), cache_arg=1))
 
 
-def prefill_program(params, pool, tokens, n_tokens: int, table, start: int,
-                    temp, uniform, cfg: Config, page: int):
-    """A slot's prefill (the whole prompt, or the tail after a prefix hit)
-    and the first token sampled from its last position. Returns [1]."""
-    last, _ = gen.prefill_into_pages(params, tokens, n_tokens, pool, table,
-                                     start, cfg, page)
-    return gen.sample(last[None], temp, uniform)
+def decode_program(forward, params, pool, tokens, pos, temps, uniforms, tables,
+                   max_seq: int):
+    """One lockstep decode step with sampling through ``forward``
+    (``target_forwards``' decode). Returns the step's next operands:
+    (tokens [B], positions [B]). Positions advance for every row; idle
+    rows' positions clamp at ``max_seq`` (a live row retires before it
+    could reach the clamp)."""
+    logits, _ = forward(params, tokens, pool, tables, pos)
+    return (gen.sample(logits.to(tokens.device), temps, uniforms),
+            torch.clamp(pos + 1, max=max_seq))
+
+
+def prefill_program(forward, params, pool, tokens, n_tokens: int, table, start: int,
+                    temp, uniform):
+    """A slot's prefill through ``forward`` (``target_forwards``' prefill:
+    the whole prompt, or the tail after a prefix hit) and the first token
+    sampled from its last position. Returns [1]."""
+    last, _ = forward(params, tokens, n_tokens, pool, table, start)
+    return gen.sample(last.to(tokens.device)[None], temp, uniform)
 
 
 def propose_program(dparams, dpool, tokens, pos, temps, uniforms, tables,
@@ -215,15 +246,15 @@ def propose_program(dparams, dpool, tokens, pos, temps, uniforms, tables,
     return torch.stack(toks, dim=1), torch.stack(logits, dim=1)
 
 
-def verify_program(params, pool, tokens, pos, temps, uniforms, tables,
-                   draft_toks, draft_logits, spec_mask, cfg: Config,
-                   page: int, max_seq: int):
-    """The target's verify forward and the acceptance. Returns (out
-    [B, K+1], n_emit [B], the last emitted token [B], positions [B]): the
-    device state advances past every emitted token (a row the host
-    truncates retires)."""
+def verify_program(forward, params, pool, tokens, pos, temps, uniforms, tables,
+                   draft_toks, draft_logits, spec_mask, max_seq: int):
+    """The target's verify forward (``target_forwards``' verify) and the
+    acceptance. Returns (out [B, K+1], n_emit [B], the last emitted token
+    [B], positions [B]): the device state advances past every emitted
+    token (a row the host truncates retires)."""
     seq = torch.cat([tokens[:, None], draft_toks], dim=1)  # [B, K+1]
-    logits, _ = gen.verify_step(params, seq, pool, tables, pos, cfg, page)
+    logits, _ = forward(params, seq, pool, tables, pos)
+    logits = logits.to(tokens.device)
     out, n_emit = accept_tokens(logits, draft_toks, draft_logits, temps,
                                 uniforms, spec_mask)
     rows = torch.arange(out.shape[0], device=out.device)
@@ -275,11 +306,8 @@ class ServeEngine:
         prefill_chunk: int = 0,
         name: str = "",
         device="cuda",
+        devices=None,
     ):
-        if int(shard) > 1 or member_hbm_budget:
-            raise NotImplementedError(
-                "tensor-parallel serving (shard > 1, member_hbm_budget) is "
-                "not ported yet")
         if kv_fetch is not None:
             raise NotImplementedError(
                 "peer KV fetch (kv_fetch) is not ported yet")
@@ -316,6 +344,15 @@ class ServeEngine:
                     f"draft vocab ({draft_cfg.vocab}) must equal the "
                     f"target vocab ({cfg.vocab}): the acceptance ratio "
                     f"test compares distributions over one vocabulary")
+        # Tensor-parallel serving (serve/shard.py): shard > 1 runs the
+        # target programs on that many members. The geometry is checked
+        # now: indivisible head counts and missing devices are config
+        # typos, not runtime surprises.
+        self.shard = max(int(shard), 1)
+        self.member_hbm_budget = max(int(member_hbm_budget), 0)
+        if self.shard > 1:
+            gen.shard_config(cfg, self.shard)  # head-divisibility check
+            devices = shardlib.member_devices(self.shard, devices)
         self.role = role
         # The fault points' ``engine`` context.
         self.name = str(name)
@@ -351,6 +388,12 @@ class ServeEngine:
         page_bytes = (2 * cfg.n_layers * self.page_tokens * cfg.n_kv_heads
                       * cfg.head_dim * cfg.dtype.itemsize)
         self._pagepool = PagePool(n_pages, self.page_tokens, page_bytes)
+        # Per-member memory budget: a member holds 1/shard of the split
+        # weight leaves, the replicated leaves whole, and 1/shard of every
+        # page. A model that does not fit is refused here, at boot.
+        if self.member_hbm_budget:
+            shardlib.check_member_budget(params, self.shard, n_pages * page_bytes,
+                                         self.member_hbm_budget)
         self.kv_host_bytes = max(0, int(kv_host_bytes))
         self._host_tier = (HostTier(self.kv_host_bytes)
                            if prefix_on and self.kv_host_bytes else None)
@@ -362,11 +405,26 @@ class ServeEngine:
         if self._host_tier is not None:
             self._pagepool.register_tier("host", self._host_tier.stats)
         M.SERVE_ROLE.labels(role=self.role).set(1)
-        self.params = _to_device(params, self.device)
         # +1 physical page: id 0 is the reserved scratch page every
         # unmapped table entry points at.
-        self._cache = gen.init_page_pool(cfg, n_pages + 1, self.page_tokens,
-                                         device=self.device)
+        self._group = None
+        if self.shard > 1:
+            # Each member holds only its weight slice and its KV-head slice
+            # of every page, on its own device.
+            self._group = shardlib.member_group(devices)
+            lcfg = gen.shard_config(cfg, self.shard)
+            self.params = [shardlib.member_params(params, self.shard, k, d)
+                           for k, d in enumerate(devices)]
+            self._cache = [gen.init_page_pool(lcfg, n_pages + 1, self.page_tokens, device=d)
+                           for d in devices]
+        else:
+            self.params = _to_device(params, self.device)
+            self._cache = gen.init_page_pool(cfg, n_pages + 1, self.page_tokens,
+                                             device=self.device)
+        self._decode_fwd, self._prefill_fwd, self._verify_fwd = target_forwards(
+            cfg, self.page_tokens, self._group)
+        self._member_watch = None
+        self._members_ok = True
 
         self.spec_tokens = int(spec_tokens) if draft_params is not None else 0
         if self.spec_tokens:
@@ -536,9 +594,20 @@ class ServeEngine:
         with self._lock:
             return len(self._pending)
 
+    def set_member_watch(self, fn) -> None:
+        """Register the member-liveness poll (a callable returning
+        ``{"ready": n, "stale": n, "total": shard}``, as ``ShardMembers.
+        member_counts`` does in the JAX package) that a sharded replica's
+        stats() folds into its readiness. It may do a registry RPC, so
+        stats() calls it outside the engine lock."""
+        self._member_watch = fn
+
     def stats(self) -> dict:
         """One consistent load snapshot, with the counts the reference
         keeps in its metrics."""
+        counts = None
+        if self.shard > 1 and self._member_watch is not None:
+            counts = self._member_watch()  # may be an RPC: never under lock
         with self._lock:
             active = sum(s is not None for s in self._slots)
             snap = {
@@ -559,6 +628,24 @@ class ServeEngine:
                 "prefill_tokens_computed": self._prefill_computed,
                 "pool_blocked_episodes": self._pool_blocked_episodes,
             }
+            if self.shard > 1:
+                # One lapsed member flips the whole replica not-ready: a
+                # group missing a member cannot decode.
+                ready_members = (min(int(counts["ready"]), self.shard)
+                                 if counts else self.shard)
+                members_ok = ready_members >= self.shard
+                snap["shard_total"] = self.shard
+                snap["shard_ready"] = ready_members
+                snap["ready"] = snap["ready"] and members_ok
+                if counts is not None:
+                    M.SERVE_SHARD_MEMBERS.labels(state="ready").set(counts["ready"])
+                    M.SERVE_SHARD_MEMBERS.labels(state="stale").set(counts.get("stale", 0))
+                if members_ok != self._members_ok:
+                    events.emit(
+                        events.SHARD_MEMBER_LOST if not members_ok
+                        else events.SHARD_MEMBER_HEALED,
+                        engine=self.name, ready=ready_members, total=self.shard)
+                    self._members_ok = members_ok
             if self.spec_tokens:
                 proposed, accepted = self._spec_proposed, self._spec_accepted
                 snap.update({
@@ -693,7 +780,10 @@ class ServeEngine:
     def _demote_page(self, key: str, page: int) -> None:
         """PrefixStore demote hook: copy the evicting store-only page into
         the host tier."""
-        k, v = page_kv(self._cache, page)
+        if self._group is None:
+            k, v = page_kv(self._cache, page)
+        else:
+            k, v = shardlib.pool_page_kv(self._cache, page, page_kv)
         self._host_tier.put(key, k, v)
 
     def _alloc_one(self) -> int | None:
@@ -725,7 +815,10 @@ class ServeEngine:
             page = self._alloc_one()
             if page is None:
                 break
-            stage_page(self._cache, page, got[0], got[1])
+            if self._group is None:
+                stage_page(self._cache, page, got[0], got[1])
+            else:
+                shardlib.stage_pool_page(self._cache, page, got[0], got[1], stage_page)
             self._host_tier.pop(chain[m])
             self._install_block(chain[m], page, shared)
             m += 1
@@ -996,8 +1089,8 @@ class ServeEngine:
         padded[0, :len(tail)] = tail
         temp = torch.full((1,), req.temperature, device=self.device)
         tok = prefill_program(
-            self.params, self._cache, self._upload(padded), len(tail), table,
-            start, temp, self._draws([gen_], 1)[:, 0], self.cfg, self.page_tokens)
+            self._prefill_fwd, self.params, self._cache, self._upload(padded), len(tail),
+            table, start, temp, self._draws([gen_], 1)[:, 0])
         return int(tok[0])
 
     def _prefill_slot(self, req: _Request, slot: int, n: int, m: int, gen_) -> int:
@@ -1065,9 +1158,8 @@ class ServeEngine:
                 if off + chunk < len(tail):
                     padded = np.zeros((1, self._bucket(len(piece))), np.int64)
                     padded[0, :len(piece)] = piece
-                    gen.prefill_into_pages(
-                        self.params, self._upload(padded), len(piece), self._cache,
-                        table_dev, P + off, self.cfg, self.page_tokens)
+                    self._prefill_fwd(self.params, self._upload(padded), len(piece),
+                                      self._cache, table_dev, P + off)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     M.SERVE_PREFILL_CHUNK_SECONDS.observe(
@@ -1170,6 +1262,14 @@ class ServeEngine:
             self._tables_dev = self._upload(self._tables)
         return self._dev
 
+    def _observe_ici(self, live) -> None:
+        """One allreduce observation per target dispatch (sharded replicas
+        only): the per-layer sums inside a step cannot be host-timed one by
+        one, so one 1 KiB allreduce over the same members is timed instead;
+        the exemplar carries a live request's trace_id."""
+        M.SERVE_ICI_ALLREDUCE.observe(shardlib.time_allreduce(self._group),
+                                      self._trace_id(live[0][1]) if live else "")
+
     def _spec_once(self) -> None:
         """One speculative round: the draft proposes K tokens per row, the
         target verifies all K in ONE forward, and each live row emits its
@@ -1189,14 +1289,15 @@ class ServeEngine:
             self._draws(self._draft_gens, K + 1), self._draft_tables_dev,
             self._draft_cfg, self.page_tokens, self.max_seq, K)
         out, n_emit, tok, pos = verify_program(
-            self.params, self._cache, d_tokens, d_pos, d_temps,
+            self._verify_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
             self._draws(self._gens, K + 1), self._tables_dev, draft_toks,
-            draft_logits, self._spec_mask_dev, self.cfg, self.page_tokens,
-            self.max_seq)
+            draft_logits, self._spec_mask_dev, self.max_seq)
         self._dev = (tok, pos, d_temps)
         fetched = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
         out, n_emit = fetched[:, :-1], fetched[:, -1]  # the per-round sync
         self._target_steps += 1
+        if self._group is not None:
+            self._observe_ici(live)
         self._row_steps += len(live)
         self._spec_rounds += 1
         proposed = K * sum(spec_rows)
@@ -1250,14 +1351,15 @@ class ServeEngine:
         fetch."""
         d_tokens, d_pos, d_temps = self._operands()
         tok, pos = decode_program(
-            self.params, self._cache, d_tokens, d_pos, d_temps,
-            self._draws(self._gens, 1)[:, 0], self._tables_dev, self.cfg,
-            self.page_tokens, self.max_seq)
+            self._decode_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
+            self._draws(self._gens, 1)[:, 0], self._tables_dev, self.max_seq)
         self._dev = (tok, pos, d_temps)
         tok = tok.cpu().numpy()  # the only per-step sync
         self._target_steps += 1
         with self._lock:
             live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+        if self._group is not None:
+            self._observe_ici(live)
         self._row_steps += len(live)
         for i, req in live:
             if req.cancelled.is_set():

@@ -15,20 +15,25 @@ runs in a ``train.step`` span; each logged step sets the ``oim_train_*``,
 values it logs, and each eval pass ``oim_eval_loss`` (and
 ``oim_eval_accuracy``).
 
-Meshes: the rules "dp", "fsdp" and "tp_sp" over the axes data, fsdp and
-seq (``model`` of size 1), each rank one process of ``torch.distributed``
-holding its rows of the batch, its part of the sequence when ``seq`` > 1
-(ring, zigzag or Ulysses attention, ``parallel/ring.py``) and its shards
-of the parameters and moments. The step computes the JAX meshed step's
-function: the label shift is taken on the global tokens, the loss is the
-global mean (each rank's sum over the global count of kept labels,
-summed over the axes that split the batch or the sequence), a weight
-sharded over fsdp is gathered before use and its gradient reduce-scattered
-(its backward), every gradient is then summed over the other splitting
-axes, and the clip sees the global norm. Still to come, each refused by
-``check_supported``: "pipe", ``model`` > 1, expert parallelism (MoE under
-a mesh of several ranks), ResNet across ranks, and checkpoints under such
-a mesh.
+Meshes: the rules "dp", "fsdp" and "tp_sp" over the axes data, fsdp, seq
+and model, each rank one process of ``torch.distributed`` holding its rows
+of the batch, its part of the sequence when ``seq`` > 1 (ring, zigzag or
+Ulysses attention, ``parallel/ring.py``) and its shards of the parameters
+and moments. The step computes the JAX meshed step's function: the label
+shift is taken on the global tokens, the loss is the global mean (each
+rank's sum over the global count of kept labels, summed over the axes
+that split the batch or the sequence), a weight sharded over fsdp is
+gathered before use and its gradient reduce-scattered (its backward),
+every gradient is then summed over the other splitting axes, and the clip
+sees the global norm. Under tp_sp a ``model`` axis of more than one rank
+is tensor parallelism: the heads, the MLP and the vocabulary stay split
+over it (``llama``'s TP layer and ``vocab_parallel_cross_entropy``); the
+ranks of the axis hold the same tokens, so no gradient is summed over it,
+a replicated leaf's gradient is already whole on each of them, and a
+split leaf's squares are summed over it for the norm. Still to come, each
+refused by ``check_supported``: "pipe", expert parallelism (MoE under a
+mesh of several ranks), ResNet across ranks, and checkpoints under such a
+mesh.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, the gradients' sums over ranks, then the
@@ -52,13 +57,14 @@ from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.models import llama, resnet
 from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
-from oim_tpu_torch.parallel.collectives import psum
-from oim_tpu_torch.parallel.mesh import Mesh, build_mesh
+from oim_tpu_torch.parallel.collectives import all_gather, psum
+from oim_tpu_torch.parallel.mesh import Axis, Mesh, build_mesh
 from oim_tpu_torch.parallel.ring import make_sequence_parallel_attention, shard_positions
 from oim_tpu_torch.parallel.sharding import (
     BATCH,
     DP_RULES,
     FSDP_RULES,
+    HEAD,
     PIPE_RULES,
     TP_SP_RULES,
     gather_params,
@@ -82,7 +88,7 @@ RULES = {
     "pipe": PIPE_RULES,
 }
 # The mesh axes a rules table may split over more than one rank.
-PORTED_AXES = ("data", "fsdp", "seq")
+PORTED_AXES = ("data", "fsdp", "seq", "model")
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
 # roofline accounting, matched against torch.cuda.get_device_name() in
@@ -188,14 +194,9 @@ class TrainConfig:
         if mesh is None:
             return
         for name, size in mesh.shape.items():
-            if size > 1 and name == "model":
-                raise NotImplementedError(
-                    "tensor parallelism (model > 1) is not ported yet: it comes with "
-                    "serve/shard.py and a vocab-parallel loss in the next multi-GPU slice")
             if size > 1 and name not in PORTED_AXES:
                 raise NotImplementedError(
-                    f"mesh axis {name!r} of size {size}: only {PORTED_AXES} (and model=1) "
-                    "are ported")
+                    f"mesh axis {name!r} of size {size}: only {PORTED_AXES} are ported")
         if mesh.size > 1:
             if self.model == "resnet50":
                 raise NotImplementedError(
@@ -208,6 +209,23 @@ class TrainConfig:
                 raise NotImplementedError(
                     "checkpoint and resume under a mesh of several ranks are not "
                     "ported yet: a later multi-GPU slice")
+        n_model = mesh.shape.get("model", 1)
+        if n_model > 1 and RULES[self.rules].axis_for(HEAD) == "model" \
+                and self.model.startswith("llama"):
+            llama.check_tensor_parallel(mcfg, n_model)
+
+
+def _heads_gathered(sp, tp: Axis):
+    """Ulysses over the ``seq`` axis on the heads gathered over ``tp``:
+    where a rank's own heads do not split over ``seq`` but the full heads
+    do (the JAX package runs sequence parallelism on whole heads), every
+    rank of ``tp`` attends every head and keeps its own slice of the
+    output. The gathers' backward sums the slices' gradients back."""
+    def fn(q, k, v):
+        h = q.shape[2]
+        full = [all_gather(x, tp, gather_dim=2) for x in (q, k, v)]
+        return sp(*full)[:, :, tp.index * h:(tp.index + 1) * h]
+    return fn
 
 
 def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
@@ -241,11 +259,20 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
     # as XLA elides it.
     split = [a for a in batch_axes if a.size > 1] + ([mesh.axis("seq")] if n_seq > 1 else [])
 
+    # Tensor parallelism: the rules split the heads over a "model" axis of
+    # more than one rank.
+    tp = (mesh.axis("model") if mesh.shape.get("model", 1) > 1
+          and rules.axis_for(HEAD) == "model" else None)
+    keep = ("model",) if tp is not None else ()
+
     if cfg.model.startswith("llama"):
         attn_fn = None
         if n_seq > 1:
             sp = make_sequence_parallel_attention(mesh, kind=cfg.seq_parallel, axis="seq",
                                                   causal=True)
+            if (tp is not None and cfg.seq_parallel == "ulysses"
+                    and (mcfg.n_heads // tp.size) % n_seq):
+                sp = _heads_gathered(sp, tp)
             attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731
         logical = None if mcfg.n_experts else llama.param_logical_axes(mcfg)
         positions: dict[int, tuple] = {}
@@ -264,7 +291,8 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
             return llama.init(rng, mcfg, device=device), {}
 
         def loss_fn(params, extra, batch):
-            full = params if shardings is None else gather_params(mesh, shardings, params)
+            full = (params if shardings is None
+                    else gather_params(mesh, shardings, params, keep))
             tokens = batch["tokens"]
             # The label shift is global: taken before the sequence is cut.
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -275,7 +303,7 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
             with torch.no_grad():
                 kept = psum((labels != ignore).sum().float(), split)
             loss, stats = llama.loss_and_stats(full, inputs, mcfg, attn_fn, ignore, labels=labels,
-                                               positions=pos, denom=kept)
+                                               positions=pos, denom=kept, tp=tp)
             return loss, extra, stats
 
         def eval_stats(params, extra, batch):
@@ -324,16 +352,18 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
     def reduce_grads(grads):
         """Sum each gradient over the splitting axes its shard's gather did
         not already sum over (a sharded leaf's backward reduce-scattered
-        it); then the global norm, each replicated part counted once."""
+        it); then the global norm, each replicated part counted once: a
+        leaf's squares are summed over the axes that split it (``model``
+        among them), grouped by those axes."""
         out, squares = [], {}
         held = ([s.axes for s in tree_leaves(shardings)] if shardings is not None
                 else [()] * len(grads))
         for g, axes in zip(grads, held):
             g = psum(g, [a for a in split if a.name not in axes])
             out.append(g)
-            squares[axes] = squares.get(axes, 0.0) + torch.sum(torch.square(g.float()))
-        total = sum(psum(sq, [mesh.axis(a) for a in axes if mesh.shape[a] > 1])
-                    for axes, sq in squares.items())
+            key = tuple(a for a in mesh.axis_names if a in axes and mesh.shape[a] > 1)
+            squares[key] = squares.get(key, 0.0) + torch.sum(torch.square(g.float()))
+        total = sum(psum(sq, [mesh.axis(a) for a in key]) for key, sq in squares.items())
         return out, torch.sqrt(total)
 
     def step_fn(state: TrainState, batch: dict):
@@ -421,11 +451,6 @@ class Trainer:
         self.cfg = cfg
         self.device = require(device)
         if mesh is None:
-            if axes is None and not dist.is_initialized() and cfg.rules != "dp":
-                raise NotImplementedError(
-                    f"rules {cfg.rules!r} on one process without a mesh: pass axes "
-                    "(--mesh) that name the rules' axes, e.g. data=1,fsdp=1, or start "
-                    "ranks with torchrun")
             world = dist.get_world_size() if dist.is_initialized() else 1
             mesh = build_mesh(axes or [("data", world)], device=self.device)
         if mesh.device != self.device:

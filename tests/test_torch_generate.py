@@ -252,10 +252,13 @@ def test_generate_edges_and_refusals(model):
         tgen.generate(tp, prompt, -1, tcfg)
     with pytest.raises(ValueError, match="max_seq"):
         tgen.generate(tp, prompt, 8, tcfg, max_seq=6)
-    pool = tgen.init_page_pool(tcfg, 3, PAGE, device="cpu")
-    with pytest.raises(NotImplementedError, match="axis"):
+    # Tensor-parallel decode (tests/test_torch_shard.py) refuses MoE, as
+    # the reference's shard_config does.
+    moe = dataclasses.replace(tcfg, n_experts=4)
+    pool = tgen.init_page_pool(moe, 3, PAGE, device="cpu")
+    with pytest.raises(ValueError, match="MoE"):
         tgen.decode_step(tp, torch.tensor([1]), pool, torch.ones(1, 2, dtype=torch.long),
-                         torch.tensor([0]), tcfg, PAGE, axis="tp")
+                         torch.tensor([0]), moe, PAGE, axis=object())
 
 
 def test_shard_config_and_pool_shapes_match_jax():

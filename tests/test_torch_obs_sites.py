@@ -81,12 +81,10 @@ PORT_FAMILIES = set(tmetrics.DEFAULT._metrics)
 # Sites of the ported modules whose code the port does not have yet, each
 # with the queue item (ROADMAP.md) that brings it.
 DEFERRED_FAMILIES = {
-    "SERVE_PREFIX_PEER_TOKENS": "A.4.7", "SERVE_PREFILL_HANDOFFS": "A.4.7",
-    "SERVE_SHARD_MEMBERS": "A.6", "SERVE_ICI_ALLREDUCE": "A.6",
+    "SERVE_PREFIX_PEER_TOKENS": "A.3.7", "SERVE_PREFILL_HANDOFFS": "A.3.7",
 }
 DEFERRED_EVENTS = {
-    "KV_PEER_FETCH": "A.4.7", "KV_FETCH_FALLBACK": "A.4.7",
-    "SHARD_MEMBER_LOST": "A.6", "SHARD_MEMBER_HEALED": "A.6",
+    "KV_PEER_FETCH": "A.3.7", "KV_FETCH_FALLBACK": "A.3.7",
 }
 # JAX modules whose sites this slice ports, and their counterparts.
 PORTED_SITES = {
@@ -165,8 +163,16 @@ class Reads:
         return [e for e in self.pkg.events.recorder().events() if e.seq > self.seq]
 
     def spans(self):
-        return self.pkg.tracing.recorder().spans()[self.n_spans:]
+        """The spans of the sites' names recorded since the snapshot: a
+        span another thread leaves in the ring meanwhile (an earlier test
+        file's server on the same worker) is not this workload's."""
+        return [s for s in self.pkg.tracing.recorder().spans()[self.n_spans:]
+                if s.name in SITE_SPANS]
 
+
+# The span names the port's sites record (stage, train and serving).
+SITE_SPANS = frozenset({"stage", "train.step", "serve.prefill", "serve.draft_prefill",
+                        "serve.queue_wait", "serve.decode"})
 
 # Counters of seconds: equal in presence, not in value.
 TIMED = {"oim_stage_seconds_total"}

@@ -9,7 +9,14 @@ Scenarios: ``dp`` over data=2; ``fsdp`` over data=2,fsdp=2; ``tp_sp`` over
 seq=2 with each of ring, zigzag and Ulysses attention, and over
 fsdp=2,seq=2 (zigzag); and three with an uneven ``ignore_index`` mask (one
 over data=2, one with 2 accumulation microbatches, one over fsdp=2,seq=2),
-where a mean of the ranks' own means would be wrong.
+where a mean of the ranks' own means would be wrong. Tensor parallelism
+(tp_sp with model > 1): model=2; model=4, where llama-tiny's 2 KV heads
+do not split over 4 ranks and wk/wv are gathered; fsdp=2,model=2;
+seq=2,model=2 with zigzag and with Ulysses; Ulysses over seq=2,model=2
+with 2/1 heads, where a rank's one query head does not split over seq
+and the heads are gathered over model around the call; and the uneven
+mask at model=2, whose -1 inputs embed the last vocabulary row, held by
+the last model rank.
 
 Tolerances (f32): per-step loss 1e-4 absolute (tests/test_torch_train.py's:
 the frameworks sum in different orders and Adam's normalized update
@@ -33,6 +40,10 @@ COMMON = dict(model="llama-tiny", lr=1e-2, warmup_steps=2, total_steps=10, log_e
               seed=3)
 SEQ2 = [("data", 1), ("fsdp", 1), ("seq", 2), ("model", 1)]
 FSDP_SEQ = [("data", 1), ("fsdp", 2), ("seq", 2), ("model", 1)]
+MODEL2 = [("data", 1), ("fsdp", 1), ("seq", 1), ("model", 2)]
+SEQ_MODEL = [("data", 1), ("fsdp", 1), ("seq", 2), ("model", 2)]
+# llama-tiny's shapes with 2 query heads of 32 and 1 KV head.
+WIDE_HEADS = {"n_heads": 2, "n_kv_heads": 1, "head_dim": 32}
 # name -> (world, rules, axes, extra config, uneven ignore_index mask)
 SCENARIOS = {
     "dp": (2, "dp", [("data", 2)], dict(batch_size=4, seq_len=16), False),
@@ -50,6 +61,19 @@ SCENARIOS = {
                                                      accum_steps=2), True),
     "uneven_fsdp_seq": (4, "tp_sp", FSDP_SEQ,
                         dict(batch_size=2, seq_len=16, seq_parallel="zigzag"), True),
+    "tp_model2": (2, "tp_sp", MODEL2, dict(batch_size=2, seq_len=16), False),
+    "tp_model4": (4, "tp_sp", [("data", 1), ("fsdp", 1), ("seq", 1), ("model", 4)],
+                  dict(batch_size=2, seq_len=16), False),
+    "tp_fsdp_model": (4, "tp_sp", [("data", 1), ("fsdp", 2), ("seq", 1), ("model", 2)],
+                      dict(batch_size=4, seq_len=16), False),
+    "tp_seq_zigzag": (4, "tp_sp", SEQ_MODEL,
+                      dict(batch_size=2, seq_len=16, seq_parallel="zigzag"), False),
+    "tp_seq_ulysses": (4, "tp_sp", SEQ_MODEL,
+                       dict(batch_size=2, seq_len=16, seq_parallel="ulysses"), False),
+    "tp_seq_ulysses_gathered": (4, "tp_sp", SEQ_MODEL,
+                                dict(batch_size=2, seq_len=16, seq_parallel="ulysses",
+                                     model_overrides=WIDE_HEADS), False),
+    "uneven_tp": (2, "tp_sp", MODEL2, dict(batch_size=2, seq_len=16), True),
 }
 
 
@@ -168,15 +192,19 @@ def test_replicas_stay_equal_across_ranks_after_every_step(runs, name):
                 for other in pieces[1:]:
                     np.testing.assert_array_equal(other, pieces[0],
                                                   err_msg=f"{leaf} step {step + 1}")
-    _, rules, axes, _, _ = SCENARIOS[name]
-    fsdp = dict(axes).get("fsdp", 1)
-    held = sum(ranks[0][f"{name}/shard0/{leaf}"].size for leaf in params)
+    world, rules, axes, _, _ = SCENARIOS[name]
+    fsdp, model = dict(axes).get("fsdp", 1), dict(axes).get("model", 1)
     norms = sum(params[leaf].size for leaf in params if "norm" in leaf)
     total = sum(v.size for v in params.values())
-    if rules in ("fsdp", "tp_sp") and fsdp > 1:
-        assert held == (total - norms) // fsdp + norms
-    else:
-        assert held == total
+    for r in ranks:
+        held = sum(r[f"{name}/shard0/{leaf}"].size for leaf in params)
+        if rules in ("fsdp", "tp_sp"):
+            # every leaf but the norms splits over fsdp and, under tp_sp,
+            # over model (heads, kv heads, mlp or vocab)
+            split = fsdp * (model if rules == "tp_sp" else 1)
+            assert held == (total - norms) // split + norms
+        else:
+            assert held == total
 
 
 def test_uneven_mask_needs_the_global_mean(runs):
@@ -243,8 +271,11 @@ def test_unported_mesh_options_refuse_naming_their_slice():
             c.check_supported(mesh)
 
     refuse(cfg(rules="pipe"), None, "later multi-GPU slice")
-    refuse(cfg(rules="tp_sp"), Mesh([("data", 1), ("model", 2)], [0, 1], "cpu"),
-           "vocab-parallel loss")
+    # Tensor parallelism is ported; a model axis that splits a query head is not.
+    model2 = Mesh([("data", 1), ("model", 2)], [0, 1], "cpu")
+    cfg(rules="tp_sp").check_supported(model2)
+    refuse(cfg(rules="tp_sp", model_overrides={"n_heads": 3, "head_dim": 16}), model2,
+           "whole query heads")
     refuse(cfg(), Mesh([("data", 1), ("expert", 2)], [0, 1], "cpu"), "expert")
     refuse(cfg(model="resnet50"), two, "batch norm")
     refuse(cfg(model="llama-tiny-moe"), two, "expert parallelism")
@@ -285,6 +316,33 @@ def test_cli_under_torchrun_trains_on_two_ranks():
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
          "2", "-m", "oim_tpu_torch.cli.oim_trainer", "--rules", "fsdp", "--mesh",
          "data=1,fsdp=2", *common], capture_output=True, text=True, timeout=180, env=env)
+    assert ranks.returncode == 0, ranks.stderr[-3000:]
+    one = subprocess.run([sys.executable, "-m", "oim_tpu_torch.cli.oim_trainer", *common],
+                         capture_output=True, text=True, timeout=180, env=env)
+    assert one.returncode == 0, one.stderr[-3000:]
+    both, single = _steps_logged(ranks.stderr + ranks.stdout), _steps_logged(one.stderr)
+    assert len(single) == 2 and len(both) == 4
+    np.testing.assert_allclose(sorted(both), sorted(single * 2), atol=1e-5)
+
+
+def test_cli_under_torchrun_tensor_parallel_on_two_ranks():
+    """The CLI's ``--rules tp_sp --mesh data=1,fsdp=1,seq=1,model=2`` under
+    ``torchrun`` on two CPU ranks: each logs the global loss, equal to one
+    process's run on the same batches."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    common = ["--device", "cpu", "--steps", "2", "--batch-size", "2", "--seq-len", "16",
+              "--log-every", "1", "--log-format", "json", "--warmup-steps", "1"]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent.parent))
+    ranks = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "2", "-m", "oim_tpu_torch.cli.oim_trainer", "--rules", "tp_sp", "--mesh",
+         "data=1,fsdp=1,seq=1,model=2", *common], capture_output=True, text=True,
+        timeout=180, env=env)
     assert ranks.returncode == 0, ranks.stderr[-3000:]
     one = subprocess.run([sys.executable, "-m", "oim_tpu_torch.cli.oim_trainer", *common],
                          capture_output=True, text=True, timeout=180, env=env)

@@ -723,8 +723,8 @@ def test_spec_eos_mid_round_and_cancel(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"shard": 2}, {"member_hbm_budget": 1 << 30}, {"kv_fetch": lambda chain, m: None},
-    {"role": "prefill"}, {"role": "decode"}], ids=lambda kw: next(iter(kw)))
+    {"kv_fetch": lambda chain, m: None}, {"role": "prefill"}, {"role": "decode"}],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_engine_knobs_refuse(model, kw):
     with pytest.raises(NotImplementedError):
         engine(model, **kw)
@@ -757,7 +757,8 @@ _ROOT = Path(__file__).resolve().parent.parent
 _SERVING = ["oim_tpu_torch/models/generate.py", "oim_tpu_torch/common/prefixhash.py",
             "oim_tpu_torch/serve/__init__.py", "oim_tpu_torch/serve/pagepool.py",
             "oim_tpu_torch/serve/prefixcache.py", "oim_tpu_torch/serve/kvtier.py",
-            "oim_tpu_torch/serve/spec.py", "oim_tpu_torch/serve/engine.py"]
+            "oim_tpu_torch/serve/spec.py", "oim_tpu_torch/serve/engine.py",
+            "oim_tpu_torch/serve/shard.py"]
 
 
 def test_serving_modules_import_only_stdlib_numpy_torch_and_the_port():

@@ -134,8 +134,16 @@ def test_peak_flops_table_is_keyed_on_the_cuda_device_name():
 
 
 def test_unported_trainer_options_refuse():
-    with pytest.raises(NotImplementedError):
+    # One process, no mesh, rules that name a missing axis: the JAX Trainer
+    # builds [("data", n)] and its logical_sharding refuses; so does the port.
+    with pytest.raises(ValueError) as jerr:
+        jtrainer.Trainer(jtrainer.TrainConfig(rules="fsdp"))
+    with pytest.raises(ValueError) as terr:
         ttrainer.Trainer(ttrainer.TrainConfig(rules="fsdp"), device="cpu")
+    assert "Resource axis: fsdp" in str(jerr.value)
+    assert "Resource axis: fsdp" in str(terr.value)
+    with pytest.raises(NotImplementedError, match="pipe"):
+        ttrainer.Trainer(ttrainer.TrainConfig(rules="pipe"), device="cpu")
 
 
 def test_entry_points_default_to_cuda():

@@ -1,5 +1,6 @@
 """One rank of a multi-rank run of the port on the CPU, for
-tests/test_torch_parallel.py and tests/test_torch_parallel_train.py.
+tests/test_torch_parallel.py, tests/test_torch_parallel_train.py and
+tests/test_torch_tp.py.
 
     python tests/torch_parallel_worker.py JOB.json RANK
 
@@ -26,7 +27,10 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import torch.nn.functional as F  # noqa: E402
+
 from oim_tpu_torch.models import llama  # noqa: E402
+from oim_tpu_torch.ops.losses import vocab_parallel_cross_entropy  # noqa: E402
 from oim_tpu_torch.parallel import collectives as C  # noqa: E402
 from oim_tpu_torch.parallel import ring  # noqa: E402
 from oim_tpu_torch.parallel.mesh import build_mesh  # noqa: E402
@@ -104,6 +108,58 @@ def attention(sc, inputs, rank, world, out, mesh):
     for x, t in (("dq", q_r), ("dk", k_r), ("dv", v_r)):
         out[f"{name}/{x}"] = t.grad.numpy()
     out[f"{name}/calls"] = np.asarray(calls["n"])
+
+
+def _model_axis(world):
+    return build_mesh([("model", world)], device="cpu").axis("model")
+
+
+def tp_ops(sc, inputs, rank, world, out):
+    """A Megatron MLP on this rank's slices: ``copy_to`` into a
+    column-split product, ``reduce_from`` out of a row-split one; the
+    output and the gradients of x and of this rank's weight slices."""
+    name, ax = sc["name"], _model_axis(world)
+    C.reset_counts()
+    x = torch.tensor(inputs[f"{name}/x"]).requires_grad_(True)
+    w_all, v_all = inputs[f"{name}/w"], inputs[f"{name}/v"]
+    cols = w_all.shape[1] // world
+    w = torch.tensor(w_all[:, rank * cols:(rank + 1) * cols]).requires_grad_(True)
+    v = torch.tensor(v_all[rank * cols:(rank + 1) * cols]).requires_grad_(True)
+    y = C.reduce_from(F.silu(C.copy_to(x, ax) @ w) @ v, ax)
+    y.backward(torch.tensor(inputs[f"{name}/g"]))
+    out[f"{name}/y"] = y.detach().numpy()
+    for key, t in (("dx", x), ("dw", w), ("dv", v)):
+        out[f"{name}/{key}"] = t.grad.numpy()
+    out[f"{name}/calls"] = np.asarray(C.CALLS["psum"])
+    # The plain psum (whose backward sums again) in reduce_from's place.
+    x2 = x.detach().clone().requires_grad_(True)
+    C.psum(F.silu(C.copy_to(x2, ax) @ w.detach()) @ v.detach(), ax).backward(
+        torch.tensor(inputs[f"{name}/g"]))
+    out[f"{name}/dx_plain_psum"] = x2.grad.numpy()
+
+
+def vocab_ce(sc, inputs, rank, world, out):
+    """``vocab_parallel_cross_entropy`` on this rank's head slice for each
+    case (vocab_chunk, z_loss, reduction): the loss, the z-loss term, dy
+    and this slice's gradient."""
+    name, ax = sc["name"], _model_axis(world)
+    w_all = inputs[f"{name}/w"]
+    cols = w_all.shape[1] // world
+    labels = torch.tensor(inputs[f"{name}/labels"]).long()
+    for i, (chunk, z_loss, reduction) in enumerate(sc["cases"]):
+        y = torch.tensor(inputs[f"{name}/y"]).requires_grad_(True)
+        w = torch.tensor(w_all[:, rank * cols:(rank + 1) * cols]).requires_grad_(True)
+        before = dict(C.CALLS)
+        loss, z_term = vocab_parallel_cross_entropy(
+            y, w, labels, ax, ignore_index=-1, reduction=reduction, z_loss=z_loss,
+            vocab_chunk=chunk, return_z_term=True)
+        fwd_calls = {op: C.CALLS[op] - before[op] for op in C.CALLS}
+        loss.backward()
+        out[f"{name}/{i}/loss"] = loss.detach().numpy()
+        out[f"{name}/{i}/z_term"] = z_term.detach().numpy()
+        out[f"{name}/{i}/dy"] = y.grad.numpy()
+        out[f"{name}/{i}/dw"] = w.grad.numpy()
+        out[f"{name}/{i}/fwd_calls"] = np.asarray([fwd_calls["pmax"], fwd_calls["psum"]])
 
 
 def train(sc, inputs, rank, world, out):
@@ -209,6 +265,10 @@ def main() -> int:
             if attn_mesh is None:
                 attn_mesh = build_mesh([("data", 1), ("seq", world)], device="cpu")
             attention(sc, inputs, rank, world, out, attn_mesh)
+        elif sc["type"] == "tp_ops":
+            tp_ops(sc, inputs, rank, world, out)
+        elif sc["type"] == "vocab_ce":
+            vocab_ce(sc, inputs, rank, world, out)
         else:
             train(sc, inputs, rank, world, out)
     out["staged_calls"] = np.asarray(sum(C.STAGED_CALLS.values()))
