@@ -22,7 +22,15 @@ zigzag, each run's every step against one rank on the same global batch
 and initial params (run here on cuda:0 before the ranks start), its
 replicas equal to the bit and, under fsdp and tensor parallelism, 1/N of
 the split leaves' bytes a rank; then the planted faults, each of which
-must break a limit. Last, tensor-parallel serving with its members on
+must break a limit. Then MoE and ResNet across the cards: the MoE
+flagship at full width and depth under ``--rules tp_sp --mesh
+data=1,fsdp=1,seq=1,model=1,expert=N`` (each card its share of the
+experts; collectives equal to ``ep_collectives``' count, moe_drop_frac
+within one assignment of one rank's) and ResNet-50 at bench.py's cell
+under ``--rules dp --mesh data=N`` (its BN running statistics against one
+rank's), each against one rank on cuda:0 at every step within
+PAR_LOSS_REL / PAR_NORM_REL (ResNet within its own, chip_smoke's
+RESNET_PAR_*). Last, tensor-parallel serving with its members on
 distinct cards: llama3-8b at full depth, phase 7's 12 requests on one
 card (shard 1), then ``ServeEngine(shard=2, devices=["cuda:0",
 "cuda:1"])`` with chip_smoke's sharded checks: the member-memory gate,
@@ -39,9 +47,12 @@ cards' names and power limits, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import functools
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,9 +87,17 @@ def main() -> int:
     cs.say(f"  built {kernels.build()} (s per kernel)")
     cs.say("== one rank on cuda:0: each run's history")
     single = cs.one_rank_references(n, "cuda:0")
+    refs12 = cs.slice12_references("cuda:0", None, full=False)
     cs.say(f"== NCCL, {n} ranks, one card a rank")
-    ranks = cs.run_ranks(cs.ranks_job, n, "nccl", RANK_TIMEOUT, None)
+    root = tempfile.mkdtemp(prefix="oim-multigpu-")
+    try:
+        ranks = cs.run_ranks(functools.partial(cs.ranks_job, root=root, full=False), n, "nccl",
+                             RANK_TIMEOUT, None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     out = cs.check_ranks(ranks, n, single, "nccl")
+    cs.say(f"== MoE (expert={n}) and ResNet-50 (data={n}) across the cards")
+    out["train"].update(cs.check_slice12(ranks, refs12, None)[0])
     cs.say("== tensor-parallel serving, members on cuda:0 and cuda:1")
     from oim_tpu_torch.models import llama
     from oim_tpu_torch.serve import ServeEngine

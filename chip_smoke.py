@@ -26,7 +26,9 @@ Phases, in order; any failure exits nonzero:
    a ring's full block, zigzag's 2048 x 1024 and 1024 x 2048 rectangles),
    Ulysses' 16 heads over all 4096 positions, and one rank's 4096;
    tensor parallelism's heads a rank over 4096 positions (16/4 at
-   model=2, phase 15's, and 8/2 at model=4); and
+   model=2, phase 15's, and 8/2 at model=4); the MoE flagship's row a
+   rank under phase 15's fsdp=2 (q [1,2048,16,128]; in float32, as (b)
+   runs it, among the odd cases on the fma route); and
    on small odd shapes (non-causal, GQA groups 1 and 4, tq < tk, tq > tk
    with fully masked rows, lengths not a multiple of the tile, a delta that
    carries an lse cotangent, a bf16 head_dim that the kernels serve by the
@@ -263,6 +265,37 @@ Phases, in order; any failure exits nonzero:
    ``reduce_from``), and each must break one of those two limits. It prints per-rank step_s and
    peak memory, the backend, the collectives' calls and bytes, those
    staged through host memory apart, and each fault's readings.
+   Then MoE, ResNet and checkpoints across the two ranks, each run
+   against one rank on its global batch and initial params within
+   PAR_LOSS_REL / PAR_NORM_REL at every step, losses equal on both ranks
+   and replicas equal by digest: (a) the MoE flagship at full width and
+   depth under ``--rules tp_sp --mesh data=1,fsdp=1,seq=1,model=1,
+   expert=2`` (against phase 11's run; each rank holding two experts'
+   bytes plus the replicated leaves; moe_drop_frac within one routing
+   assignment of phase 11's; K1-K3 at 8 x MOE_STEPS launches a rank on
+   ``wgmma``; collective calls and bytes equal to ``ep_collectives``'
+   count, written down before the run); (b) the flagship cut to
+   MOE_FSDP_LAYERS layers under ``--rules fsdp --mesh data=1,fsdp=2``
+   (one row a rank: the global routing), in float32 (SLICE12_DTYPE: in
+   bf16 a rank's partial gradients round before their sum, and the run
+   parts from one rank's by more than the limits once routes flip after
+   an update), K1-K3 on their fma route; (c) ResNet-50 at bench.py's cell
+   (batch 128, synthetic images) in float32 for the same reason under
+   ``--rules dp --mesh data=2``, within RESNET_PAR_LOSS_REL and
+   RESNET_PAR_NORM_REL (in the PAR limits' place: its sound runs move
+   between calls), its BN running statistics equal on both
+   ranks and within RESNET_BN_REL of one rank's, and no K1-K3 launch; (d)
+   (a) and (b)
+   checkpointed at step 2 (each rank its pieces, ``train/checkpoint.py``)
+   and resumed: (b) on the same mesh, steps 3-4 and the final params
+   equal to the unbroken run's to the bit, and on one process, as (a) is,
+   within the limits of one rank's steps 3-4; a blocking save's seconds
+   and piece bytes a rank and each restore's seconds printed. Last the
+   faults of SLICE12_FAULTS (each rank routing its own tokens, in (b)
+   at capacity factor MOE_FSDP_CF, against one rank there; the
+   router's columns through the plain all_gather; a per-rank batch norm;
+   the load-balance loss in full on every rank), each of which must break
+   one of the limits.
 16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
@@ -737,9 +770,9 @@ def moe_calls(calls: list):
     """A ``patched`` wrap for ``moe.apply``: each call appends (its layer's
     MoE params, its input detached, its MoEConfig) to ``calls`` first."""
     def wrap(apply):
-        def spy(params, x, cfg, with_stats=False):
+        def spy(params, x, cfg, with_stats=False, **kw):
             calls.append((params, x.detach(), cfg))
-            return apply(params, x, cfg, with_stats)
+            return apply(params, x, cfg, with_stats, **kw)
         return spy
     return wrap
 
@@ -2865,7 +2898,7 @@ def phase_moe_main(profile: bool) -> dict:
            "flops_per_step": flops_per_step(cfg), "losses": losses, "moe_drop_frac": drops,
            "launches": launches, "routes": routes, "step_s": step_s,
            "step1_s": hist[0]["step_s"], "tokens_per_s": tokens / step_s, "mfu": mfu,
-           "peak_mem_gb": peak_gb, "obs": obs}
+           "peak_mem_gb": peak_gb, "obs": obs, "history": hist}
 
     if profile:
         out["profile"] = profile_step(trainer, "chip_smoke_moe_profile.json")
@@ -3539,7 +3572,7 @@ def phase_sources(others: dict) -> dict:
 
 PAR_T = 4096            # the attention check's global length: 2048 positions a rank
 PAR_WORLD = 2
-PAR_RANK_TIMEOUT = 480  # seconds a rank of the two-rank job may take
+PAR_RANK_TIMEOUT = 900  # seconds a rank of the two-rank job may take
 PAR_NCCL_TIMEOUT = 240  # seconds the NCCL world-1 process may take
 # A meshed run against one rank on the same global batch and initial
 # params, every step: the rows (or the sequence halves) go through the
@@ -3849,10 +3882,8 @@ def train_runs(rank: int, world: int, device: str) -> dict:
 
     from oim_tpu_torch import kernels
     from oim_tpu_torch.cli import oim_trainer
-    from oim_tpu_torch.parallel import collectives as C
-    from oim_tpu_torch.train.state import tree_leaves
-
     from oim_tpu_torch.models import llama
+    from oim_tpu_torch.parallel import collectives as C
 
     heads: set = set()
 
@@ -3876,13 +3907,7 @@ def train_runs(rank: int, world: int, device: str) -> dict:
         with patched(llama, "default_attention", wrap):
             trainer = oim_trainer.run(argv)
         _sync(device)
-        held = full = whole = 0
-        for (_, p), sh in zip(_named_leaves(trainer.state.params),
-                              tree_leaves(trainer.shardings)):
-            nbytes = p.numel() * p.element_size()
-            pieces = math.prod(sh.parts(trainer.mesh, d)[0] for d in range(len(sh.dims)))
-            held, full = held + nbytes, full + nbytes * pieces
-            whole += nbytes if pieces == 1 else 0
+        held, full, whole = _held_bytes(trainer)
         out[name] = {
             "history": trainer.history, "launches": dict(kernels.LAUNCHES),
             "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
@@ -3955,11 +3980,300 @@ def fault_runs(rank: int, world: int, device: str) -> dict:
     return out
 
 
-def ranks_job(rank: int, world: int, device: str) -> dict:
+# Phase 15, MoE, ResNet and checkpoints across ranks: (a) expert
+# parallelism at the MoE flagship's full width and depth; (b) its global
+# routing under fsdp, cut to MOE_FSDP_LAYERS layers (gloo's host path
+# carries the fsdp gathers and reduce-scatters: 8 layers would take
+# minutes), and at MOE_FSDP_CF, a capacity factor that drops half the
+# tokens at a random init, for the per-rank routing fault; (c)
+# ResNet-50 at bench.py's cell under data=2; (d) checkpoints of (a) and
+# (b) at step 2 resumed on the same mesh and on one rank.
+MOE_FSDP_LAYERS = 2
+MOE_FSDP_CF = 0.5
+RESNET_PAR_BATCH = 128
+# (b) and (c) run in float32 (TF32 off; K1-K3 then take their fma route):
+# in bf16 a rank's partial gradients each round before their sum, and the
+# runs part from one rank's by more than the limits after the first
+# update (bf16 on one H100: (b) grad_norm rel 1.3e-3 at step 3 as routes
+# flip, (c) loss 7.3e-4 and grad_norm 1.4e-2, where the planted per-rank
+# batch norm reads 1.7e-3 and 1.6e-2): the same order as the faults.
+SLICE12_DTYPE = ["--override", "dtype=float32"]
+# (c) in float32 against one rank: cuDNN convolves 64 rows a rank with
+# other algorithms than 128, its backward is not deterministic, and
+# ResNet's 53 batch norms carry both into the gradient: grad_norm read
+# 5.7e-4 to 3.22e-3 at its worst step in four calls on one H100 (one
+# rank's own step-4 norm moved by 6.8e-4 between two), the per-rank batch
+# norm 3.2e-3. So grad_norm cannot tell the two apart; the loss does
+# (sound 2.7e-5 to 9.7e-5, the per-rank batch norm 7.3e-4). Its loss limit,
+# in PAR_LOSS_REL's place, sits ~3x above the worst sound reading and
+# ~2.4x below the fault; its grad_norm limit, in PAR_NORM_REL's, only
+# guards against a gross fault (a gradient not summed over data reads
+# ~0.3): ~6x the worst sound reading. The BN running statistics after the
+# last step read 3.0e-3 of each leaf's largest value (a per-rank batch
+# norm moves them by ~1/sqrt(64)).
+RESNET_PAR_LOSS_REL = 3e-4
+RESNET_PAR_NORM_REL = 2e-2
+RESNET_BN_REL = 1e-2
+# Faults planted in the runs above, which the runs' limits must
+# catch: each rank routes its own tokens (local capacity and slots), the
+# router's columns gathered with the plain all_gather (whose reduce-scatter
+# backward doubles the router's gradient over expert=2), batch norm over a
+# rank's own rows, and the load-balance loss counted in full on every rank.
+SLICE12_FAULTS = (("local_routing", "moe_drops"), ("rs_backward", "ep"),
+                  ("rank_bn", "resnet_dp"), ("aux_everywhere", "moe_fsdp"))
+
+
+def ep_argv(device: str, steps: int = MOE_STEPS, world: int = 0) -> list:
+    """(a) on ``world`` ranks (``--mesh ...,expert=world``); 0 is one rank."""
+    mesh = f"data=1,fsdp=1,seq=1,model=1,expert={world}"
+    return moe_argv() + (["--rules", "tp_sp", "--mesh", mesh] if world else []) + [
+        "--steps", str(steps), "--device", device, "--log-level", "warning"]
+
+
+def moe_fsdp_argv(device: str, steps: int = MOE_STEPS, world: int = 0,
+                  capacity_factor: float | None = None) -> list:
+    cf = [] if capacity_factor is None else ["--override",
+                                             f"moe_capacity_factor={capacity_factor}"]
+    return moe_argv() + ["--override", f"n_layers={MOE_FSDP_LAYERS}"] + cf + SLICE12_DTYPE + (
+        ["--rules", "fsdp", "--mesh", f"data=1,fsdp={world}"] if world else []) + [
+        "--steps", str(steps), "--device", device, "--log-level", "warning"]
+
+
+def moe_drops_argv(device: str, steps: int = PAR_FAULT_STEPS, world: int = 0) -> list:
+    return moe_fsdp_argv(device, steps, world, MOE_FSDP_CF)
+
+
+def resnet_par_argv(device: str, steps: int = STEPS, world: int = 0) -> list:
+    return ["--model", "resnet50", "--batch-size", str(RESNET_PAR_BATCH), "--steps",
+            str(steps), "--warmup-steps", "2", "--log-every", "1", "--device", device,
+            "--log-level", "warning", *SLICE12_DTYPE] + (
+        ["--rules", "dp", "--mesh", f"data={world}"] if world else [])
+
+
+def slice12_argv(run: str, device: str, steps: int, world: int = 0) -> list:
+    return {"ep": ep_argv, "moe_fsdp": moe_fsdp_argv, "moe_drops": moe_drops_argv,
+            "resnet_dp": resnet_par_argv}[run](device, steps, world)
+
+
+def ep_collectives(tokens: int, dim: int, layers: int, experts_here: int, top_k: int,
+                   steps: int, checkpointed: bool, itemsize: int = 2) -> dict:
+    """The collective calls and bytes (per rank) of the expert-parallel run
+    (``--mesh ...,expert=N``), written down before it runs. Each layer's
+    forward gathers the router's columns ([D, E/N] f32, ``gather_from``)
+    and sums the experts' partial outputs ([tokens, D] in the model's
+    dtype, ``reduce_from``); its backward sums the cotangents of the two
+    ``copy_to``s (the tokens [tokens, D] and the top-k combine weights
+    [k, tokens] f32). The grad norm sums the expert leaves' squares (one
+    f32); making the checkpointer agrees on a run id (one int64). Nothing
+    else crosses ranks: all hold the same tokens."""
+    act = tokens * dim * itemsize
+    calls = 3 * layers + 1
+    nbytes = layers * (2 * act + top_k * tokens * 4) + 4
+    return {"calls": {"psum": steps * calls + int(checkpointed),
+                      "gather_from": steps * layers},
+            "bytes": {"psum": steps * nbytes + 8 * int(checkpointed),
+                      "gather_from": steps * layers * dim * experts_here * 4}}
+
+
+def planted12(fault: str):
+    """A ``patched`` context planting ``fault`` (of SLICE12_FAULTS) in this
+    rank's port."""
+    import dataclasses
+
+    import torch
+
+    from oim_tpu_torch.models import moe, resnet
+    from oim_tpu_torch.parallel import collectives as C
+
+    if fault == "rs_backward":
+        return patched(C, "gather_from", lambda gather_from: (
+            lambda x, axis, gather_dim=0: C.all_gather(x, axis, gather_dim=gather_dim)))
+    if fault == "rank_bn":
+        return patched(resnet, "_batchnorm", lambda batchnorm: (
+            lambda x, p, s, training, momentum, eps, batch_axes=():
+            batchnorm(x, p, s, training, momentum, eps)))
+
+    def wrap(apply):
+        def faulty(params, x, cfg, with_stats=False, ctx=None):
+            if fault == "local_routing" and ctx is not None:
+                ctx = dataclasses.replace(ctx, batch=(), seq=None)
+            out, aux = apply(params, x, cfg, with_stats, ctx)
+            if fault == "aux_everywhere" and ctx is not None:
+                n = math.prod(a.size for a in (*ctx.batch, ctx.seq) if a is not None)
+                aux = aux * torch.tensor([float(n), 1.0], device=aux.device)
+            return out, aux
+        return faulty
+
+    return patched(moe, "apply", wrap)
+
+
+def _held_bytes(trainer) -> tuple[int, int, int]:
+    """(bytes of params this rank holds, their unsharded bytes, bytes of
+    the leaves held whole)."""
+    from oim_tpu_torch.train.state import tree_leaves
+
+    held = full = whole = 0
+    for (_, p), sh in zip(_named_leaves(trainer.state.params), tree_leaves(trainer.shardings)):
+        nbytes = p.numel() * p.element_size()
+        pieces = math.prod(sh.parts(trainer.mesh, d)[0] for d in range(len(sh.dims)))
+        held, full = held + nbytes, full + nbytes * pieces
+        whole += nbytes if pieces == 1 else 0
+    return held, full, whole
+
+
+def _host_available_gb() -> float:
+    """MemAvailable of /proc/meminfo in GB (0.0 where there is none)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return 0.0
+
+
+def _extra_host(trainer) -> dict:
+    return {name: t.detach().float().cpu().numpy() for name, t in
+            _named_leaves(trainer.state.extra)}
+
+
+def _slice12_run(argv: list, device: str) -> dict:
+    """One trainer CLI run on this rank: history, K1-K3 launches and
+    routes, collectives, peak memory, held bytes, digests, the model's
+    state (ResNet's running statistics) and restore seconds."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.parallel import collectives as C
+    from oim_tpu_torch.train import checkpoint
+
+    gc.collect()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    C.reset_counts()
+    restores: list = []
+
+    def timed(restore):
+        def run(self, *a, **k):
+            t0 = time.monotonic()
+            state = restore(self, *a, **k)
+            _sync(device)
+            restores.append(time.monotonic() - t0)
+            return state
+        return run
+
+    with patched(checkpoint.Checkpointer, "restore", timed):
+        trainer = oim_trainer.run(argv)
+    _sync(device)
+    say(f"    ran {' '.join(argv[-8:])}: host memory available {_host_available_gb():.1f} GB")
+    held, full, whole = _held_bytes(trainer)
+    rec = {"history": trainer.history, "launches": dict(kernels.LAUNCHES),
+           "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
+           "calls": dict(C.CALLS), "bytes": dict(C.BYTES),
+           "staged_calls": dict(C.STAGED_CALLS), "staged_bytes": dict(C.STAGED_BYTES),
+           "backend": trainer.mesh.axis(trainer.mesh.axis_names[-1]).backend,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+           "held_bytes": held, "full_bytes": full, "whole_bytes": whole,
+           "digests": _digests(trainer), "extra": _extra_host(trainer),
+           "restore_s": restores}
+    return rec, trainer
+
+
+def _copy_step(rank: int, src: str, step: int, dsts: list) -> None:
+    """Rank 0 copies the committed ``step`` of ``src`` into each of
+    ``dsts`` (moves it into the last) once every rank's pieces are in (a
+    barrier each side)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    if rank == 0:
+        for i, dst in enumerate(dsts):
+            os.makedirs(dst, exist_ok=True)
+            a, b = os.path.join(src, str(step)), os.path.join(dst, str(step))
+            shutil.move(a, b) if i == len(dsts) - 1 else shutil.copytree(a, b)
+    dist.barrier()
+
+
+def _save_timing(rank: int, trainer, root: str) -> dict:
+    """One blocking save of the trainer's state into a fresh directory: this
+    rank's seconds (rank 0's with the commit) and the bytes of its pieces."""
+    import torch.distributed as dist
+
+    from oim_tpu_torch.train.checkpoint import Checkpointer, Layout
+
+    ck = Checkpointer(os.path.join(root, "timing"),
+                      layout=Layout(trainer.mesh, trainer.shardings))
+    t0 = time.monotonic()
+    ck.save(trainer.state.step, trainer.state, wait=True)
+    seconds = time.monotonic() - t0
+    dist.barrier()
+    step_dir = os.path.join(root, "timing", str(trainer.state.step))
+    nbytes = os.path.getsize(os.path.join(step_dir, f"piece-{ck.layout.member}.pt"))
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(os.path.join(root, "timing"))
+    return {"save_s": seconds, "piece_bytes": nbytes}
+
+
+def slice12_job(rank: int, world: int, device: str, root: str, full: bool = True) -> dict:
+    """(a) and (c) on this rank, and with ``full`` (b), (d) and
+    SLICE12_FAULTS too; the checkpoints under ``root`` (step 2 of (a)
+    moved to ``root/ep_one``, of (b) copied to ``root/same`` and
+    ``root/one``, for the resumes)."""
+    import gc
+
+    import torch.distributed as dist
+
+    out = {}
+    ck = ["--checkpoint-every", "2", "--checkpoint-dir"]
+    out["ep"], trainer = _slice12_run(
+        ep_argv(device, world=world) + (ck + [f"{root}/ep"] if full else []), device)
+    del trainer
+    if full:
+        # Each directory goes once it has served: (a)'s state is ~11 GB.
+        _copy_step(rank, f"{root}/ep", 2, [f"{root}/ep_one"])
+        if rank == 0:
+            shutil.rmtree(f"{root}/ep")
+        out["moe_fsdp"], trainer = _slice12_run(
+            moe_fsdp_argv(device, world=world) + ck + [f"{root}/fsdp"], device)
+        out["moe_fsdp"]["checkpoint"] = _save_timing(rank, trainer, root)
+        del trainer
+        _copy_step(rank, f"{root}/fsdp", 2, [f"{root}/same", f"{root}/one"])
+        if rank == 0:
+            shutil.rmtree(f"{root}/fsdp")
+        out["resume_same"], trainer = _slice12_run(
+            moe_fsdp_argv(device, world=world) + ck + [f"{root}/same"], device)
+        del trainer
+        dist.barrier()  # the resumed run's last step is committed
+        if rank == 0:
+            shutil.rmtree(f"{root}/same")
+    out["resnet_dp"], trainer = _slice12_run(resnet_par_argv(device, world=world), device)
+    del trainer
+    if full:
+        faults = {}
+        for fault, run in SLICE12_FAULTS:
+            gc.collect()
+            with planted12(fault):
+                faults[fault], trainer = _slice12_run(
+                    slice12_argv(run, device, PAR_FAULT_STEPS, world), device)
+            del trainer
+        out["faults"] = {f: r["history"] for f, r in faults.items()}
+    return out
+
+
+def ranks_job(rank: int, world: int, device: str, root: str, full: bool = True) -> dict:
     return {"collectives": check_collectives(rank, world, device),
             "attention": sp_attention_check(rank, world, device),
             "train": train_runs(rank, world, device),
-            "faults": fault_runs(rank, world, device)}
+            "faults": fault_runs(rank, world, device),
+            "slice12": slice12_job(rank, world, device, root, full)}
 
 
 def nccl_world1_job(rank: int, world: int, device: str) -> dict:
@@ -4168,11 +4482,207 @@ def check_ranks(ranks: list, world: int, single: dict, backend: str) -> dict:
     return {"attention": attn, "train": train, "faults": faults}
 
 
-def phase_parallel(main: dict, device: str = "cuda:0") -> dict:
+def slice12_references(device: str, moe_history: list | None, full: bool = True) -> dict:
+    """One rank's history of each slice-12 run on its global batch and
+    initial params: phase 11's for (a) (where ``moe_history`` is None, a
+    run here), runs of the CLI here for (b) and (c) (with (c)'s BN running
+    statistics after the last step)."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+
+    refs = {"ep": {"history": moe_history}} if moe_history is not None else {}
+    steps = {"moe_drops": PAR_FAULT_STEPS, "resnet_dp": STEPS}
+    for run in [r for r in ("ep", "moe_fsdp", "moe_drops", "resnet_dp")
+                if r not in refs and (full or r in ("ep", "resnet_dp"))]:
+        trainer = oim_trainer.run(slice12_argv(run, device, steps.get(run, MOE_STEPS)))
+        refs[run] = {"history": trainer.history, "extra": _extra_host(trainer)}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _resume_one_rank(run: str, ckpt: str, device: str) -> dict:
+    """The CLI on one process resuming ``ckpt`` (step 2 of a meshed run) to
+    step MOE_STEPS."""
+    import gc
+
+    import torch
+
+    rec, trainer = _slice12_run(slice12_argv(run, device, MOE_STEPS)
+                                + ["--checkpoint-dir", ckpt], device)
+    del trainer
+    shutil.rmtree(ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _slice12_limits(run: str) -> tuple[float, float]:
+    """(loss, grad_norm) relative limits of a slice-12 run against one rank."""
+    if run == "resnet_dp":
+        return RESNET_PAR_LOSS_REL, RESNET_PAR_NORM_REL
+    return PAR_LOSS_REL, PAR_NORM_REL
+
+
+def check_slice12(ranks: list, refs: dict, resumes: dict | None) -> tuple[dict, dict]:
+    """The gates of (a)-(d) and SLICE12_FAULTS on every rank's results
+    (with ``resumes`` None, of (a) and (c) alone)."""
+    per = [r["slice12"] for r in ranks]
+    world = len(ranks)
+    mcfg = moe_flagship()
+    out = {}
+    for run, layers, route in (("ep", mcfg.n_layers, "wgmma"),
+                               ("moe_fsdp", MOE_FSDP_LAYERS, "fma"), ("resnet_dp", 0, "fma")):
+        if run not in per[0]:
+            continue
+        recs = [p[run] for p in per]
+        hists = [r["history"] for r in recs]
+        ref = refs[run]["history"]
+        loss_rel, norm_rel = deviation(hists, ref)
+        losses = [[h["loss"] for h in hist] for hist in hists]
+        steps = len(ref)
+        step_s = [sum(h["step_s"] for h in hist[1:]) / max(1, len(hist) - 1) for hist in hists]
+        loss_tol, norm_tol = _slice12_limits(run)
+        say(f"  {run}: losses {losses[0]}, grad_norms {[h['grad_norm'] for h in hists[0]]}; "
+            f"one rank: losses {[r['loss'] for r in ref]}, grad_norms "
+            f"{[r['grad_norm'] for r in ref]}; worst step: loss rel {loss_rel:.3e} (tol "
+            f"{loss_tol}), grad_norm rel {norm_rel:.3e} (tol {norm_tol})")
+        say(f"    step_s by rank {[round(x, 4) for x in step_s]} (steps 2..{steps}); peak mem "
+            f"by rank {[round(r['peak_mem_gb'], 2) for r in recs]} GB; held params "
+            f"{[r['held_bytes'] for r in recs]} B of {recs[0]['full_bytes']}; collectives "
+            f"{recs[0]['calls']} calls, {recs[0]['bytes']} B; staged "
+            f"{[sum(r['staged_calls'].values()) for r in recs]} call(s)")
+        if any(len(ls) != steps or not all(math.isfinite(x) for x in ls) for ls in losses):
+            fail(f"{run}: losses not finite or missing: {losses}")
+        if any(ls != losses[0] for ls in losses):
+            fail(f"{run}: ranks report different global losses {losses}")
+        if loss_rel > loss_tol or norm_rel > norm_tol:
+            fail(f"{run}: differs from one rank: loss rel {loss_rel}, grad_norm rel {norm_rel}")
+        want = layers * steps
+        for r, rec in enumerate(recs):
+            for n, _ in KERNELS:
+                if rec["launches"][n] != want or rec["routes"][n][route] != want:
+                    fail(f"{run}, rank {r}: {n} launched {rec['launches'][n]} "
+                         f"({rec['routes'][n]}), want {want} on {route}")
+            want_held = (rec["full_bytes"] - rec["whole_bytes"]) // world + rec["whole_bytes"]
+            if run != "resnet_dp" and rec["held_bytes"] != want_held:
+                fail(f"{run}, rank {r}: holds {rec['held_bytes']} B, want {want_held}")
+        pieces: dict = {}
+        for rec in recs:
+            for leaf, piece, s1, s2 in rec["digests"]:
+                pieces.setdefault((leaf, tuple(piece)), []).append((s1, s2))
+        differ = [key for key, seen in pieces.items() if len(set(seen)) > 1]
+        replicas = sum(1 for seen in pieces.values() if len(seen) > 1)
+        if differ:
+            fail(f"{run}: replicas differ across ranks after the last step: {differ[:5]}")
+        entry = {"losses_by_rank": losses, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                 "step_s_by_rank": step_s,
+                 "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in recs],
+                 "held_bytes_by_rank": [r["held_bytes"] for r in recs],
+                 "unsharded_bytes": recs[0]["full_bytes"],
+                 "launches_by_rank": [{n: r["launches"][n] for n, _ in KERNELS} for r in recs],
+                 "collective_calls": recs[0]["calls"], "collective_bytes": recs[0]["bytes"],
+                 "replica_pieces_checked": replicas, "backend": recs[0]["backend"]}
+        if run != "resnet_dp":
+            drops = [[h["moe_drop_frac"] for h in hist] for hist in hists]
+            ref_drops = [h["moe_drop_frac"] for h in ref]
+            # One routing assignment of B x T x k is the least step of the share.
+            unit = 1.0 / (BATCH * SEQ * mcfg.moe_top_k)
+            worst = max(abs(a - b) for d in drops for a, b in zip(d, ref_drops))
+            say(f"    moe_drop_frac {drops[0]} (one rank {ref_drops}; worst {worst:.3e}, "
+                f"limit one assignment {unit:.3e})")
+            if worst > unit:
+                fail(f"{run}: moe_drop_frac {drops} against one rank's {ref_drops}")
+            entry["moe_drop_frac_by_rank"], entry["moe_drop_frac_one_rank"] = drops, ref_drops
+        if run == "ep":
+            expected = ep_collectives(BATCH * SEQ, mcfg.dim, mcfg.n_layers,
+                                      mcfg.n_experts // world, mcfg.moe_top_k, steps,
+                                      resumes is not None, mcfg.dtype.itemsize)
+            got = {k: {op: recs[0][k][op] for op in expected[k]} for k in expected}
+            others = {op: n for op, n in recs[0]["calls"].items()
+                      if op not in expected["calls"] and n}
+            say(f"    collectives a rank: {got['calls']} calls, {got['bytes']} B; written "
+                f"down beforehand {expected['calls']}, {expected['bytes']} B")
+            if any(r["calls"] != recs[0]["calls"] or r["bytes"] != recs[0]["bytes"]
+                   for r in recs) or got != expected or others:
+                fail(f"ep: collectives {recs[0]['calls']} calls, {recs[0]['bytes']} B, "
+                     f"want {expected}")
+            entry["collectives_written_down"] = expected
+        if run == "resnet_dp":
+            ref_extra = refs[run]["extra"]
+            for r, rec in enumerate(recs):
+                if any(not np.array_equal(rec["extra"][k], recs[0]["extra"][k])
+                       for k in ref_extra):
+                    fail(f"resnet_dp, rank {r}: BN running statistics differ across ranks")
+            rel = max(float(np.abs(recs[0]["extra"][k] - v).max() / max(np.abs(v).max(), 1e-30))
+                      for k, v in ref_extra.items())
+            say(f"    BN running statistics after step {steps} against one rank's: worst leaf "
+                f"max|diff|/max|ref| {rel:.3e} (tol {RESNET_BN_REL:.3e}); equal on both ranks")
+            if rel > RESNET_BN_REL:
+                fail(f"resnet_dp: BN running statistics {rel} from one rank's")
+            entry["bn_stats_rel"] = rel
+        out[run] = entry
+    if resumes is None:
+        return out, {}
+
+    # (d) checkpoints: (i) the same mesh resumes bitwise; (ii) one rank
+    # within the limits; save and restore seconds and bytes.
+    same = [p["resume_same"] for p in per]
+    first = [p["moe_fsdp"] for p in per]
+    for r, (a, b) in enumerate(zip(same, first)):
+        got = [(h["step"], h["loss"], h["grad_norm"]) for h in a["history"]]
+        want = [(h["step"], h["loss"], h["grad_norm"]) for h in b["history"][2:]]
+        say(f"  (d)(i) rank {r} resumed at step 2 on the same mesh: {got}; unbroken {want}; "
+            f"restore {a['restore_s']} s")
+        if got != want or a["digests"] != b["digests"]:
+            fail(f"(d)(i) rank {r}: the resumed steps or final params are not the unbroken "
+                 f"run's to the bit: {got} against {want}")
+    ckpt = [p["moe_fsdp"]["checkpoint"] for p in per]
+    say(f"  (d) save of the 2-layer flagship under fsdp=2: seconds by rank "
+        f"{[round(c['save_s'], 3) for c in ckpt]}, piece bytes by rank "
+        f"{[c['piece_bytes'] for c in ckpt]}")
+    out["checkpoint"] = {"save_s_by_rank": [c["save_s"] for c in ckpt],
+                         "piece_bytes_by_rank": [c["piece_bytes"] for c in ckpt],
+                         "restore_s_same_mesh_by_rank": [a["restore_s"] for a in same]}
+    for run, rec in resumes.items():
+        ref = refs[run]["history"][2:]
+        loss_rel, norm_rel = deviation([rec["history"]], ref)
+        steps = [h["step"] for h in rec["history"]]
+        say(f"  (d)(ii) {run} resumed on one rank at step 2: steps {steps}, losses "
+            f"{[h['loss'] for h in rec['history']]}; loss rel {loss_rel:.3e}, grad_norm rel "
+            f"{norm_rel:.3e}; restore {rec['restore_s']} s")
+        if steps != [3, 4] or loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+            fail(f"(d)(ii) {run} on one rank: steps {steps}, loss rel {loss_rel}, "
+                 f"grad_norm rel {norm_rel}")
+        out["checkpoint"][f"resume_one_rank_{run}"] = {"loss_rel": loss_rel,
+                                                       "grad_norm_rel": norm_rel,
+                                                       "restore_s": rec["restore_s"]}
+    faults = {}
+    for fault, run in SLICE12_FAULTS:
+        hists = [p["faults"][fault] for p in per]
+        loss_rel, norm_rel = deviation(hists, refs[run]["history"])
+        loss_tol, norm_tol = _slice12_limits(run)
+        caught = loss_rel > loss_tol or norm_rel > norm_tol
+        say(f"  planted {fault} in {run}: losses {[h['loss'] for h in hists[0]]}; worst step: "
+            f"loss rel {loss_rel:.3e}, grad_norm rel {norm_rel:.3e}: "
+            f"{'caught' if caught else 'NOT caught'}")
+        if not caught:
+            fail(f"planted fault {fault} in {run} stays within the limits: loss rel "
+                 f"{loss_rel}, grad_norm rel {norm_rel}")
+        faults[fault] = {"run": run, "loss_rel": loss_rel, "grad_norm_rel": norm_rel}
+    return out, faults
+
+
+def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dict:
     """Phase 15: NCCL at world size 1, then PAR_WORLD ranks on ``device``
     over gloo: the collectives, ring/zigzag/Ulysses attention against one
-    rank, and the trainer under dp, fsdp and zigzag tp_sp against one
-    rank."""
+    rank, the trainer under dp, fsdp, zigzag tp_sp and tensor parallelism,
+    then MoE and ResNet across ranks and checkpoints under the mesh, each
+    against one rank."""
     import gc
 
     import torch
@@ -4184,6 +4694,7 @@ def phase_parallel(main: dict, device: str = "cuda:0") -> dict:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     single = one_rank_references(PAR_WORLD, device, main)
+    refs12 = slice12_references(device, moe_history)
 
     say("  NCCL, world size 1")
     (nccl,) = run_ranks(nccl_world1_job, 1, "nccl", PAR_NCCL_TIMEOUT, device)
@@ -4203,8 +4714,22 @@ def phase_parallel(main: dict, device: str = "cuda:0") -> dict:
                  f"({nccl['routes'][name]}), want {LAYERS * 2} on wgmma")
 
     say(f"  gloo, {PAR_WORLD} ranks on {device}")
-    ranks = run_ranks(ranks_job, PAR_WORLD, "gloo", PAR_RANK_TIMEOUT, device)
-    out = check_ranks(ranks, PAR_WORLD, single, "gloo")
+    import functools
+
+    root = tempfile.mkdtemp(prefix="oim-ckpt-")
+    try:
+        ranks = run_ranks(functools.partial(ranks_job, root=root), PAR_WORLD, "gloo",
+                          PAR_RANK_TIMEOUT, device)
+        out = check_ranks(ranks, PAR_WORLD, single, "gloo")
+        say("  MoE and ResNet across ranks, checkpoints under the mesh")
+        resumes = {"moe_fsdp": _resume_one_rank("moe_fsdp", f"{root}/one", device),
+                   "ep": _resume_one_rank("ep", f"{root}/ep_one", device)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    slice12, faults12 = check_slice12(ranks, refs12, resumes)
+    out["checkpoint"] = slice12.pop("checkpoint")
+    out["train"].update(slice12)
+    out["faults"].update(faults12)
     return {"nccl_world1": {"losses": n_losses, "grad_norms": n_norms,
                             "launches": nccl["launches"], "calls": nccl["calls"]},
             **out, "wall_s": time.monotonic() - t_phase,
@@ -4277,6 +4802,10 @@ def main() -> int:
             (1, PAR_T, PAR_T, h // 2, hkv // 2, d, True, bf16, 16),
         "tensor parallel, model=4 (8/2 heads a rank)":
             (1, PAR_T, PAR_T, h // 4, hkv // 4, d, True, bf16, 17),
+        # MoE across ranks: the flagship's attention at one row a rank
+        # (fsdp=2, phase 15 (b)); under expert=2 each rank runs phase 11's.
+        "phase 15 MoE flagship under fsdp=2, one row a rank":
+            (1, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim, True, bf16, 18),
     }
     odd = [
         # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
@@ -4288,6 +4817,9 @@ def main() -> int:
         (1, 192, 192, 8, 2, 128, True, torch.bfloat16, 7, True),  # delta - g_lse
         (1, 150, 150, 8, 4, 64, True, torch.bfloat16, 9),    # wgmma at d 64, causal, ragged
         (1, 96, 96, 4, 2, 96, True, torch.bfloat16, 8),      # bf16, fma route (d 96)
+        # phase 15 (b): the MoE flagship's row a rank in float32, fma route
+        (1, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim, True,
+         torch.float32, 19),
     ]
     records = phase_kernels(shapes, odd)
 
@@ -4338,6 +4870,7 @@ def main() -> int:
 
     say("== 11. MoE main path: the MoE flagship trained through the CLI, 8 layers, bf16")
     moe_main = phase_moe_main(args.profile)
+    moe_history = moe_main.pop("history")
     for rec in records:
         rec["moe_launches"] = moe_main["launches"][rec["name"]]
         rec["moe_routes"] = moe_main["routes"][rec["name"]]
@@ -4356,7 +4889,7 @@ def main() -> int:
 
     say("== 15. multi-rank training on the one card (NCCL at world size 1; two ranks "
         "over gloo)")
-    par = phase_parallel(main)
+    par = phase_parallel(main, moe_history)
     part = {"flash_fwd": ("out",), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
     for rec in records:
         n = rec["name"]

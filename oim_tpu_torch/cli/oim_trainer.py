@@ -16,6 +16,10 @@ parameters, 1.04e9 active).
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m oim_tpu_torch.cli.oim_trainer --model llama3-8b --override n_layers=2 \\
         --rules fsdp --mesh data=1,fsdp=4 --steps 5 --batch-size 4 --seq-len 2048
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m oim_tpu_torch.cli.oim_trainer --model llama-tiny-moe --rules tp_sp \\
+        --mesh data=1,fsdp=1,seq=1,model=1,expert=2 --checkpoint-dir ckpt \\
+        --checkpoint-every 2 --steps 4
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the same step
 with the kernels' plain versions. ``--metrics-port`` serves the trainer's
@@ -29,8 +33,11 @@ Several ranks: under ``torchrun`` (``WORLD_SIZE`` set) each process joins
 the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``/``MASTER_PORT``; NCCL when each rank has its own card,
 gloo otherwise) and trains on ``cuda:LOCAL_RANK``; ``--rules``, ``--mesh``
-and ``--seq-parallel`` are the JAX trainer's. Without ``WORLD_SIZE`` it is
-one process with no group.
+and ``--seq-parallel`` are the JAX trainer's (``--mesh ...,expert=N``
+splits an MoE model's experts under ``--rules tp_sp``). Without
+``WORLD_SIZE`` it is one process with no group. ``--checkpoint-dir`` works
+under a mesh too: each rank writes its pieces, and a restart resumes from
+them under whatever ``--mesh`` (or number of processes) it names.
 """
 
 from __future__ import annotations
@@ -88,7 +95,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--override", "--model-override", dest="override", action="append",
                    default=[], metavar="KEY=VALUE",
                    help="override a model-config field (repeatable), e.g. "
-                        "--override n_layers=2; ints/floats/booleans parsed")
+                        "--override n_layers=2; ints/floats/booleans parsed, "
+                        "dtype=float32 names a torch dtype")
     p.add_argument("--remat", action="store_true",
                    help="recompute activations in the backward pass "
                         "(fit bigger models/batches in memory)")
@@ -132,7 +140,13 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         key, sep, val = item.partition("=")
         if not sep or not key:
             raise SystemExit(f"--override {item!r}: expected KEY=VALUE")
-        overrides[key] = _parse_value(val)
+        if key == "dtype":
+            dtype = getattr(torch, val, None)
+            if not isinstance(dtype, torch.dtype):
+                raise SystemExit(f"--override {item!r}: {val!r} is not a torch dtype")
+            overrides[key] = dtype
+        else:
+            overrides[key] = _parse_value(val)
     return TrainConfig(
         model=args.model, rules=args.rules, seq_parallel=args.seq_parallel,
         remat=args.remat, remat_policy=args.remat_policy,

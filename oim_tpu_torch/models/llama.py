@@ -12,7 +12,8 @@ softmax statistics and loss in f32.
 
 ``remat`` recomputes each layer in the backward pass under
 ``remat_policy`` (``models/remat.py``). ``param_logical_axes`` names each
-dense weight's dims for the sharding rules (``parallel/sharding.py``).
+weight's dims for the sharding rules (``parallel/sharding.py``), the MoE
+subtree's with the EXPERT axis (``moe.param_logical_axes``).
 Under sequence parallelism a rank runs the model on its shard of the
 sequence: ``hidden_states`` and ``loss_and_stats`` take the shard's global
 positions for RoPE, its labels (shifted before the sequence was cut) and
@@ -28,7 +29,9 @@ embedding is looked up on the local rows and summed the same way, and the
 loss is ``vocab_parallel_cross_entropy`` on the local head. Where the
 axis divides the query heads but not the KV heads (llama-tiny's 4/2 at
 4), wk/wv are gathered over the axis and each rank takes the KV head of
-each of its query heads.
+each of its query heads. An MoE FFN takes the mesh context
+(``moe.MeshContext``): global routing, and its experts split over the
+``expert`` axis and each expert's MLP over ``model``.
 """
 
 from __future__ import annotations
@@ -155,12 +158,8 @@ def init(rng: torch.Generator, cfg: Config = LLAMA3_8B, device=None) -> dict:
 
 
 def param_logical_axes(cfg: Config = LLAMA3_8B) -> dict:
-    """Each leaf's dims by logical name, the tree of ``init``. The MoE
-    subtree's (the expert axis) comes with expert parallelism."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "logical axes of the MoE subtree: expert parallelism is not ported yet "
-            "(a later multi-GPU slice)")
+    """Each leaf's dims by logical name, the tree of ``init`` (an MoE
+    model's expert FFN under ``layers["moe"]``)."""
     layers = {
         "attn_norm": (LAYER, None),
         "wq": (LAYER, EMBED, HEAD),
@@ -168,10 +167,12 @@ def param_logical_axes(cfg: Config = LLAMA3_8B) -> dict:
         "wv": (LAYER, EMBED, KV_HEAD),
         "wo": (LAYER, HEAD, EMBED),
         "mlp_norm": (LAYER, None),
-        "w_gate": (LAYER, EMBED, MLP),
-        "w_up": (LAYER, EMBED, MLP),
-        "w_down": (LAYER, MLP, EMBED),
     }
+    if cfg.n_experts:
+        layers["moe"] = moelib.param_logical_axes(stacked=True)
+    else:
+        layers.update(w_gate=(LAYER, EMBED, MLP), w_up=(LAYER, EMBED, MLP),
+                      w_down=(LAYER, MLP, EMBED))
     return {
         "embed": (VOCAB, EMBED),
         "layers": layers,
@@ -190,24 +191,23 @@ def layer_params(layers: dict, i: int) -> dict:
 AttentionFn = Callable[..., Any]  # (q, k, v, causal=...) -> out
 
 
-def _ffn(h, layer, cfg: Config):
+def _ffn(h, layer, cfg: Config, ctx: moelib.MeshContext | None = None):
     """The FFN half of a block on the pre-normed activations; returns
     (out, aux), aux the f32 [load_balance_loss, dropped_fraction] vector
-    (zeros for the dense FFN)."""
+    (zeros for the dense FFN). ``ctx`` places an MoE FFN under a mesh."""
     if cfg.n_experts:
-        return moelib.apply(layer["moe"], h, cfg.moe, with_stats=True)
+        # One rank's call keeps moe.apply's own signature (a wrapper of it
+        # that predates ``ctx`` still sees the same call).
+        kw = {} if ctx is None else {"ctx": ctx}
+        return moelib.apply(layer["moe"], h, cfg.moe, with_stats=True, **kw)
     gated = F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])
     return gated @ layer["w_down"], torch.zeros(2, dtype=torch.float32, device=h.device)
 
 
 def check_tensor_parallel(cfg: Config, n: int) -> None:
     """Refuse a ``model`` axis of ``n`` the port's TP layer cannot split:
-    an MoE FFN (expert parallelism comes later), or ``n`` not dividing the
-    query heads (the JAX package then lets XLA split inside a head)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE under tensor parallelism waits for expert parallelism: a later "
-            "multi-GPU slice")
+    ``n`` not dividing the query heads (the JAX package then lets XLA
+    split inside a head)."""
     if cfg.n_heads % n:
         raise NotImplementedError(
             f"a model axis of {n} that does not divide n_heads ({cfg.n_heads}): the port "
@@ -239,10 +239,12 @@ def _leave(x, tp):
     return x if tp is None else collectives.reduce_from(x, tp)
 
 
-def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn, tp=None):
+def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn, tp=None, ctx=None):
     """One block. Under ``tp`` it runs on this rank's slice of the heads
     and the MLP: each half enters through ``copy_to`` and leaves through
-    ``reduce_from``, the residual stream replicated."""
+    ``reduce_from``, the residual stream replicated. An MoE FFN crosses
+    the ``model`` and ``expert`` axes itself (``moe.apply`` under
+    ``ctx``): its router is not split over ``model``."""
     B, T, _ = x.shape
     h_local = cfg.n_heads // (tp.size if tp is not None else 1)
     h = _enter(rmsnorm(x, layer["attn_norm"]), tp)
@@ -253,8 +255,11 @@ def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn, tp=None):
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, k, v, causal=True)
     x = x + _leave(attn.reshape(B, T, h_local * cfg.head_dim) @ layer["wo"], tp)
-    h = _enter(rmsnorm(x, layer["mlp_norm"]), tp)
-    ffn, aux = _ffn(h, layer, cfg)
+    h = rmsnorm(x, layer["mlp_norm"])
+    if cfg.n_experts:
+        ffn, aux = _ffn(h, layer, cfg, ctx)
+        return x + ffn, aux
+    ffn, aux = _ffn(_enter(h, tp), layer, cfg)
     return x + _leave(ffn, tp), aux
 
 
@@ -274,14 +279,16 @@ def _embed(params, ids, cfg: Config, tp=None):
 
 
 def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
-                  attn_fn: AttentionFn | None = None, positions=None, tp=None):
+                  attn_fn: AttentionFn | None = None, positions=None, tp=None, ctx=None):
     """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2]:
     the summed MoE load-balance loss and per-layer drop fraction).
     ``positions`` [T] (host ints: numpy or a CPU tensor) are the tokens'
     global positions (a sequence shard's; default 0..T-1). A negative
     token id counts from the end of the vocabulary, as a JAX gather does.
     ``tp`` (an ``Axis``): ``params`` hold this rank's tensor-parallel
-    slices; the hidden states come out whole on every rank."""
+    slices; the hidden states come out whole on every rank. ``ctx`` (a
+    ``moe.MeshContext``) places an MoE FFN under the mesh: aux is then this
+    rank's share."""
     check_supported(cfg)
     if tp is not None:
         check_tensor_parallel(cfg, tp.size)
@@ -302,10 +309,10 @@ def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
     for i in range(cfg.n_layers):
         layer = layer_params(layers, i)
         if cfg.remat:
-            x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn, tp,
+            x, a = rematlib.checkpoint(_layer, x, layer, cfg, cos, sin, attn_fn, tp, ctx,
                                        policy=cfg.remat_policy)
         else:
-            x, a = _layer(x, layer, cfg, cos, sin, attn_fn, tp)
+            x, a = _layer(x, layer, cfg, cos, sin, attn_fn, tp, ctx)
         aux = aux + a
     return rmsnorm(x, params["final_norm"]), aux
 
@@ -330,7 +337,7 @@ def _z_term(logits, labels, ignore_index, z_loss, denom=None):
 
 def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
                    attn_fn: AttentionFn | None = None, ignore_index: int = -1,
-                   labels=None, positions=None, denom=None, tp=None):
+                   labels=None, positions=None, denom=None, tp=None, ctx=None):
     """Next-token CE (plus the weighted MoE aux) over tokens [B, T+1];
     returns (loss, stats). An MoE model reports stats["moe_drop_frac"],
     the mean per-layer share of routing assignments over capacity. With
@@ -345,11 +352,12 @@ def loss_and_stats(params, tokens, cfg: Config = LLAMA3_8B,
     Under ``tp`` the params are this rank's tensor-parallel slices and the
     CE is ``vocab_parallel_cross_entropy`` on the local head (chunked by
     ``cfg.vocab_chunk`` within the slice); the loss and stats come out
-    equal on every rank of the axis."""
+    equal on every rank of the axis. ``ctx`` as in ``hidden_states``: the
+    MoE aux and ``moe_drop_frac`` are then this rank's shares."""
     stats = {}
     if labels is None:
         tokens, labels = tokens[:, :-1], tokens[:, 1:]
-    x, aux = hidden_states(params, tokens, cfg, attn_fn, positions, tp)
+    x, aux = hidden_states(params, tokens, cfg, attn_fn, positions, tp, ctx)
     if tp is not None:
         loss = vocab_parallel_cross_entropy(
             x, params["lm_head"], labels, tp, ignore_index, z_loss=cfg.z_loss,

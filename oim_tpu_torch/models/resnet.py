@@ -21,6 +21,16 @@ Three details of XLA that torch does differently, kept here:
 * ``apply`` is functional: training mode returns the new BN state and
   never updates a buffer in place, so a recomputed block (remat) cannot
   update the running statistics twice.
+
+Across ranks (``batch_axes``) each rank holds its rows of the global
+batch, and batch norm takes its statistics over the global batch, as XLA
+reduces them under the batch sharding: the sums of x and x^2 are summed
+over the axes that split the batch (one [2, C] ``psum``, whose backward
+sums each rank's own cotangent of them) and the count with them. The
+running statistics then come out equal on every rank. Under remat the
+recomputed forward sums again, in the same order on every rank.
+``param_logical_axes`` is the JAX package's tree (conv kernels HWIO);
+``held_logical_axes`` is the same for the port's OIHW tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ import torch.nn.functional as F
 
 from oim_tpu_torch.common.device import require
 from oim_tpu_torch.models import remat as rematlib
+from oim_tpu_torch.parallel.collectives import psum
+from oim_tpu_torch.parallel.sharding import CONV_IN, CONV_OUT, EMBED, VOCAB
 
 STAGES = (3, 4, 6, 3)  # ResNet-50 bottleneck counts
 STAGE_WIDTHS = (64, 128, 256, 512)
@@ -107,13 +119,20 @@ def init(rng: torch.Generator, cfg: Config = Config(), device="cuda"):
     return params, state
 
 
-def _batchnorm(x, p, s, training, momentum, eps):
-    """f32 statistics over (N, H, W) of NCHW x; x's dtype in and out."""
+def _batchnorm(x, p, s, training, momentum, eps, batch_axes=()):
+    """f32 statistics over (N, H, W) of NCHW x, N summed over the
+    ``batch_axes`` too; x's dtype in and out."""
     if training:
         xf = x.float()
         n = xf.numel() // xf.shape[1]
-        m1 = torch.sum(xf, dim=(0, 2, 3)) / n
-        m2 = torch.sum(xf * xf, dim=(0, 2, 3)) / n
+        s1 = torch.sum(xf, dim=(0, 2, 3))
+        s2 = torch.sum(xf * xf, dim=(0, 2, 3))
+        if batch_axes:
+            s1, s2 = psum(torch.stack([s1, s2]), batch_axes).unbind(0)
+            for axis in batch_axes:
+                n *= axis.size
+        m1 = s1 / n
+        m2 = s2 / n
         mean = m1
         var = torch.clamp(m2 - m1 * m1, min=0.0)
         # The running statistics carry no gradient (JAX returns them as
@@ -158,19 +177,17 @@ def max_pool_same(x, k: int = 3, stride: int = 2):
     return F.max_pool2d(x, k, stride, padding=pad)
 
 
-def _bottleneck(x, p, s, stride, training, momentum, eps):
+def _bottleneck(x, p, s, stride, training, momentum, eps, batch_axes=()):
     new_s = {}
-    y, new_s["bn1"] = _batchnorm(conv_same(x, p["conv1"]), p["bn1"], s["bn1"],
-                                 training, momentum, eps)
+    bn = dict(training=training, momentum=momentum, eps=eps, batch_axes=batch_axes)
+    y, new_s["bn1"] = _batchnorm(conv_same(x, p["conv1"]), p["bn1"], s["bn1"], **bn)
     y = F.relu(y)
-    y, new_s["bn2"] = _batchnorm(conv_same(y, p["conv2"], stride), p["bn2"], s["bn2"],
-                                 training, momentum, eps)
+    y, new_s["bn2"] = _batchnorm(conv_same(y, p["conv2"], stride), p["bn2"], s["bn2"], **bn)
     y = F.relu(y)
-    y, new_s["bn3"] = _batchnorm(conv_same(y, p["conv3"]), p["bn3"], s["bn3"],
-                                 training, momentum, eps)
+    y, new_s["bn3"] = _batchnorm(conv_same(y, p["conv3"]), p["bn3"], s["bn3"], **bn)
     if "proj" in p:
         x, new_s["bn_proj"] = _batchnorm(conv_same(x, p["proj"], stride), p["bn_proj"],
-                                         s["bn_proj"], training, momentum, eps)
+                                         s["bn_proj"], **bn)
     return F.relu(y + x), new_s
 
 
@@ -193,9 +210,12 @@ def _fold_stem_kernel(k):
             .contiguous(memory_format=torch.channels_last))
 
 
-def apply(params, state, images, cfg: Config = Config(), training: bool = False):
+def apply(params, state, images, cfg: Config = Config(), training: bool = False,
+          batch_axes=()):
     """images: [N, H, W, 3], float in [0, 1] or uint8 (normalized here, on
-    the device). Returns (logits_f32, new_state)."""
+    the device). Returns (logits_f32, new_state). ``batch_axes``: the mesh
+    axes that split the global batch, over which training-mode batch norm
+    takes its statistics."""
     if images.dtype == torch.uint8:
         x = images.to(cfg.dtype) / 255.0
     else:
@@ -207,7 +227,7 @@ def apply(params, state, images, cfg: Config = Config(), training: bool = False)
     else:
         x = conv_same(x.permute(0, 3, 1, 2), params["stem"], stride=2)
     x, new_state["bn_stem"] = _batchnorm(x, params["bn_stem"], state["bn_stem"], training,
-                                         cfg.bn_momentum, cfg.bn_eps)
+                                         cfg.bn_momentum, cfg.bn_eps, batch_axes)
     x = max_pool_same(F.relu(x))
     for s_idx, n_blocks in enumerate(STAGES):
         for b in range(n_blocks):
@@ -215,7 +235,8 @@ def apply(params, state, images, cfg: Config = Config(), training: bool = False)
             stride = 2 if (b == 0 and s_idx > 0) else 1
 
             def block_fn(x, p, s, _stride=stride):
-                return _bottleneck(x, p, s, _stride, training, cfg.bn_momentum, cfg.bn_eps)
+                return _bottleneck(x, p, s, _stride, training, cfg.bn_momentum, cfg.bn_eps,
+                                   batch_axes)
 
             if cfg.remat:
                 x, new_state[name] = rematlib.checkpoint(block_fn, x, params[name],
@@ -225,6 +246,35 @@ def apply(params, state, images, cfg: Config = Config(), training: bool = False)
     x = torch.mean(x.float(), dim=(2, 3))  # global average pool
     logits = x @ params["head"]["kernel"].float() + params["head"]["bias"]
     return logits, new_state
+
+
+def param_logical_axes(cfg: Config = Config()) -> dict:
+    """Each leaf's dims by logical name in the JAX package's layout (conv
+    kernels HWIO): the tree of ``init``'s params."""
+    conv = (None, None, CONV_IN, CONV_OUT)
+    bn = {"scale": (CONV_OUT,), "bias": (CONV_OUT,)}
+    axes: dict = {"stem": conv, "bn_stem": dict(bn)}
+    cin = cfg.width
+    for s, (n_blocks, w) in enumerate(zip(STAGES, STAGE_WIDTHS)):
+        for b in range(n_blocks):
+            block = {"conv1": conv, "bn1": dict(bn), "conv2": conv, "bn2": dict(bn),
+                     "conv3": conv, "bn3": dict(bn)}
+            if (b == 0 and s > 0) or cin != w * EXPANSION:
+                block.update(proj=conv, bn_proj=dict(bn))
+            axes[f"stage{s}_block{b}"] = block
+            cin = w * EXPANSION
+    axes["head"] = {"kernel": (EMBED, VOCAB), "bias": (VOCAB,)}
+    return axes
+
+
+def held_logical_axes(cfg: Config = Config()) -> dict:
+    """``param_logical_axes`` for the tensors ``init`` makes: a conv
+    kernel's dims in the port's OIHW order."""
+    def held(a):
+        if isinstance(a, dict):
+            return {k: held(v) for k, v in a.items()}
+        return (a[3], a[2], a[0], a[1]) if len(a) == 4 else a
+    return held(param_logical_axes(cfg))
 
 
 def num_flops_per_image(image_size: int = 224) -> float:

@@ -20,8 +20,14 @@ the weights, and ``reduce_from`` (psum forward, identity backward) where
 their partial products leave it. Past ``reduce_from`` the cotangent is
 the same on every rank of the axis, so a psum there (``psum``'s own
 backward) would multiply every gradient below it by the axis size.
-``pmax`` is forward only (the softmax shift of the vocab-parallel loss,
-taken on a value with no gradient).
+``gather_from`` is ``all_gather``'s conjugate in the same sense: where
+every rank of the axis goes on with the gathered tensor and its cotangent
+is whole and the same on each of them (an MoE router's columns gathered
+over the ``expert`` axis), the backward keeps this
+rank's slice and sums nothing; ``all_gather``'s reduce-scatter would
+multiply the gradient by the axis size. ``pmax`` is forward only (the
+softmax shift of the vocab-parallel loss, taken on a value with no
+gradient).
 
 Backends. NCCL carries CUDA tensors when each rank has its own card, gloo
 carries CPU tensors and also CUDA tensors of ranks that share a card. What
@@ -53,7 +59,8 @@ from oim_tpu_torch.parallel.mesh import Axis
 # pinned host buffers). NCCL takes every operation on the device.
 HOST_STAGED = {"gloo": frozenset({"ppermute"})}
 
-OPS = ("psum", "pmax", "all_gather", "reduce_scatter", "all_to_all", "ppermute")
+OPS = ("psum", "pmax", "all_gather", "gather_from", "reduce_scatter", "all_to_all",
+       "ppermute")
 CALLS = {op: 0 for op in OPS}
 BYTES = {op: 0 for op in OPS}
 STAGED_CALLS = {op: 0 for op in OPS}
@@ -109,11 +116,11 @@ def _pmax(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return y
 
 
-def _all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, axis: Axis, dim: int, op: str = "all_gather") -> torch.Tensor:
     if axis.group is None:
         return x
     x = x.contiguous()
-    _staged("all_gather", axis, x)
+    _staged(op, axis, x)
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
     return torch.cat(parts, dim)
@@ -208,6 +215,20 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.axis, ctx.dim), None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _all_gather(x, axis, dim, "gather_from")
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axis.group is None:
+            return g, None, None
+        _check_split(g, ctx.axis, ctx.dim, "gather_from")
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.index].contiguous(), None, None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
@@ -287,6 +308,15 @@ def all_gather(x: torch.Tensor, axis: Axis, *, tiled: bool = True,
     if not tiled:
         x = x.unsqueeze(gather_dim)
     return _AllGather.apply(x, axis, gather_dim)
+
+
+def gather_from(x: torch.Tensor, axis: Axis, *, gather_dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``gather_dim`` in axis order (tiled), for a
+    tensor every rank of the axis then uses whole: the backward takes this
+    rank's slice of the cotangent, which is already the same on every rank,
+    and sums nothing (Megatron's gather, the conjugate of
+    ``reduce_scatter``)."""
+    return _GatherFrom.apply(x, axis, gather_dim)
 
 
 def reduce_scatter(x: torch.Tensor, axis: Axis, *, scatter_dim: int = 0) -> torch.Tensor:

@@ -152,17 +152,24 @@ class Sharding:
             x = x[tuple(index)]
         return x
 
-    def gather(self, x: torch.Tensor, mesh: Mesh, keep: tuple[str, ...] = ()) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, mesh: Mesh, keep: tuple[str, ...] = (),
+               replicas: tuple[str, ...] = ()) -> torch.Tensor:
         """The full array from every rank's piece: all_gather over each
         split dim's axes, innermost axis first (an axis of size 1 splits
         nothing and is skipped, as XLA elides it). Differentiable; its
         backward reduce-scatters. The pieces of the axes in ``keep`` stay
-        local (tensor parallelism computes on its ``model`` slice)."""
+        local (tensor parallelism computes on its ``model`` slice). Over
+        the axes in ``replicas``, whose ranks compute on the same data, the
+        gather is ``gather_from``: the backward keeps this rank's slice of
+        the cotangent, already whole on each of them."""
         for dim, names in enumerate(self.dims):
             for name in reversed(names):
                 axis = mesh.axis(name)
-                if axis.size > 1 and name not in keep:
-                    x = collectives.all_gather(x, axis, gather_dim=dim)
+                if axis.size == 1 or name in keep:
+                    continue
+                gather = (collectives.gather_from if name in replicas
+                          else collectives.all_gather)
+                x = gather(x, axis, gather_dim=dim)
         return x
 
 
@@ -212,11 +219,12 @@ def rank_params(params, logical_axes, rules: ShardingRules, axes, rank: int):
     return shard_params(Mesh(axes, range(n), "cpu", rank=rank), rules, params, logical_axes)
 
 
-def gather_params(mesh: Mesh, shardings, params, keep: tuple[str, ...] = ()):
+def gather_params(mesh: Mesh, shardings, params, keep: tuple[str, ...] = (),
+                  replicas: tuple[str, ...] = ()):
     """The full tree from every rank's shards (the inverse of
     ``shard_params``); differentiable. Pieces split over the axes in
-    ``keep`` stay this rank's."""
-    return tree_map(lambda p, s: s.gather(p, mesh, keep), params, shardings)
+    ``keep`` stay this rank's; ``replicas`` as in ``Sharding.gather``."""
+    return tree_map(lambda p, s: s.gather(p, mesh, keep, replicas), params, shardings)
 
 
 def shard_batch(mesh: Mesh, rules: ShardingRules, batch, logical_axes=None):

@@ -15,25 +15,30 @@ runs in a ``train.step`` span; each logged step sets the ``oim_train_*``,
 values it logs, and each eval pass ``oim_eval_loss`` (and
 ``oim_eval_accuracy``).
 
-Meshes: the rules "dp", "fsdp" and "tp_sp" over the axes data, fsdp, seq
-and model, each rank one process of ``torch.distributed`` holding its rows
-of the batch, its part of the sequence when ``seq`` > 1 (ring, zigzag or
-Ulysses attention, ``parallel/ring.py``) and its shards of the parameters
-and moments. The step computes the JAX meshed step's function: the label
-shift is taken on the global tokens, the loss is the global mean (each
-rank's sum over the global count of kept labels, summed over the axes
-that split the batch or the sequence), a weight sharded over fsdp is
-gathered before use and its gradient reduce-scattered (its backward),
-every gradient is then summed over the other splitting axes, and the clip
-sees the global norm. Under tp_sp a ``model`` axis of more than one rank
-is tensor parallelism: the heads, the MLP and the vocabulary stay split
-over it (``llama``'s TP layer and ``vocab_parallel_cross_entropy``); the
-ranks of the axis hold the same tokens, so no gradient is summed over it,
-a replicated leaf's gradient is already whole on each of them, and a
-split leaf's squares are summed over it for the norm. Still to come, each
-refused by ``check_supported``: "pipe", expert parallelism (MoE under a
-mesh of several ranks), ResNet across ranks, and checkpoints under such a
-mesh.
+Meshes: the rules "dp", "fsdp" and "tp_sp" over the axes data, fsdp, seq,
+model and expert, each rank one process of ``torch.distributed`` holding
+its rows of the batch, its part of the sequence when ``seq`` > 1 (ring,
+zigzag or Ulysses attention, ``parallel/ring.py``) and its shards of the
+parameters and moments. The step computes the JAX meshed step's function:
+the label shift is taken on the global tokens, the loss is the global
+mean (each rank's sum over the global count of kept labels, summed over
+the axes that split the batch or the sequence), a weight sharded over
+fsdp is gathered before use and its gradient reduce-scattered (its
+backward), every gradient is then summed over the other splitting axes,
+and the clip sees the global norm. Under tp_sp a ``model`` axis of more
+than one rank is tensor parallelism: the heads, the MLP and the
+vocabulary stay split over it (``llama``'s TP layer and
+``vocab_parallel_cross_entropy``); an ``expert`` axis of more than one
+rank is expert parallelism (``moe.MeshContext``: each rank its share of
+the experts). The ranks of either axis hold the same tokens, so no
+gradient is summed over it, a replicated leaf's gradient is already whole
+on each of them, and a split leaf's squares are summed over it for the
+norm. An MoE model routes the global token set (``models/moe.py``).
+ResNet-50 runs over the batch axes with its batch norm's statistics
+taken over the global batch and its running statistics replicated. A
+checkpoint under a mesh is written in pieces and resumes under any mesh
+(``train/checkpoint.py``). Still to come, refused by ``check_supported``:
+"pipe", and a ``model`` axis that splits a query head.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, the gradients' sums over ranks, then the
@@ -55,7 +60,7 @@ from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common import tracing
 from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
-from oim_tpu_torch.models import llama, resnet
+from oim_tpu_torch.models import llama, moe, resnet
 from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
 from oim_tpu_torch.parallel.collectives import all_gather, psum
 from oim_tpu_torch.parallel.mesh import Axis, Mesh, build_mesh
@@ -63,6 +68,7 @@ from oim_tpu_torch.parallel.ring import make_sequence_parallel_attention, shard_
 from oim_tpu_torch.parallel.sharding import (
     BATCH,
     DP_RULES,
+    EXPERT,
     FSDP_RULES,
     HEAD,
     PIPE_RULES,
@@ -73,7 +79,7 @@ from oim_tpu_torch.parallel.sharding import (
     shard_batch,
     tree_map,
 )
-from oim_tpu_torch.train.checkpoint import Checkpointer
+from oim_tpu_torch.train.checkpoint import Checkpointer, Layout
 from oim_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -88,7 +94,7 @@ RULES = {
     "pipe": PIPE_RULES,
 }
 # The mesh axes a rules table may split over more than one rank.
-PORTED_AXES = ("data", "fsdp", "seq", "model")
+PORTED_AXES = ("data", "fsdp", "seq", "model", "expert")
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
 # roofline accounting, matched against torch.cuda.get_device_name() in
@@ -197,18 +203,6 @@ class TrainConfig:
             if size > 1 and name not in PORTED_AXES:
                 raise NotImplementedError(
                     f"mesh axis {name!r} of size {size}: only {PORTED_AXES} are ported")
-        if mesh.size > 1:
-            if self.model == "resnet50":
-                raise NotImplementedError(
-                    "ResNet across ranks is not ported yet (its batch norm takes "
-                    "statistics over the global batch): a later multi-GPU slice")
-            if mcfg.n_experts:
-                raise NotImplementedError(
-                    "MoE across ranks waits for expert parallelism: a later multi-GPU slice")
-            if self.checkpoint_dir:
-                raise NotImplementedError(
-                    "checkpoint and resume under a mesh of several ranks are not "
-                    "ported yet: a later multi-GPU slice")
         n_model = mesh.shape.get("model", 1)
         if n_model > 1 and RULES[self.rules].axis_for(HEAD) == "model" \
                 and self.model.startswith("llama"):
@@ -233,8 +227,8 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
 
     ``mesh`` (``parallel.mesh.build_mesh``) places this rank; None is one
     device with no communication. ``shardings`` is the params tree's
-    ``Sharding`` tree (the moments follow their params), or None for a
-    model held whole on its one rank (MoE, ResNet).
+    ``Sharding`` tree (the moments follow their params; ResNet's batch
+    statistics are whole on every rank).
     ``init_fn(rng, params=None, extra=None)`` builds the TrainState:
     the full params (and the model's mutable state) drawn from the
     torch.Generator ``rng`` on ``device``, or the given ones, cut to this
@@ -253,17 +247,26 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
     mcfg = cfg.model_config()
     accum = max(1, cfg.accum_steps)
     batch_axes = [mesh.axis(a) for a in logical_sharding(mesh, rules, (BATCH,)).axes]
-    n_seq = mesh.shape.get("seq", 1)
-    # The axes whose ranks hold different tokens: a loss or a gradient is
-    # summed over them. An axis of size 1 splits nothing and is left out,
-    # as XLA elides it.
-    split = [a for a in batch_axes if a.size > 1] + ([mesh.axis("seq")] if n_seq > 1 else [])
+    batch_axes = [a for a in batch_axes if a.size > 1]
+    llama_model = cfg.model.startswith("llama")
+    n_seq = mesh.shape.get("seq", 1) if llama_model else 1
+    # The axes whose ranks hold different tokens (an image has no sequence):
+    # a loss or a gradient is summed over them. An axis of size 1 splits
+    # nothing and is left out, as XLA elides it.
+    split = batch_axes + ([mesh.axis("seq")] if n_seq > 1 else [])
+    # The other axes' ranks compute on the same data: a gather over one of
+    # them keeps this rank's slice of the (whole) cotangent.
+    replicas = tuple(a for a in mesh.axis_names
+                     if mesh.shape[a] > 1 and a not in {x.name for x in split})
 
     # Tensor parallelism: the rules split the heads over a "model" axis of
-    # more than one rank.
-    tp = (mesh.axis("model") if mesh.shape.get("model", 1) > 1
-          and rules.axis_for(HEAD) == "model" else None)
-    keep = ("model",) if tp is not None else ()
+    # more than one rank; expert parallelism, the experts over "expert".
+    def axis_of(logical, name):
+        return (mesh.axis(name) if mesh.shape.get(name, 1) > 1
+                and rules.axis_for(logical) == name and llama_model else None)
+
+    tp, ep = axis_of(HEAD, "model"), axis_of(EXPERT, "expert")
+    keep = tuple(a.name for a in (tp, ep) if a is not None)
 
     if cfg.model.startswith("llama"):
         attn_fn = None
@@ -274,7 +277,12 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
                     and (mcfg.n_heads // tp.size) % n_seq):
                 sp = _heads_gathered(sp, tp)
             attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731
-        logical = None if mcfg.n_experts else llama.param_logical_axes(mcfg)
+        logical = llama.param_logical_axes(mcfg)
+        ctx = None
+        if mcfg.n_experts and (split or keep):
+            ctx = moe.MeshContext(batch=tuple(batch_axes),
+                                  seq=mesh.axis("seq") if n_seq > 1 else None,
+                                  layout=cfg.seq_parallel, model=tp, expert=ep)
         positions: dict[int, tuple] = {}
 
         def seq_shard(t: int):
@@ -290,9 +298,11 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
         def init_params(rng):
             return llama.init(rng, mcfg, device=device), {}
 
-        def loss_fn(params, extra, batch):
-            full = (params if shardings is None
-                    else gather_params(mesh, shardings, params, keep))
+        def loss_fn(params, extra, batch, whole=False):
+            """``whole``: the batch is the placed accumulation microbatches
+            run at once (an eval pass), whose global order MoE routing
+            follows."""
+            full = gather_params(mesh, shardings, params, keep, replicas)
             tokens = batch["tokens"]
             # The label shift is global: taken before the sequence is cut.
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -302,42 +312,54 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
             ignore = -1  # loss_and_stats' ignore_index, as in the JAX step
             with torch.no_grad():
                 kept = psum((labels != ignore).sum().float(), split)
+            here = dataclasses.replace(ctx, groups=accum) if whole and ctx else ctx
             loss, stats = llama.loss_and_stats(full, inputs, mcfg, attn_fn, ignore, labels=labels,
-                                               positions=pos, denom=kept, tp=tp)
+                                               positions=pos, denom=kept, tp=tp, ctx=here)
             return loss, extra, stats
 
         def eval_stats(params, extra, batch):
-            loss, _, stats = loss_fn(params, extra, batch)
+            loss, _, stats = loss_fn(params, extra, batch, whole=True)
             return {"loss": loss, **stats}
     else:
-        logical = None
+        logical = resnet.held_logical_axes(mcfg)
 
         def init_params(rng):
             return resnet.init(rng, mcfg, device=device)
 
+        def denom(labels):
+            """The global batch's row count (None on one rank: the mean)."""
+            if not split:
+                return None
+            return float(labels.shape[0] * int(np.prod([a.size for a in split])))
+
         def loss_fn(params, extra, batch):
-            logits, new_extra = resnet.apply(params, extra, batch["images"], mcfg,
-                                             training=True)
-            return softmax_cross_entropy(logits, batch["labels"]), new_extra, {}
+            full = gather_params(mesh, shardings, params, keep, replicas)
+            logits, new_extra = resnet.apply(full, extra, batch["images"], mcfg,
+                                             training=True, batch_axes=split)
+            labels = batch["labels"]
+            return softmax_cross_entropy(logits, labels, denom=denom(labels)), new_extra, {}
 
         def eval_stats(params, extra, batch):
-            logits, _ = resnet.apply(params, extra, batch["images"], mcfg, training=False)
-            return {"loss": softmax_cross_entropy(logits, batch["labels"]),
-                    "accuracy": accuracy(logits, batch["labels"])}
+            full = gather_params(mesh, shardings, params, keep, replicas)
+            logits, _ = resnet.apply(full, extra, batch["images"], mcfg, training=False)
+            labels, n = batch["labels"], denom(batch["labels"])
+            acc = (accuracy(logits, labels) if n is None
+                   else (torch.argmax(logits, dim=-1) == labels).float().sum() / n)
+            return {"loss": softmax_cross_entropy(logits, labels, denom=n), "accuracy": acc}
 
-    shardings = None if logical is None else param_shardings(mesh, rules, logical)
+    shardings = param_shardings(mesh, rules, logical)
 
     def init_fn(rng: torch.Generator | None, params=None, extra=None) -> TrainState:
         if params is None:
             params, extra = init_params(rng)
 
         def piece(p, s):
-            # A shard is a copy, so the full tensor can go.
+            # A shard is a copy, so the full tensor can go (a conv kernel's
+            # slice of output channels stays channels_last).
             part = s.shard(p, mesh)
-            return part if part is p else part.clone(memory_format=torch.contiguous_format)
+            return part if part is p else part.clone(memory_format=torch.preserve_format)
 
-        if shardings is not None:
-            params = tree_map(piece, params, shardings)
+        params = tree_map(piece, params, shardings)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return TrainState(step=0, params=params, opt_state=tx.init(params),
@@ -356,9 +378,7 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
         leaf's squares are summed over the axes that split it (``model``
         among them), grouped by those axes."""
         out, squares = [], {}
-        held = ([s.axes for s in tree_leaves(shardings)] if shardings is not None
-                else [()] * len(grads))
-        for g, axes in zip(grads, held):
+        for g, axes in zip(grads, [s.axes for s in tree_leaves(shardings)]):
             g = psum(g, [a for a in split if a.name not in axes])
             out.append(g)
             key = tuple(a for a in mesh.axis_names if a in axes and mesh.shape[a] > 1)
@@ -468,7 +488,10 @@ class Trainer:
         # One record per logged step (step, loss, grad_norm, step_s, mfu,
         # ...) and per eval pass (step, eval_loss, eval_<stat>).
         self.history: list[dict] = []
-        self.checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        self.checkpointer = None
+        if cfg.checkpoint_dir:
+            layout = Layout(mesh, self.shardings) if mesh.size > 1 else None
+            self.checkpointer = Checkpointer(cfg.checkpoint_dir, layout=layout)
 
     def init(self, params=None, extra=None) -> None:
         """Fresh state from cfg.seed, or from the given full params tree (and
@@ -481,7 +504,9 @@ class Trainer:
 
     def init_or_resume(self) -> int:
         """The latest checkpoint's state, or a fresh one; returns the step
-        resumed from (0 for a fresh start)."""
+        resumed from (0 for a fresh start). Under a mesh each rank reads
+        its pieces under this trainer's shardings, whatever mesh (or one
+        process) saved them."""
         if self.checkpointer is not None:
             latest = self.checkpointer.latest_step()
             if latest is not None:
@@ -520,9 +545,7 @@ class Trainer:
     def full_params(self) -> dict:
         """The full params tree, gathered from every rank's shards (each
         rank of the mesh must call it)."""
-        params = self.state.params
-        if self.shardings is not None:
-            params = gather_params(self.mesh, self.shardings, params)
+        params = gather_params(self.mesh, self.shardings, self.state.params)
         return tree_map(lambda p: p.detach(), params)
 
     def _sync(self) -> None:

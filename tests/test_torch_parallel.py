@@ -131,8 +131,8 @@ def test_rules_tables_and_names_match_jax():
 def test_llama_logical_axes_match_jax():
     cfg = tllama.tiny()
     assert tllama.param_logical_axes(cfg) == jllama.param_logical_axes(jllama.tiny())
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tllama.param_logical_axes(tllama.tiny(n_experts=4))
+    assert (tllama.param_logical_axes(tllama.tiny(n_experts=4))
+            == jllama.param_logical_axes(jllama.tiny(n_experts=4)))
 
 
 @pytest.mark.parametrize("n", range(1, 9))

@@ -276,10 +276,16 @@ def test_unported_mesh_options_refuse_naming_their_slice():
     cfg(rules="tp_sp").check_supported(model2)
     refuse(cfg(rules="tp_sp", model_overrides={"n_heads": 3, "head_dim": 16}), model2,
            "whole query heads")
-    refuse(cfg(), Mesh([("data", 1), ("expert", 2)], [0, 1], "cpu"), "expert")
-    refuse(cfg(model="resnet50"), two, "batch norm")
-    refuse(cfg(model="llama-tiny-moe"), two, "expert parallelism")
-    refuse(cfg(checkpoint_dir="ck"), two, "checkpoint")
+    refuse(cfg(), Mesh([("data", 1), ("pipe", 2)], [0, 1], "cpu"), "pipe")
+    # Ported since: the expert axis, MoE and ResNet across ranks, and
+    # checkpoints under a mesh.
+    expert2 = Mesh([("data", 1), ("expert", 2)], [0, 1], "cpu")
+    cfg().check_supported(expert2)
+    cfg(model="llama-tiny-moe", rules="tp_sp").check_supported(expert2)
+    cfg(model="resnet50").check_supported(two)
+    cfg(model="llama-tiny-moe").check_supported(two)
+    cfg(model="llama-tiny-moe", rules="tp_sp").check_supported(model2)
+    cfg(checkpoint_dir="ck").check_supported(two)
     cfg().check_supported(two)
     cfg(model="resnet50").check_supported(Mesh([("data", 1)], [0], "cpu"))
     # The JAX trainer's mesh errors: an axis the rules name must exist.

@@ -1,6 +1,7 @@
 """One rank of a multi-rank run of the port on the CPU, for
-tests/test_torch_parallel.py, tests/test_torch_parallel_train.py and
-tests/test_torch_tp.py.
+tests/test_torch_parallel.py, tests/test_torch_parallel_train.py,
+tests/test_torch_tp.py, tests/test_torch_ep.py,
+tests/test_torch_resnet_parallel.py and tests/test_torch_checkpoint_mesh.py.
 
     python tests/torch_parallel_worker.py JOB.json RANK
 
@@ -14,8 +15,11 @@ port, numpy and torch only: JAX stays in the test process.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -29,11 +33,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch.nn.functional as F  # noqa: E402
 
-from oim_tpu_torch.models import llama  # noqa: E402
+from oim_tpu_torch.models import llama, moe, resnet  # noqa: E402
 from oim_tpu_torch.ops.losses import vocab_parallel_cross_entropy  # noqa: E402
 from oim_tpu_torch.parallel import collectives as C  # noqa: E402
 from oim_tpu_torch.parallel import ring  # noqa: E402
-from oim_tpu_torch.parallel.mesh import build_mesh  # noqa: E402
+from oim_tpu_torch.parallel.mesh import Mesh, build_mesh  # noqa: E402
+from oim_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from oim_tpu_torch.train import trainer as T  # noqa: E402
 from oim_tpu_torch.train.state import tree_leaves  # noqa: E402
 
@@ -61,6 +66,7 @@ def collectives(sc, inputs, rank, world, out):
         "pmean": lambda x: C.pmean(x, ax),
         "all_gather": lambda x: C.all_gather(x, ax[0], gather_dim=1),
         "all_gather_untiled": lambda x: C.all_gather(x, ax[0], tiled=False, gather_dim=1),
+        "gather_from": lambda x: C.gather_from(x, ax[0], gather_dim=1),
         "reduce_scatter": lambda x: C.reduce_scatter(x, ax[0], scatter_dim=1),
         "all_to_all": lambda x: C.all_to_all(x, ax[0], split_dim=1, concat_dim=0),
         "ppermute": lambda x: C.ppermute_ring(x, ax[0]),
@@ -162,35 +168,205 @@ def vocab_ce(sc, inputs, rank, world, out):
         out[f"{name}/{i}/fwd_calls"] = np.asarray([fwd_calls["pmax"], fwd_calls["psum"]])
 
 
+def _config(raw: dict) -> T.TrainConfig:
+    """A TrainConfig from JSON: a model_overrides dtype arrives by name."""
+    raw = dict(raw)
+    over = dict(raw.get("model_overrides", {}))
+    if isinstance(over.get("dtype"), str):
+        over["dtype"] = getattr(torch, over["dtype"])
+    return T.TrainConfig(**{**raw, "model_overrides": over})
+
+
+def _lib(cfg: T.TrainConfig):
+    return resnet if cfg.model == "resnet50" else llama
+
+
+def _tree(inputs: dict, prefix: str) -> dict:
+    return unflatten({k[len(prefix):]: v for k, v in inputs.items() if k.startswith(prefix)})
+
+
+def _init(tr, inputs: dict) -> None:
+    """The JAX Trainer's initial params (and BN state) from the inputs."""
+    lib = _lib(tr.cfg)
+    extra = _tree(inputs, "extra/")
+    tr.init(lib.from_numpy(_tree(inputs, "params/"), device="cpu"),
+            lib.from_numpy(extra, device="cpu") if extra else None)
+
+
+def _batches(name: str, inputs: dict, cfg: T.TrainConfig):
+    """The scenario's global batches from the inputs, else the synthetic
+    stream."""
+    if f"{name}/tokens" in inputs:
+        return iter({"tokens": t} for t in inputs[f"{name}/tokens"])
+    if f"{name}/images" in inputs:
+        return iter({"images": i, "labels": lb} for i, lb in
+                    zip(inputs[f"{name}/images"], inputs[f"{name}/labels"]))
+    return T.synthetic_batches(cfg)
+
+
+def _eval_batch(name: str, inputs: dict) -> dict:
+    if f"{name}/eval_tokens" in inputs:
+        return {"tokens": inputs[f"{name}/eval_tokens"]}
+    return {"images": inputs[f"{name}/eval_images"], "labels": inputs[f"{name}/eval_labels"]}
+
+
+@contextlib.contextmanager
+def planted(fault: str | None):
+    """A fault the tests must catch, patched into this rank's port:
+    "local_routing" routes each rank's own tokens (local capacity and
+    slots); "rs_backward" gathers the router's columns with the plain
+    all_gather, whose backward reduce-scatters a cotangent already whole on
+    every rank; "aux_everywhere" counts the load-balance loss in full on
+    every rank of the token-splitting axes; "rank_bn" takes batch norm's
+    statistics over this rank's rows only."""
+    if fault is None:
+        yield
+        return
+    saved = []
+
+    def patch(owner, attr, value):
+        saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, value)
+
+    apply, batchnorm = moe.apply, resnet._batchnorm
+    if fault == "local_routing":
+        def local(params, x, cfg, with_stats=False, ctx=None):
+            if ctx is not None:
+                ctx = dataclasses.replace(ctx, batch=(), seq=None)
+            return apply(params, x, cfg, with_stats, ctx)
+        patch(moe, "apply", local)
+    elif fault == "rs_backward":
+        patch(C, "gather_from", lambda x, axis, gather_dim=0: C.all_gather(
+            x, axis, gather_dim=gather_dim))
+    elif fault == "aux_everywhere":
+        def everywhere(params, x, cfg, with_stats=False, ctx=None):
+            out, stats = apply(params, x, cfg, with_stats, ctx)
+            n = 1
+            if ctx is not None:
+                for axis in (*ctx.batch, ctx.seq):
+                    n *= axis.size if axis is not None else 1
+            return out, stats * torch.tensor([float(n), 1.0])
+        patch(moe, "apply", everywhere)
+    elif fault == "rank_bn":
+        patch(resnet, "_batchnorm", lambda x, p, s, training, momentum, eps, batch_axes=():
+              batchnorm(x, p, s, training, momentum, eps))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        for owner, attr, value in reversed(saved):
+            setattr(owner, attr, value)
+
+
 def train(sc, inputs, rank, world, out):
     """The port's Trainer on the scenario's axes, from the given full
-    params, one step at a time: per-step loss and grad_norm, this rank's
-    shards after each step, the gathered final params, and an eval pass."""
+    params, one step at a time: per-step loss, grad_norm (and MoE drop
+    share), this rank's shards after each step, the gathered final params
+    (and a model's state), and an eval pass; ``fault`` planted first."""
     name = sc["name"]
-    cfg = T.TrainConfig(**sc["cfg"])
+    cfg = _config(sc["cfg"])
     axes = [tuple(a) for a in sc["axes"]]
-    tr = T.Trainer(cfg, device="cpu", axes=axes)
-    params = {k[len("params/"):]: v for k, v in inputs.items() if k.startswith("params/")}
-    tr.init(llama.from_numpy(unflatten(params), device="cpu"))
-    if f"{name}/tokens" in inputs:
-        data = iter({"tokens": t} for t in inputs[f"{name}/tokens"])
-    else:
-        data = T.synthetic_batches(cfg)
-    for step in range(sc["steps"]):
-        tr.state, stats = tr.step_fn(tr.state, tr.place_batch(next(data)))
-        out[f"{name}/loss{step}"] = np.asarray(float(stats["loss"]))
-        out[f"{name}/grad_norm{step}"] = np.asarray(float(stats["grad_norm"]))
-        for leaf, t in _leaf_items(tr.state.params):
-            out[f"{name}/shard{step}/{leaf}"] = t.detach().numpy().copy()
-    for leaf, t in _leaf_items(tr.full_params()):
-        out[f"{name}/final/{leaf}"] = t.numpy()
-    eval_batch = {"tokens": inputs[f"{name}/eval_tokens"]}
-    out[f"{name}/eval_loss"] = np.asarray(tr.evaluate(iter([eval_batch]), 1))
+    with planted(sc.get("fault")):
+        tr = T.Trainer(cfg, device="cpu", axes=axes)
+        _init(tr, inputs)
+        data = _batches(name, inputs, cfg)
+        for step in range(sc["steps"]):
+            tr.state, stats = tr.step_fn(tr.state, tr.place_batch(next(data)))
+            out[f"{name}/loss{step}"] = np.asarray(float(stats["loss"]))
+            out[f"{name}/grad_norm{step}"] = np.asarray(float(stats["grad_norm"]))
+            if "moe_drop_frac" in stats:
+                out[f"{name}/drop{step}"] = np.asarray(float(stats["moe_drop_frac"]))
+            for leaf, t in _leaf_items(tr.state.params):
+                out[f"{name}/shard{step}/{leaf}"] = t.detach().numpy().copy()
+        for leaf, t in _leaf_items(tr.full_params()):
+            out[f"{name}/final/{leaf}"] = t.numpy()
+        for leaf, t in _leaf_items(tr.state.extra):
+            out[f"{name}/extra/{leaf}"] = t.detach().numpy()
+        out[f"{name}/eval_loss"] = np.asarray(tr.evaluate(iter([_eval_batch(name, inputs)]), 1))
     # Which piece of each leaf this rank holds: ranks with the same pieces
     # hold replicas, which must stay equal to the bit.
     for (leaf, _), s in zip(_leaf_items(tr.state.params), tree_leaves(tr.shardings)):
         out[f"{name}/piece/{leaf}"] = np.asarray(
             [s.parts(tr.mesh, d)[1] for d in range(len(s.dims))], dtype=np.int64)
+
+
+def batchnorm(sc, inputs, rank, world, out):
+    """``resnet._batchnorm`` in training mode on this rank's rows of a
+    global NCHW batch over a data axis of the world (and, as a control, on
+    the rows alone): the output, the gradients of x, scale and bias
+    against this rank's rows of a cotangent, and the new running
+    statistics."""
+    name = sc["name"]
+    axis = build_mesh([("data", world)], device="cpu").axis("data")
+    rows = inputs[f"{name}/x"].shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    for tag, axes in (("global", [axis]), ("own", [])):
+        x = torch.tensor(inputs[f"{name}/x"][mine]).requires_grad_(True)
+        p = {k: torch.tensor(inputs[f"{name}/{k}"]).requires_grad_(True)
+             for k in ("scale", "bias")}
+        s = {k: torch.tensor(inputs[f"{name}/{k}"]) for k in ("mean", "var")}
+        y, new_s = resnet._batchnorm(x, p, s, True, 0.9, 1e-5, batch_axes=axes)
+        y.backward(torch.tensor(inputs[f"{name}/g"][mine]))
+        out[f"{name}/{tag}/y"] = y.detach().numpy()
+        out[f"{name}/{tag}/dx"] = x.grad.numpy()
+        for k in ("scale", "bias"):
+            out[f"{name}/{tag}/d{k}"] = p[k].grad.numpy()
+        for k in ("mean", "var"):
+            out[f"{name}/{tag}/{k}"] = new_s[k].numpy()
+
+
+def _record(out, name, tr) -> None:
+    steps = [r for r in tr.history if "loss" in r]
+    out[f"{name}/steps"] = np.asarray([r["step"] for r in steps])
+    out[f"{name}/losses"] = np.asarray([r["loss"] for r in steps])
+    out[f"{name}/norms"] = np.asarray([r["grad_norm"] for r in steps])
+    if steps and "moe_drop_frac" in steps[0]:
+        out[f"{name}/drops"] = np.asarray([r["moe_drop_frac"] for r in steps])
+
+
+def checkpointed(sc, inputs, rank, world, out):
+    """A Trainer run with a checkpoint directory. "save" starts from the
+    given params and, with ``copies``, has rank 0 copy the saved step into
+    those directories afterwards; "resume" restores the latest step (on
+    rank 0 alone, one process with no group, with ``one_process``);
+    ``kill_rank`` leaves the run after that rank's pieces of ``kill_step``
+    are durable and before its marker. Records the logged steps and the
+    final full params."""
+    name = sc["name"]
+    cfg = _config(sc["cfg"])
+    if sc.get("one_process"):
+        if rank != 0:
+            return
+        tr = T.Trainer(cfg, device="cpu",
+                       mesh=Mesh([(a, 1) for a, _ in sc["axes"]], [0], "cpu"))
+    else:
+        tr = T.Trainer(cfg, device="cpu", axes=[tuple(a) for a in sc["axes"]])
+    if rank == sc.get("kill_rank"):
+        mark = ckpt.Checkpointer._mark_done
+
+        def killed(self, tmp, member):
+            if os.path.basename(tmp).startswith(f"{ckpt._TMP}{sc['kill_step']}-"):
+                os._exit(9)
+            mark(self, tmp, member)
+        ckpt.Checkpointer._mark_done = killed
+    if sc["phase"] == "save":
+        _init(tr, inputs)
+    t0 = time.monotonic()
+    tr.run(steps=sc["steps"])
+    out[f"{name}/seconds"] = np.asarray(time.monotonic() - t0)
+    _record(out, name, tr)
+    full = tr.full_params() if not sc.get("one_process") else tr.state.params
+    for leaf, t in _leaf_items(full):
+        out[f"{name}/final/{leaf}"] = t.detach().numpy()
+    if sc.get("copies"):
+        dist.barrier()  # every rank's pieces are in and rank 0 committed
+        if rank == 0:
+            step = tr.checkpointer.latest_step()
+            for dst in sc["copies"]:
+                shutil.copytree(os.path.join(cfg.checkpoint_dir, str(step)),
+                                os.path.join(dst, str(step)))
+        dist.barrier()
 
 
 def unflatten(flat: dict) -> dict:
@@ -269,6 +445,10 @@ def main() -> int:
             tp_ops(sc, inputs, rank, world, out)
         elif sc["type"] == "vocab_ce":
             vocab_ce(sc, inputs, rank, world, out)
+        elif sc["type"] == "batchnorm":
+            batchnorm(sc, inputs, rank, world, out)
+        elif sc["type"] == "checkpoint":
+            checkpointed(sc, inputs, rank, world, out)
         else:
             train(sc, inputs, rank, world, out)
     out["staged_calls"] = np.asarray(sum(C.STAGED_CALLS.values()))
