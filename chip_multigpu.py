@@ -1,7 +1,8 @@
 """Multi-card check of the port's multi-rank path: NCCL across the cards of
 one host, one rank a card.
 
-    python3 chip_multigpu.py       # every card of the host (two or more)
+    python3 chip_multigpu.py          # every card of the host (two or more)
+    python3 chip_multigpu.py --pipe   # the pipeline runs alone
 
 ``chip_smoke.py`` checks this path with two ranks sharing one card over
 gloo, because the machine it runs on holds one card. Here each rank has
@@ -30,7 +31,13 @@ within one assignment of one rank's) and ResNet-50 at bench.py's cell
 under ``--rules dp --mesh data=N`` (its BN running statistics against one
 rank's), each against one rank on cuda:0 at every step within
 PAR_LOSS_REL / PAR_NORM_REL (ResNet within its own, chip_smoke's
-RESNET_PAR_*). Last, tensor-parallel serving with its members on
+RESNET_PAR_*). Then pipeline parallelism (chip_smoke's ``pipe_runs``):
+on two cards (e)-(g) of phase 15; on N cards GPipe and 1F1B over
+``--rules pipe --mesh data=1,pipe=N`` (max(4, N) layers, B=M=N) and, on
+four, 1F1B over ``data=2,pipe=2`` (B=4, M=2), each against one rank's dp
+run on cuda:0 within the same limits, with K1-K3 at the schedule's
+launches on ``wgmma``, the 1F1B stash at the schedule's peak and the
+NCCL point-to-point hand-offs staging nothing. Last, tensor-parallel serving with its members on
 distinct cards: llama3-8b at full depth, phase 7's 12 requests on one
 card (shard 1), then ``ServeEngine(shard=2, devices=["cuda:0",
 "cuda:1"])`` with chip_smoke's sharded checks: the member-memory gate,
@@ -43,6 +50,8 @@ at shard 1 and 2. It fails on any miss, prints per-rank step_s and peak memory
 and the collectives' calls and bytes, a ``multigpu`` JSON line, the
 cards' names and power limits, and last ``{"ok": true, "device":
 {...}}``.
+With ``--pipe`` it runs the pipeline part alone (its references on
+cuda:0, ``pipe_job`` over NCCL, ``check_pipe``).
 """
 
 from __future__ import annotations
@@ -58,6 +67,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RANK_TIMEOUT = 900  # seconds the ranks' job may take
+
+
+def pipe_job(rank: int, world: int, device) -> dict:
+    import chip_smoke as cs
+
+    return {"pipe": cs.pipe_job(rank, world, device, full=False)}
 
 
 def main() -> int:
@@ -85,9 +100,24 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     cs.say(f"== {n} cards: {cards}; torch {torch.__version__} CUDA {torch.version.cuda}")
     cs.say(f"  built {kernels.build()} (s per kernel)")
+    pipe_only = "--pipe" in sys.argv[1:]
+    if pipe_only:
+        refs_pipe = cs.pipe_references("cuda:0", n, full=False)
+        ranks = cs.run_ranks(pipe_job, n, "nccl", RANK_TIMEOUT, None)
+        out = {"train": {}}
+        check_pipe(cs, ranks, refs_pipe, n, out)
+        cs.say(f"  total {time.monotonic() - t0:.1f} s")
+        cs.say(json.dumps({"multigpu": {"world": n, **out}, "cards": cards}))
+        for card in cards:
+            cs.say(card)
+        cs.say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                  "kind": torch.cuda.get_device_name(0),
+                                                  "count": n}}))
+        return 0
     cs.say("== one rank on cuda:0: each run's history")
     single = cs.one_rank_references(n, "cuda:0")
     refs12 = cs.slice12_references("cuda:0", None, full=False)
+    refs_pipe = cs.pipe_references("cuda:0", n, full=False)
     cs.say(f"== NCCL, {n} ranks, one card a rank")
     root = tempfile.mkdtemp(prefix="oim-multigpu-")
     try:
@@ -98,6 +128,7 @@ def main() -> int:
     out = cs.check_ranks(ranks, n, single, "nccl")
     cs.say(f"== MoE (expert={n}) and ResNet-50 (data={n}) across the cards")
     out["train"].update(cs.check_slice12(ranks, refs12, None)[0])
+    check_pipe(cs, ranks, refs_pipe, n, out)
     cs.say("== tensor-parallel serving, members on cuda:0 and cuda:1")
     from oim_tpu_torch.models import llama
     from oim_tpu_torch.serve import ServeEngine
@@ -119,6 +150,17 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": n}}))
     return 0
+
+
+def check_pipe(cs, ranks: list, refs: dict, n: int, out: dict) -> None:
+    """chip_smoke's pipe gates over NCCL, which stages nothing."""
+    cs.say(f"== pipeline parallelism across the cards: {[r[0] for r in cs.pipe_runs(n)]}")
+    pipe = cs.check_pipe(ranks, refs, n)[0]
+    for name, entry in pipe.items():
+        if sum(entry["staged_calls_by_rank"]):
+            cs.fail(f"{name}: NCCL staged {entry['staged_calls_by_rank']} call(s) through host "
+                    "memory")
+    out["train"].update(pipe)
 
 
 if __name__ == "__main__":

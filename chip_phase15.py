@@ -1,8 +1,9 @@
 """Phase 15's MoE, ResNet and checkpoint runs of ``chip_smoke.py`` alone,
-on one NVIDIA H100: a quicker loop than the whole script while that part
-changes.
+or its pipeline runs alone, on one NVIDIA H100: a quicker loop than the
+whole script while that part changes.
 
-    python3 chip_phase15.py
+    python3 chip_phase15.py           # MoE, ResNet, checkpoints
+    python3 chip_phase15.py --pipe    # pipeline parallelism
 
 It builds the kernels, runs phase 11 (the MoE flagship trained 4 steps:
 the one-rank reference of run (a)), then chip_smoke's ``slice12_job`` on
@@ -11,6 +12,11 @@ the one-process resumes of (d), and ``check_slice12``'s gates. Unlike
 chip_smoke.py it reports every gate it misses and goes on; it exits
 nonzero if any was missed. The last lines are a ``slice12`` JSON line and
 the card's name and power limit.
+
+With ``--pipe`` it builds the kernels and runs chip_smoke's pipe runs
+instead: the one-rank references (``pipe_references``), ``pipe_job`` on
+two gloo ranks sharing the card ((e)-(h), the memory readings and
+PIPE_FAULTS) and ``check_pipe``'s gates; its JSON line is ``pipe``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,22 @@ def job(rank: int, world: int, device: str, root: str) -> dict:
     import chip_smoke as cs
 
     return {"slice12": cs.slice12_job(rank, world, device, root)}
+
+
+def pipe_job(rank: int, world: int, device: str) -> dict:
+    import chip_smoke as cs
+
+    return {"pipe": cs.pipe_job(rank, world, device)}
+
+
+def pipe_main(cs, missed: list, t0: float, card: str) -> int:
+    refs = cs.pipe_references("cuda:0", cs.PAR_WORLD)
+    ranks = cs.run_ranks(pipe_job, cs.PAR_WORLD, "gloo", cs.PAR_RANK_TIMEOUT, "cuda:0")
+    out, faults, memory = cs.check_pipe(ranks, refs, cs.PAR_WORLD)
+    cs.say(f"  total {time.monotonic() - t0:.1f} s; {len(missed)} gate(s) missed")
+    cs.say(json.dumps({"pipe": out, "faults": faults, "memory_gb": memory, "missed": missed}))
+    cs.say(card)
+    return 1 if missed else 0
 
 
 def main() -> int:
@@ -55,6 +77,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.say(f"  built {kernels.build()}")
+    if "--pipe" in sys.argv[1:]:
+        return pipe_main(cs, missed, t0, card)
     moe_history = cs.phase_moe_main(False).pop("history")
     torch.cuda.empty_cache()
     refs = cs.slice12_references("cuda:0", moe_history)

@@ -296,6 +296,27 @@ Phases, in order; any failure exits nonzero:
    router's columns through the plain all_gather; a per-rank batch norm;
    the load-balance loss in full on every rank), each of which must break
    one of the limits.
+   Then pipeline parallelism over ``--rules pipe --mesh data=1,pipe=2``
+   at llama3-8b width, PIPE_LAYERS layers (2 a stage), B=PIPE_BATCH,
+   M=PIPE_M microbatches, bf16: (e) GPipe, (f) 1F1B and (g) interleaved
+   1F1B (``--virtual-stages 2``, one layer a chunk), each against one
+   rank's dp run of the same configuration; (h) the MoE flagship (8
+   layers, 4 a stage) under 1F1B at B=2, M=2 in float32 (PIPE_F32: in
+   bf16 each rank's dy partial rounds before the sum over pipe and routes
+   flip after an update) against one rank under rules pipe over pipe=1 at
+   the same M (capacity is per microbatch), its moe_drop_frac within one
+   assignment. Each within PAR_LOSS_REL /
+   PAR_NORM_REL at every step, its losses equal on both ranks, replicas
+   equal by digest, each rank holding half the split leaves (layers,
+   embed's and lm_head's vocabulary) plus final_norm whole; K1-K3
+   launches a rank at the schedule's count (layers a stage x M x STEPS
+   for K2/K3 and GPipe's K1, twice that for 1F1B's K1: its backward
+   recomputes the stage), all ``wgmma`` ((h)'s on ``fma``); 1F1B's stash
+   peak at the schedule's stash_x (at most it, interleaved). One step's
+   memory a rank (allocated at its start, peak) of GPipe and 1F1B at
+   M=PIPE_M and at M=PIPE_M_WIDE (B=M) is printed: the memory law. Last PIPE_FAULTS (the interleaved run on the
+   canonical layer order; the MoE aux counted on idle ticks too), each
+   of which must break a limit.
 16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
@@ -4273,7 +4294,8 @@ def ranks_job(rank: int, world: int, device: str, root: str, full: bool = True) 
             "attention": sp_attention_check(rank, world, device),
             "train": train_runs(rank, world, device),
             "faults": fault_runs(rank, world, device),
-            "slice12": slice12_job(rank, world, device, root, full)}
+            "slice12": slice12_job(rank, world, device, root, full),
+            "pipe": pipe_job(rank, world, device, full)}
 
 
 def nccl_world1_job(rank: int, world: int, device: str) -> dict:
@@ -4677,6 +4699,299 @@ def check_slice12(ranks: list, refs: dict, resumes: dict | None) -> tuple[dict, 
     return out, faults
 
 
+# Phase 15, pipeline parallelism (two ranks over pipe=2): (e) GPipe, (f)
+# 1F1B and (g) interleaved 1F1B (v=2, one layer a chunk) at llama3-8b
+# width, depth cut to PIPE_LAYERS (2 a stage), B=PIPE_BATCH, M=PIPE_M, bf16,
+# STEPS steps, each against the port's one-rank run of the same
+# configuration (rules dp); (h) the MoE flagship (8 layers, 4 a stage)
+# under 1F1B at B=2, M=2 against one rank under rules pipe over pipe=1 at
+# the same M (MoE capacity is per microbatch). One step's peak memory a
+# rank at M=PIPE_M and M=PIPE_M_WIDE (B=M, one row a microbatch) shows
+# the memory law: GPipe keeps M microbatches' graphs, 1F1B its in-flight
+# window. On four cards (chip_multigpu.py): pipe=4 under GPipe and 1F1B,
+# and data=2,pipe=2 under 1F1B.
+PIPE_LAYERS, PIPE_BATCH, PIPE_M, PIPE_M_WIDE = 4, 4, 4, 8
+# (name, schedule, virtual stages, mesh, global batch, microbatches, layers)
+MOE_PIPE = ("moe_1f1b", "1f1b", 1, "data=1,pipe=2", BATCH, 2, 8)
+# (h) runs in float32 (SLICE12_DTYPE; K1-K3 then take their fma route). In
+# bf16 each rank's cotangent of the head's input (its vocabulary half's
+# share of dy) is rounded before the sum over pipe, where one rank rounds
+# the whole vocabulary's dy once; after the first update that last bit
+# flips MoE routes (bf16 on one H100: loss rel 2.66e-4, grad_norm rel
+# 2.05e-3 and the drop share 8.1e-4 off at steps 3-4, steps 1-2 equal).
+PIPE_F32 = ("moe_1f1b",)
+# Faults planted in the pipe runs, which their limits must catch: the
+# interleaved run on the canonical layer order (no permutation: each chunk
+# runs another global stage's layers), and the MoE aux counted on idle
+# ticks as well (an executor that runs its stage on every tick, as JAX's
+# unconditional mode does, without masking the idle ones: each stage's
+# aux then counts n_ticks / (v M) times).
+PIPE_FAULTS = (("canonical_order", "1f1b_v2"), ("aux_idle_ticks", "moe_1f1b"))
+
+
+def pipe_runs(world: int) -> tuple:
+    """The dense pipe runs on ``world`` ranks (rows as MOE_PIPE's)."""
+    if world == 2:
+        mesh = "data=1,pipe=2"
+        return (("gpipe", "gpipe", 1, mesh, PIPE_BATCH, PIPE_M, PIPE_LAYERS),
+                ("1f1b", "1f1b", 1, mesh, PIPE_BATCH, PIPE_M, PIPE_LAYERS),
+                ("1f1b_v2", "1f1b", 2, mesh, PIPE_BATCH, PIPE_M, PIPE_LAYERS))
+    layers = max(PIPE_LAYERS, world)
+    runs = [(f"gpipe_p{world}", "gpipe", 1, f"data=1,pipe={world}", world, world, layers),
+            (f"1f1b_p{world}", "1f1b", 1, f"data=1,pipe={world}", world, world, layers)]
+    if world == 4:
+        runs.append(("dp2_1f1b", "1f1b", 1, "data=2,pipe=2", PIPE_BATCH, 2, PIPE_LAYERS))
+    return tuple(runs)
+
+
+def pipe_argv(run: tuple, device: str, steps: int = STEPS, world: int = 0,
+              microbatches: int = 0) -> list:
+    """``run`` on ``world`` ranks, at ``microbatches`` (and as many rows)
+    where given; 0 ranks is its one-rank reference: rules dp for a dense
+    run, rules pipe over pipe=1 at the same M for the MoE one."""
+    name, schedule, v, mesh, batch, m, layers = run
+    moe = name.startswith("moe")
+    base = moe_argv() if moe else main_path_argv() + ["--override", f"n_layers={layers}"]
+    if name in PIPE_F32:
+        base += SLICE12_DTYPE
+    if microbatches:
+        batch = m = microbatches
+    flags = []
+    if world or moe:
+        flags = ["--rules", "pipe", "--mesh", mesh if world else "data=1,pipe=1",
+                 "--microbatches", str(m), "--pipeline-schedule", schedule,
+                 "--virtual-stages", str(v)]
+    return base + flags + ["--batch-size", str(batch), "--seq-len", str(SEQ), "--steps",
+                           str(steps), "--device", device, "--log-level", "warning"]
+
+
+def _step_peaks(peaks: list, device: str):
+    """A ``patched`` context recording each train step's device memory into
+    ``peaks``: (allocated at its start, its peak), GB, this process's
+    allocator."""
+    import torch
+
+    from oim_tpu_torch.train import trainer as T
+
+    def wrap(make_train_step):
+        def made(*a, **k):
+            step_fn, *rest = make_train_step(*a, **k)
+
+            def step(state, batch):
+                _sync(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                start = torch.cuda.memory_allocated(device) / 1e9
+                out = step_fn(state, batch)
+                _sync(device)
+                peaks.append((start, torch.cuda.max_memory_allocated(device) / 1e9))
+                return out
+            return (step, *rest)
+        return made
+    return patched(T, "make_train_step", wrap)
+
+
+def planted_pipe(fault: str):
+    """A ``patched`` context planting ``fault`` (of PIPE_FAULTS)."""
+    from oim_tpu_torch.parallel import pipeline_1f1b as P1
+
+    if fault == "canonical_order":
+        def canonical(n_layers, p, v):
+            order = np.arange(n_layers, dtype=np.int32)
+            return order, order
+        return patched(P1, "interleave_layer_permutation", lambda _: canonical)
+    sched = P1.simulate_1f1b(2, MOE_PIPE[5])
+    factor = sched.n_ticks / (sched.v * sched.m)
+    return patched(P1, "add_aux", lambda add: lambda total, aux: add(
+        total, None if aux is None else aux * factor))
+
+
+def _pipe_run(argv: list, device: str) -> dict:
+    """``_slice12_run``'s record of one pipe run, with each step's peak
+    memory and the 1F1B executor's stash peaks of the last step."""
+    import torch
+
+    from oim_tpu_torch.parallel import pipeline_1f1b as P1
+
+    peaks: list = []
+    P1.STASH_PEAK.update(x=0, dh=0)
+    with _step_peaks(peaks, device) if torch.device(device).type == "cuda" \
+            else contextlib.nullcontext():
+        rec, trainer = _slice12_run(argv, device)
+    del trainer
+    rec["step_start_gb"] = [a for a, _ in peaks]
+    rec["step_peak_gb"] = [b for _, b in peaks]
+    rec["stash_peak"] = dict(P1.STASH_PEAK)
+    return rec
+
+
+def pipe_job(rank: int, world: int, device: str, full: bool = True) -> dict:
+    """The pipe runs on this rank: ``pipe_runs(world)``, and with ``full``
+    (h), the memory readings at M=PIPE_M_WIDE and PIPE_FAULTS."""
+    runs = pipe_runs(world) + ((MOE_PIPE,) if full else ())
+    out = {run[0]: _pipe_run(pipe_argv(run, device, world=world), device) for run in runs}
+    if full:
+        by = {run[0]: run for run in runs}
+        recs = {f"{name}_m{PIPE_M}": out[name] for name in ("gpipe", "1f1b")}
+        for name in ("gpipe", "1f1b"):
+            recs[f"{name}_m{PIPE_M_WIDE}"] = _pipe_run(
+                pipe_argv(by[name], device, 2, world, PIPE_M_WIDE), device)
+        out["memory"] = {k: {"start_gb": r["step_start_gb"], "peak_gb": r["step_peak_gb"]}
+                         for k, r in recs.items()}
+        faults = {}
+        for fault, run in PIPE_FAULTS:
+            with planted_pipe(fault):
+                faults[fault] = _pipe_run(pipe_argv(by[run], device, PAR_FAULT_STEPS, world),
+                                          device)["history"]
+        out["faults"] = faults
+    return out
+
+
+def pipe_references(device: str, world: int, full: bool = True) -> dict:
+    """One process's history of each pipe run's reference (``pipe_argv``
+    with no ranks): one dense run serves every dense pipe run (the same
+    global batch, layers and initial params)."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+
+    refs, seen = {}, {}
+    for run in pipe_runs(world) + ((MOE_PIPE,) if full else ()):
+        argv = pipe_argv(run, device)
+        key = tuple(argv)
+        if key not in seen:
+            seen[key] = oim_trainer.run(argv).history
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        refs[run[0]] = seen[key]
+    return refs
+
+
+def check_pipe(ranks: list, refs: dict, world: int) -> tuple[dict, dict, dict]:
+    """The gates of the pipe runs on every rank's results: each run within
+    PAR_LOSS_REL / PAR_NORM_REL of its reference at every step (the MoE
+    run's drop share within one assignment), the same global losses on
+    every rank, K1-K3 launches a rank at the schedule's count on wgmma, the
+    1F1B stash peaks at the schedule's, replicas equal to the bit and half
+    the split leaves a rank; the memory readings; PIPE_FAULTS caught.
+    Returns (runs, faults, memory)."""
+    from oim_tpu_torch.parallel.pipeline_1f1b import simulate_1f1b
+
+    per = [r["pipe"] for r in ranks]
+    out = {}
+    runs = pipe_runs(world) + ((MOE_PIPE,) if MOE_PIPE[0] in per[0] else ())
+    for name, schedule, v, mesh, batch, m, layers in runs:
+        recs = [p[name] for p in per]
+        hists = [r["history"] for r in recs]
+        ref = refs[name]
+        loss_rel, norm_rel = deviation(hists, ref)
+        losses = [[h["loss"] for h in hist] for hist in hists]
+        p = dict(kv.split("=") for kv in mesh.split(","))
+        stages = int(p["pipe"])
+        k23 = layers // stages * m * STEPS
+        want = {"flash_fwd": k23 * (2 if schedule == "1f1b" else 1), "flash_bwd_dkv": k23,
+                "flash_bwd_dq": k23}
+        route = "fma" if name in PIPE_F32 else "wgmma"
+        step_s = [sum(h["step_s"] for h in hist[1:]) / max(1, len(hist) - 1) for hist in hists]
+        say(f"  pipe {name} ({schedule}, v={v}, {mesh}, B={batch}, M={m}, {layers} layers): "
+            f"losses {losses[0]}, grad_norms {[h['grad_norm'] for h in hists[0]]}; one rank: "
+            f"losses {[r['loss'] for r in ref]}, grad_norms {[r['grad_norm'] for r in ref]}; "
+            f"worst step: loss rel {loss_rel:.3e} (tol {PAR_LOSS_REL}), grad_norm rel "
+            f"{norm_rel:.3e} (tol {PAR_NORM_REL})")
+        say(f"    step_s by rank {[round(x, 4) for x in step_s]} (steps 2..{STEPS}); step peak "
+            f"mem by rank {[[round(g, 2) for g in r['step_peak_gb']] for r in recs]} GB; held "
+            f"params {[r['held_bytes'] for r in recs]} B of {recs[0]['full_bytes']}; stash "
+            f"peaks {[r['stash_peak'] for r in recs]}; collectives {recs[0]['calls']} calls, "
+            f"{recs[0]['bytes']} B; staged {[sum(r['staged_calls'].values()) for r in recs]} "
+            f"call(s); launches {[{n: r['launches'][n] for n, _ in KERNELS} for r in recs]} "
+            f"(want {want} a rank on {route})")
+        if any(len(ls) != len(ref) or not all(math.isfinite(x) for x in ls) for ls in losses):
+            fail(f"pipe {name}: losses not finite or missing: {losses}")
+        if any(ls != losses[0] for ls in losses):
+            fail(f"pipe {name}: ranks report different global losses {losses}")
+        if loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+            fail(f"pipe {name}: differs from one rank: loss rel {loss_rel}, "
+                 f"grad_norm rel {norm_rel}")
+        for r, rec in enumerate(recs):
+            for n, _ in KERNELS:
+                if rec["launches"][n] != want[n] or rec["routes"][n][route] != want[n]:
+                    fail(f"pipe {name}, rank {r}: {n} launched {rec['launches'][n]} "
+                         f"({rec['routes'][n]}), the schedule implies {want[n]} on {route}")
+            want_held = (rec["full_bytes"] - rec["whole_bytes"]) // stages + rec["whole_bytes"]
+            if rec["held_bytes"] != want_held:
+                fail(f"pipe {name}, rank {r}: holds {rec['held_bytes']} B, want {want_held}")
+        entry = {"schedule": schedule, "virtual_stages": v, "mesh": mesh, "batch": batch,
+                 "microbatches": m, "layers": layers, "losses_by_rank": losses,
+                 "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "step_s_by_rank": step_s,
+                 "step_start_gb_by_rank": [r["step_start_gb"] for r in recs],
+                 "step_peak_gb_by_rank": [r["step_peak_gb"] for r in recs],
+                 "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in recs],
+                 "held_bytes_by_rank": [r["held_bytes"] for r in recs],
+                 "unsharded_bytes": recs[0]["full_bytes"],
+                 "launches_by_rank": [{n: r["launches"][n] for n, _ in KERNELS} for r in recs],
+                 "launches_want": want, "route": route, "collective_calls": recs[0]["calls"],
+                 "collective_bytes": recs[0]["bytes"],
+                 "staged_calls_by_rank": [sum(r["staged_calls"].values()) for r in recs],
+                 "backend": recs[0]["backend"]}
+        if schedule == "1f1b":
+            sched = simulate_1f1b(stages, m, v)
+            peak_x = max(r["stash_peak"]["x"] for r in recs)
+            peak_dh = max(r["stash_peak"]["dh"] for r in recs)
+            say(f"    stash: peak {peak_x} inputs, {peak_dh} cotangents of a chunk; the schedule's "
+                f"stash_x {sched.stash_x}, stash_dh {sched.stash_dh}")
+            if peak_x > sched.stash_x or peak_dh > sched.stash_dh or (
+                    v == 1 and peak_x != sched.stash_x):
+                fail(f"pipe {name}: stash peaks {peak_x}, {peak_dh} against the schedule's "
+                     f"{sched.stash_x}, {sched.stash_dh}")
+            entry["stash_peak"], entry["stash_x"] = [peak_x, peak_dh], sched.stash_x
+        pieces: dict = {}
+        for rec in recs:
+            for leaf, piece, s1, s2 in rec["digests"]:
+                pieces.setdefault((leaf, tuple(piece)), []).append((s1, s2))
+        differ = [key for key, seen in pieces.items() if len(set(seen)) > 1]
+        entry["replica_pieces_checked"] = sum(1 for seen in pieces.values() if len(seen) > 1)
+        if differ:
+            fail(f"pipe {name}: replicas differ across ranks after the last step: {differ[:5]}")
+        if name.startswith("moe"):
+            drops = [[h["moe_drop_frac"] for h in hist] for hist in hists]
+            ref_drops = [h["moe_drop_frac"] for h in ref]
+            unit = 1.0 / (batch * SEQ * moe_flagship().moe_top_k)
+            worst = max(abs(a - b) for d in drops for a, b in zip(d, ref_drops))
+            say(f"    moe_drop_frac {drops[0]} (one rank {ref_drops}; worst {worst:.3e}, "
+                f"limit one assignment {unit:.3e})")
+            if worst > unit:
+                fail(f"pipe {name}: moe_drop_frac {drops} against one rank's {ref_drops}")
+            entry["moe_drop_frac_by_rank"], entry["moe_drop_frac_one_rank"] = drops, ref_drops
+        out[f"pipe_{name}"] = entry
+    if "memory" not in per[0]:
+        return out, {}, {}
+    memory = {k: [p["memory"][k] for p in per] for k in per[0]["memory"]}
+    for k, v in memory.items():
+        steps = [[(round(a, 2), round(b, 2)) for a, b in zip(r["start_gb"], r["peak_gb"])]
+                 for r in v]
+        say(f"  pipe memory law, {k}: each step's (allocated at its start, peak) GB by rank "
+            f"{steps}")
+    faults = {}
+    for fault, run in PIPE_FAULTS:
+        hists = [p["faults"][fault] for p in per]
+        loss_rel, norm_rel = deviation(hists, refs[run])
+        drop = max((abs(h["moe_drop_frac"] - r["moe_drop_frac"])
+                    for hist in hists for h, r in zip(hist, refs[run]) if "moe_drop_frac" in h),
+                   default=0.0)
+        caught = loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL
+        say(f"  planted {fault} in pipe {run}: losses {[h['loss'] for h in hists[0]]}; worst "
+            f"step: loss rel {loss_rel:.3e}, grad_norm rel {norm_rel:.3e}, moe_drop_frac "
+            f"|diff| {drop:.3e}: {'caught' if caught else 'NOT caught'}")
+        if not caught:
+            fail(f"planted fault {fault} in pipe {run} stays within the limits: loss rel "
+                 f"{loss_rel}, grad_norm rel {norm_rel}")
+        faults[fault] = {"run": f"pipe_{run}", "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                         "moe_drop_frac_diff": drop}
+    return out, faults, memory
+
+
 def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dict:
     """Phase 15: NCCL at world size 1, then PAR_WORLD ranks on ``device``
     over gloo: the collectives, ring/zigzag/Ulysses attention against one
@@ -4695,6 +5010,7 @@ def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dic
         torch.cuda.empty_cache()
     single = one_rank_references(PAR_WORLD, device, main)
     refs12 = slice12_references(device, moe_history)
+    refs_pipe = pipe_references(device, PAR_WORLD)
 
     say("  NCCL, world size 1")
     (nccl,) = run_ranks(nccl_world1_job, 1, "nccl", PAR_NCCL_TIMEOUT, device)
@@ -4730,6 +5046,11 @@ def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dic
     out["checkpoint"] = slice12.pop("checkpoint")
     out["train"].update(slice12)
     out["faults"].update(faults12)
+    say("  pipeline parallelism (pipe=2): GPipe, 1F1B, interleaved 1F1B, the MoE flagship")
+    pipe, faults_pipe, memory = check_pipe(ranks, refs_pipe, PAR_WORLD)
+    out["train"].update(pipe)
+    out["faults"].update(faults_pipe)
+    out["pipe_memory_gb"] = memory
     return {"nccl_world1": {"losses": n_losses, "grad_norms": n_norms,
                             "launches": nccl["launches"], "calls": nccl["calls"]},
             **out, "wall_s": time.monotonic() - t_phase,
@@ -4786,7 +5107,7 @@ def main() -> int:
         "MoE flagship (phase 11)": (BATCH, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads,
                                     moe_cfg.head_dim, True, bf16, 2),
         # Phase 15: a ring's or a zigzag's blocks carry the lse cotangent.
-        "phase 15 ring and zigzag diagonal; dp, fsdp a rank":
+        "phase 15 ring and zigzag diagonal; dp, fsdp a rank; a pipe microbatch":
             (1, t_rank, t_rank, h, hkv, d, True, bf16, 10, True),
         "phase 15 ring, a full block": (1, t_rank, t_rank, h, hkv, d, False, bf16, 11, True),
         "phase 15 zigzag, q against the held low half":
@@ -4804,7 +5125,7 @@ def main() -> int:
             (1, PAR_T, PAR_T, h // 4, hkv // 4, d, True, bf16, 17),
         # MoE across ranks: the flagship's attention at one row a rank
         # (fsdp=2, phase 15 (b)); under expert=2 each rank runs phase 11's.
-        "phase 15 MoE flagship under fsdp=2, one row a rank":
+        "phase 15 MoE flagship under fsdp=2, one row a rank; (h)'s microbatch":
             (1, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim, True, bf16, 18),
     }
     odd = [

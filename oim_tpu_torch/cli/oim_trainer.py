@@ -20,6 +20,10 @@ parameters, 1.04e9 active).
         -m oim_tpu_torch.cli.oim_trainer --model llama-tiny-moe --rules tp_sp \\
         --mesh data=1,fsdp=1,seq=1,model=1,expert=2 --checkpoint-dir ckpt \\
         --checkpoint-every 2 --steps 4
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m oim_tpu_torch.cli.oim_trainer --model llama3-8b --override n_layers=4 \\
+        --rules pipe --mesh data=1,pipe=2 --pipeline-schedule 1f1b \\
+        --microbatches 4 --steps 4 --batch-size 4 --seq-len 2048
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the same step
 with the kernels' plain versions. ``--metrics-port`` serves the trainer's
@@ -34,7 +38,9 @@ the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``/``MASTER_PORT``; NCCL when each rank has its own card,
 gloo otherwise) and trains on ``cuda:LOCAL_RANK``; ``--rules``, ``--mesh``
 and ``--seq-parallel`` are the JAX trainer's (``--mesh ...,expert=N``
-splits an MoE model's experts under ``--rules tp_sp``). Without
+splits an MoE model's experts under ``--rules tp_sp``), and so are
+``--microbatches``, ``--pipeline-schedule`` and ``--virtual-stages`` under
+``--rules pipe`` (``--mesh data=1,pipe=2``). Without
 ``WORLD_SIZE`` it is one process with no group. ``--checkpoint-dir`` works
 under a mesh too: each rank writes its pieces, and a restart resumes from
 them under whatever ``--mesh`` (or number of processes) it names.
@@ -91,6 +97,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--rules", default="dp", choices=("dp", "fsdp", "tp_sp", "pipe"))
     p.add_argument("--seq-parallel", default="ring", choices=("ring", "zigzag", "ulysses"),
                    help="zigzag = load-balanced causal ring (rules=tp_sp only)")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatch count (--rules pipe)")
+    p.add_argument("--pipeline-schedule", default="gpipe", choices=("gpipe", "1f1b"),
+                   help="1f1b bounds live activations by the pipe depth instead of the "
+                        "microbatch count (needs microbatches %% pipe == 0; both "
+                        "schedules serve MoE and seq-in-pipe)")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved 1F1B: virtual stages (layer chunks) per rank; "
+                        "bubble (P-1)/(v*M+P-1); needs --pipeline-schedule 1f1b and "
+                        "n_layers %% (pipe*v) == 0")
     p.add_argument("--mesh", default="", help="e.g. data=4,model=2")
     p.add_argument("--override", "--model-override", dest="override", action="append",
                    default=[], metavar="KEY=VALUE",
@@ -149,6 +165,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             overrides[key] = _parse_value(val)
     return TrainConfig(
         model=args.model, rules=args.rules, seq_parallel=args.seq_parallel,
+        microbatches=args.microbatches, pipeline_schedule=args.pipeline_schedule,
+        virtual_stages=args.virtual_stages,
         remat=args.remat, remat_policy=args.remat_policy,
         accum_steps=args.accum_steps, batch_size=args.batch_size, seq_len=args.seq_len,
         image_size=args.image_size, num_classes=args.num_classes, lr=args.lr,

@@ -17,7 +17,10 @@ subtree's with the EXPERT axis (``moe.param_logical_axes``).
 Under sequence parallelism a rank runs the model on its shard of the
 sequence: ``hidden_states`` and ``loss_and_stats`` take the shard's global
 positions for RoPE, its labels (shifted before the sequence was cut) and
-the global count of kept labels. The pipelined losses are not ported yet.
+the global count of kept labels. ``make_pipelined_loss`` (GPipe) and
+``make_1f1b_loss`` (1F1B, interleaved with ``n_virtual`` > 1) pipeline the
+layers over a ``pipe`` axis and return the loss with its gradients: the
+pipeline drives its own backward across ranks.
 
 Tensor parallelism (``tp``, the ``model`` mesh axis; Megatron's split, as
 ``TP_SP_RULES`` lays the leaves out): each rank holds a contiguous slice
@@ -278,6 +281,17 @@ def _embed(params, ids, cfg: Config, tp=None):
     return collectives.reduce_from(torch.where(mine[..., None], x, 0).to(cfg.dtype), tp)
 
 
+def _rope(cfg: Config, t: int, positions, device):
+    """RoPE's cos/sin at ``positions`` (host ints; default 0..t-1)."""
+    if positions is None:
+        return rope_frequencies(cfg.head_dim, t, cfg.rope_theta, device=device)
+    positions = np.asarray(positions, dtype=np.int64)
+    cos, sin = rope_frequencies(cfg.head_dim, int(positions.max()) + 1, cfg.rope_theta,
+                                device=device)
+    index = torch.from_numpy(positions).to(device)
+    return cos[index], sin[index]
+
+
 def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
                   attn_fn: AttentionFn | None = None, positions=None, tp=None, ctx=None):
     """tokens [B, T] -> (final-normed hidden [B, T, D], aux vector [2]:
@@ -294,15 +308,7 @@ def hidden_states(params, tokens, cfg: Config = LLAMA3_8B,
         check_tensor_parallel(cfg, tp.size)
     if attn_fn is None:
         attn_fn = default_attention
-    T = tokens.shape[1]
-    if positions is None:
-        cos, sin = rope_frequencies(cfg.head_dim, T, cfg.rope_theta, device=tokens.device)
-    else:
-        positions = np.asarray(positions, dtype=np.int64)
-        cos, sin = rope_frequencies(cfg.head_dim, int(positions.max()) + 1, cfg.rope_theta,
-                                    device=tokens.device)
-        index = torch.from_numpy(positions).to(tokens.device)
-        cos, sin = cos[index], sin[index]
+    cos, sin = _rope(cfg, tokens.shape[1], positions, tokens.device)
     x = _embed(params, tokens.long(), cfg, tp)
     layers = params["layers"]
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
@@ -386,6 +392,142 @@ def loss_fn(params, tokens, cfg: Config = LLAMA3_8B,
             attn_fn: AttentionFn | None = None, ignore_index: int = -1):
     """Next-token cross entropy over tokens [B, T+1]."""
     return loss_and_stats(params, tokens, cfg, attn_fn, ignore_index)[0]
+
+
+# ------------------------------------------------- pipelined losses ----
+
+
+def _stage_fn(cfg: Config, chunks: list, n: int, cos, sin, attn_fn: AttentionFn | None):
+    """The pipeline stage body: chunk c's ``n`` layers (``chunks[c]``, a
+    stacked layer tree) on h; returns (h, aux), aux the summed MoE [load_balance,
+    dropped] vector (None for a dense model). GPipe and 1F1B run the same
+    function. Remat recomputes each layer in the backward; a forward with
+    no graph (1F1B's, an eval's) runs the layers plainly."""
+    attn_fn = attn_fn if attn_fn is not None else default_attention
+
+    def fn(h, c):
+        layers = chunks[c]
+        aux = torch.zeros(2, dtype=torch.float32, device=h.device)
+        for i in range(n):
+            layer = layer_params(layers, i)
+            if cfg.remat and torch.is_grad_enabled():
+                h, a = rematlib.checkpoint(_layer, h, layer, cfg, cos, sin, attn_fn,
+                                           policy=cfg.remat_policy)
+            else:
+                h, a = _layer(h, layer, cfg, cos, sin, attn_fn)
+            aux = aux + a
+        return h, (aux if cfg.n_experts else None)
+
+    return fn
+
+
+def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: int,
+               shards: int, n_virtual: int | None):
+    """The pipelined loss over the ``pipe`` axis: GPipe where ``n_virtual``
+    is None, else 1F1B with that many chunks a rank."""
+    from oim_tpu_torch.parallel import pipeline, pipeline_1f1b
+    from oim_tpu_torch.train.state import tree_leaves, tree_unflatten
+
+    m = n_microbatches
+
+    def run(params, inputs, labels, positions=None, denom=None, grad=True):
+        check_supported(cfg)
+        b, t = inputs.shape
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by {m} microbatches")
+        if denom is None:
+            denom = (labels != ignore_index).sum().float()
+        cos, sin = _rope(cfg, t, positions, inputs.device)
+        with torch.set_grad_enabled(grad):
+            x = _embed(params, inputs.long(), cfg, pipe)
+        xs, targets = list(x.detach().chunk(m)), labels.chunk(m)
+        weights = [1.0 / torch.clamp(denom, min=1.0)] * m
+        head_params = [params["final_norm"], params["lm_head"]]
+
+        def head_fn(h, j):
+            out = vocab_parallel_cross_entropy(
+                rmsnorm(h, head_params[0]), head_params[1], targets[j], pipe, ignore_index,
+                reduction="sum", z_loss=cfg.z_loss, vocab_chunk=cfg.vocab_chunk,
+                return_z_term=bool(cfg.z_loss))
+            return out if cfg.z_loss else (out, None)
+
+        leaves = list(tree_leaves(params["layers"]))
+        interleaved = n_virtual is not None and n_virtual > 1 and grad
+        chunk_leaves = (pipeline_1f1b.to_schedule_layout(leaves, pipe, n_virtual, cfg.n_layers)
+                        if interleaved else [leaves])
+        stage = _stage_fn(cfg, [tree_unflatten(params["layers"], ls) for ls in chunk_leaves],
+                          chunk_leaves[0][0].shape[0], cos, sin, attn_fn)
+        aux_seed = None
+        if cfg.n_experts:
+            aux_seed = torch.tensor([cfg.moe_aux_weight / (m * shards), 0.0], device=x.device)
+        if n_virtual is not None and grad:
+            res = pipeline_1f1b.pipeline_1f1b_value_and_grad(
+                stage, head_fn, chunk_leaves, head_params, xs, weights, pipe, aux_seed)
+        else:
+            res = pipeline.pipeline_value_and_grad(
+                stage, head_fn, leaves, head_params, xs, weights, pipe, aux_seed, grad)
+        loss, stats = res.loss, {}
+        if cfg.z_loss and n_virtual is None:
+            stats["z_loss_term"] = res.extra
+        if cfg.n_experts:
+            aux = collectives._psum(res.aux, pipe) / (m * shards)
+            loss = loss + cfg.moe_aux_weight * aux[0]
+            stats["moe_drop_frac"] = aux[1] / cfg.n_layers
+        if not grad:
+            return loss, None, stats
+        d_layers = (pipeline_1f1b.from_schedule_layout(res.d_stage, pipe, cfg.n_layers)
+                    if interleaved else res.d_stage[0])
+        (d_embed,) = torch.autograd.grad(x, [params["embed"]], torch.cat(res.d_x))
+        grads = {"embed": d_embed, "layers": tree_unflatten(params["layers"], d_layers),
+                 "final_norm": res.d_head[0], "lm_head": res.d_head[1]}
+        return loss, grads, stats
+
+    return run
+
+
+def make_pipelined_loss(cfg: Config, pipe, n_microbatches: int,
+                        attn_fn: AttentionFn | None = None, ignore_index: int = -1,
+                        shards: int = 1):
+    """Next-token CE with the stacked layers pipelined over ``pipe`` (an
+    ``Axis``) as a GPipe schedule (``parallel/pipeline.py``): returns
+    ``fn(params, inputs, labels, positions=None, denom=None, grad=True)
+    -> (loss, grads, stats)`` (grads None with ``grad=False``, the eval
+    forward).
+
+    ``params`` are this rank's pieces under PIPE_RULES: its L/P layers,
+    its vocab slice of ``embed`` (rows) and ``lm_head`` (columns), the
+    whole ``final_norm``. The embedding is vocab-parallel over ``pipe``
+    (looked up on the local rows and summed); the batch [B, T] (this
+    rank's rows and, under sequence parallelism, its positions and
+    ``attn_fn`` over the ``seq`` axis) is cut into ``n_microbatches``; the
+    head is final norm + the vocab-parallel CE over ``pipe`` with the
+    z-loss, each microbatch's sum weighted by 1/``denom`` (the global
+    count of kept labels: the loss is the global masked mean, however the
+    mask falls across microbatches and ranks). The grads are those of this
+    rank's pieces, before any sum over the batch or sequence axes.
+
+    MoE: capacity and routing are per microbatch and per rank's tokens (the
+    JAX package routes inside its shard_map); the load-balance aux of each
+    real (stage, microbatch) pair joins the loss at
+    moe_aux_weight / (M * ``shards``), ``shards`` the ranks that split the
+    tokens, and stats["moe_drop_frac"] is this rank's share of the mean
+    per-layer drop share. stats["z_loss_term"] is reported with z_loss."""
+    return _pipelined(cfg, pipe, n_microbatches, attn_fn, ignore_index, shards, None)
+
+
+def make_1f1b_loss(cfg: Config, pipe, n_microbatches: int,
+                   attn_fn: AttentionFn | None = None, ignore_index: int = -1,
+                   shards: int = 1, n_virtual: int = 1):
+    """``make_pipelined_loss``'s function under the 1F1B schedule
+    (``parallel/pipeline_1f1b.py``): live activations bounded by the pipe
+    depth, the stage forward recomputed in its backward. ``n_virtual`` > 1
+    is the interleaved schedule: the layers (held canonically, L/P
+    contiguous a rank) are exchanged into the schedule's layout each call
+    and their gradients back. Requires n_microbatches % pipe == 0 and
+    n_layers % (pipe * n_virtual) == 0. As in the JAX package, the z-loss
+    is in the loss but stats carry no z_loss_term."""
+    return _pipelined(cfg, pipe, n_microbatches, attn_fn, ignore_index, shards,
+                      max(1, n_virtual))
 
 
 def _param_counts(cfg: Config, experts: int) -> int:

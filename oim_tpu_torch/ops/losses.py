@@ -3,7 +3,8 @@
 Cross entropy takes logits in any dtype, reduces in float32, and never
 materializes one-hot targets over the full vocabulary.
 ``vocab_parallel_cross_entropy`` is the loss of an LM head whose vocab is
-split over a mesh axis (tensor parallelism; the pipeline's head later).
+split over a mesh axis (tensor parallelism's ``model`` axis, the
+pipeline's ``pipe`` axis).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Parallelism over ``torch.distributed``: the mesh of ranks, named
-sharding rules, collectives over mesh axes, and sequence parallelism
-(ring, zigzag and Ulysses attention, ``parallel/ring.py``). The port of
-``oim_tpu/parallel``; the pipeline schedules and the registry bootstrap
-are not ported yet.
+sharding rules, collectives over mesh axes, sequence parallelism (ring,
+zigzag and Ulysses attention, ``parallel/ring.py``) and pipeline
+parallelism (GPipe, ``parallel/pipeline.py``; 1F1B and interleaved 1F1B,
+``parallel/pipeline_1f1b.py``). The port of ``oim_tpu/parallel``; the
+registry bootstrap is not ported yet.
 """
 
 from oim_tpu_torch.parallel.mesh import (

@@ -37,8 +37,10 @@ once for each call, never a retry after a failure, and NCCL stages
 nothing. On torch 2.11 with CUDA 12.8, gloo takes all_reduce, broadcast,
 all_gather, reduce_scatter and all_to_all on CUDA tensors and refuses
 send/recv (its TCP pair writes from the device pointer), so only the ring
-rotation is staged. ``CALLS``/``BYTES`` count every call with a group and
-the bytes it sent, ``STAGED_CALLS``/``STAGED_BYTES`` the staged ones.
+rotation and the pipeline's point-to-point hand-offs (``send_recv``) are
+staged. ``CALLS``/``BYTES`` count every call with a group and the bytes it
+sent (a ``send`` each tensor sent), ``STAGED_CALLS``/``STAGED_BYTES`` the
+staged ones.
 
 An axis without a group (a mesh of one process that never initialised
 ``torch.distributed``) makes every collective the identity. An axis of
@@ -57,10 +59,10 @@ from oim_tpu_torch.parallel.mesh import Axis
 
 # backend -> operations it cannot take on a CUDA tensor (staged through
 # pinned host buffers). NCCL takes every operation on the device.
-HOST_STAGED = {"gloo": frozenset({"ppermute"})}
+HOST_STAGED = {"gloo": frozenset({"ppermute", "send"})}
 
 OPS = ("psum", "pmax", "all_gather", "gather_from", "reduce_scatter", "all_to_all",
-       "ppermute")
+       "ppermute", "send")
 CALLS = {op: 0 for op in OPS}
 BYTES = {op: 0 for op in OPS}
 STAGED_CALLS = {op: 0 for op in OPS}
@@ -167,6 +169,43 @@ def _ppermute(x: torch.Tensor, axis: Axis, shift: int) -> torch.Tensor:
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recv.to(x.device) if staged else recv
+
+
+def send_recv(axis: Axis, sends=(), recvs=(), device=None) -> list[torch.Tensor]:
+    """Point-to-point over ``axis`` (no gradient): ``sends`` are
+    (tensor, index on the axis, tag) and ``recvs`` (shape, dtype, index,
+    tag) of the tensors to receive on ``device``; every operation is
+    posted at once and waited, and the received tensors come back in
+    ``recvs``' order. A send to this rank's own index is handed to the
+    receive of the same tag without a call. The peer of each send must
+    post its receive in the same call, and two ranks order the messages
+    between them alike (sends and receives both in the order of their
+    tags): messages between a pair match in order."""
+    local = {tag: t for t, peer, tag in sends if peer == axis.index}
+    ops, bufs = [], []
+    for t, peer, tag in sends:
+        if peer == axis.index:
+            continue
+        t = t.contiguous()
+        staged = _staged("send", axis, t)
+        ops.append(dist.P2POp(dist.isend, _to_host(t) if staged else t, axis.ranks[peer],
+                              group=axis.group, tag=tag))
+    recv_staged = (torch.device(device).type == "cuda"
+                   and "send" in HOST_STAGED.get(axis.backend, ()))
+    for shape, dtype, peer, tag in recvs:
+        if peer == axis.index:
+            bufs.append((local.pop(tag), False))
+            continue
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if recv_staged else device,
+                          pin_memory=recv_staged)
+        ops.append(dist.P2POp(dist.irecv, buf, axis.ranks[peer], group=axis.group, tag=tag))
+        bufs.append((buf, recv_staged))
+    if local:
+        raise ValueError(f"sends to this rank with no receive: tags {sorted(local)}")
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(device) if on_host else b for b, on_host in bufs]
 
 
 # -------------------------------------------- differentiable wrappers ----

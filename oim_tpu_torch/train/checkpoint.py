@@ -312,9 +312,12 @@ class Checkpointer:
             self._commit_pieces(step, tmp)
 
     def _mark_done(self, tmp: str, member: int) -> None:
-        """This rank's pieces are durable: its marker, then the directory."""
-        _write_durable(os.path.join(tmp, f"done-{member}"), lambda f: None)
+        """This rank's pieces are durable, their directory entries too: then
+        its marker. Once the marker exists the lowest rank may rename the
+        directory at any moment; its commit fsyncs the directory, markers
+        included, before the rename."""
         _fsync_dir(tmp)
+        _write_durable(os.path.join(tmp, f"done-{member}"), lambda f: None)
 
     def _commit_pieces(self, step: int, tmp: str) -> None:
         """The lowest rank: wait for every rank's marker, write the

@@ -52,14 +52,16 @@ def tree_leaves(tree):
 
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` in tree_leaves order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # A module-level recursion: a nested closure that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a step's gradients)
+    # alive until the next garbage collection.
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def _map(fn, tree):

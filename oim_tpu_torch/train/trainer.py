@@ -37,8 +37,20 @@ norm. An MoE model routes the global token set (``models/moe.py``).
 ResNet-50 runs over the batch axes with its batch norm's statistics
 taken over the global batch and its running statistics replicated. A
 checkpoint under a mesh is written in pieces and resumes under any mesh
-(``train/checkpoint.py``). Still to come, refused by ``check_supported``:
-"pipe", and a ``model`` axis that splits a query head.
+(``train/checkpoint.py``).
+
+Rules "pipe" (``PIPE_RULES``): the stacked layers split over a ``pipe``
+axis, L/P contiguous layers a rank, and embed's and lm_head's vocabulary
+over it too; ``microbatches`` stream through the stages under
+``pipeline_schedule`` "gpipe" or "1f1b" (``virtual_stages`` > 1: the
+interleaved 1F1B), with ``data`` splitting the batch and ``seq`` the
+sequence inside every stage (``llama.make_pipelined_loss`` and
+``make_1f1b_loss``). The pipeline computes its own gradients (autograd
+does not cross ranks); the eval forward is always GPipe's. An MoE model
+routes each rank's tokens of each microbatch, as the JAX package does
+inside its pipeline. Still to come, refused by ``check_supported``: a
+``model`` axis that splits a query head, and a ``model`` or ``expert``
+axis beside ``pipe``.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, the gradients' sums over ranks, then the
@@ -64,6 +76,7 @@ from oim_tpu_torch.models import llama, moe, resnet
 from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
 from oim_tpu_torch.parallel.collectives import all_gather, psum
 from oim_tpu_torch.parallel.mesh import Axis, Mesh, build_mesh
+from oim_tpu_torch.parallel.pipeline import pipeline_stage_slice
 from oim_tpu_torch.parallel.ring import make_sequence_parallel_attention, shard_positions
 from oim_tpu_torch.parallel.sharding import (
     BATCH,
@@ -94,7 +107,7 @@ RULES = {
     "pipe": PIPE_RULES,
 }
 # The mesh axes a rules table may split over more than one rank.
-PORTED_AXES = ("data", "fsdp", "seq", "model", "expert")
+PORTED_AXES = ("data", "fsdp", "seq", "model", "expert", "pipe")
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
 # roofline accounting, matched against torch.cuda.get_device_name() in
@@ -137,9 +150,17 @@ def peak_hbm_bw_per_device(device="cuda") -> float:
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "llama-tiny"  # llama-tiny | llama-tiny-moe | llama3-8b | resnet50
-    rules: str = "dp"  # dp | fsdp | tp_sp ("pipe" is not ported yet)
+    rules: str = "dp"  # dp | fsdp | tp_sp | pipe
     seq_parallel: str = "ring"  # ring | zigzag | ulysses (mesh seq axis > 1;
     # zigzag = load-balanced causal ring: equal per-step work on every rank)
+    microbatches: int = 4  # pipeline microbatch count (rules == "pipe")
+    # "gpipe" or "1f1b" (live activations O(P) not O(M); needs
+    # microbatches % pipe == 0). Both serve MoE and a seq axis in the pipe.
+    pipeline_schedule: str = "gpipe"
+    # Interleaved 1F1B: v virtual stages (layer chunks) a rank, bubble
+    # (P-1)/(v*M+P-1). Needs pipeline_schedule="1f1b" and
+    # n_layers % (pipe * v) == 0.
+    virtual_stages: int = 1
     remat: bool = False  # recompute activations in bwd (fit big configs)
     remat_policy: str = ""  # "", "dots", "dots_with_no_batch_dims", "nothing"
     accum_steps: int = 1  # gradient accumulation: split the batch, one update
@@ -191,9 +212,8 @@ class TrainConfig:
         """Refuse what the port cannot run yet, naming what brings it."""
         if self.rules not in RULES:
             raise ValueError(f"unknown rules {self.rules!r} (valid: {sorted(RULES)})")
-        if self.rules == "pipe":
-            raise NotImplementedError(
-                "rules 'pipe' (GPipe, 1F1B) are not ported yet: a later multi-GPU slice")
+        if self.rules == "pipe" and not self.model.startswith("llama"):
+            raise ValueError("pipe rules support llama-family models only")
         mcfg = self.model_config()
         if self.model.startswith("llama"):
             llama.check_supported(mcfg)
@@ -203,10 +223,44 @@ class TrainConfig:
             if size > 1 and name not in PORTED_AXES:
                 raise NotImplementedError(
                     f"mesh axis {name!r} of size {size}: only {PORTED_AXES} are ported")
+        if self.rules == "pipe":
+            self._check_pipe(mesh, mcfg)
+        elif mesh.shape.get("pipe", 1) > 1:
+            raise NotImplementedError(
+                f"a pipe axis of {mesh.shape['pipe']} under rules {self.rules!r}: the port "
+                "splits over pipe under rules 'pipe' only")
         n_model = mesh.shape.get("model", 1)
         if n_model > 1 and RULES[self.rules].axis_for(HEAD) == "model" \
                 and self.model.startswith("llama"):
             llama.check_tensor_parallel(mcfg, n_model)
+
+
+    def _check_pipe(self, mesh: Mesh, mcfg) -> None:
+        """The JAX trainer's refusals of a pipelined run, with its errors."""
+        if "pipe" not in mesh.shape:
+            raise ValueError(
+                "pipe rules need a mesh with a 'pipe' axis "
+                f"(got axes {tuple(mesh.shape)}); e.g. --mesh data=2,pipe=2")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"unknown pipeline_schedule {self.pipeline_schedule!r} "
+                "(valid: 'gpipe', '1f1b')")
+        for name in ("model", "expert"):
+            if mesh.shape.get(name, 1) > 1:
+                raise NotImplementedError(
+                    f"a {name} axis of {mesh.shape[name]} beside pipe: under rules 'pipe' the "
+                    "port splits over data, pipe and seq only")
+        p, m = mesh.shape["pipe"], self.microbatches
+        if self.pipeline_schedule == "1f1b":
+            if m % p:
+                raise ValueError(
+                    f"1F1B shards the microbatch dim over the pipe axis: "
+                    f"n_microbatches {m} must divide by pipe size {p}")
+            v = max(1, self.virtual_stages)
+            if v > 1 and mcfg.n_layers % (p * v):
+                raise ValueError(
+                    f"{mcfg.n_layers} layers not divisible by pipe {p} x virtual {v}")
+        pipeline_stage_slice(mcfg.n_layers, p, 0)  # refuses L % P
 
 
 def _heads_gathered(sp, tp: Axis):
@@ -267,6 +321,7 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
 
     tp, ep = axis_of(HEAD, "model"), axis_of(EXPERT, "expert")
     keep = tuple(a.name for a in (tp, ep) if a is not None)
+    pipe = mesh.axis("pipe") if cfg.rules == "pipe" else None
 
     if cfg.model.startswith("llama"):
         attn_fn = None
@@ -279,7 +334,7 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
             attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731
         logical = llama.param_logical_axes(mcfg)
         ctx = None
-        if mcfg.n_experts and (split or keep):
+        if mcfg.n_experts and (split or keep) and pipe is None:
             ctx = moe.MeshContext(batch=tuple(batch_axes),
                                   seq=mesh.axis("seq") if n_seq > 1 else None,
                                   layout=cfg.seq_parallel, model=tp, expert=ep)
@@ -298,27 +353,54 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
         def init_params(rng):
             return llama.init(rng, mcfg, device=device), {}
 
-        def loss_fn(params, extra, batch, whole=False):
-            """``whole``: the batch is the placed accumulation microbatches
-            run at once (an eval pass), whose global order MoE routing
-            follows."""
-            full = gather_params(mesh, shardings, params, keep, replicas)
+        def token_shard(batch):
+            """(inputs, labels, positions, global kept-label count) of this
+            rank's part of the batch."""
             tokens = batch["tokens"]
             # The label shift is global: taken before the sequence is cut.
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
             pos, index = seq_shard(inputs.shape[1])
             if index is not None:
                 inputs, labels = inputs[:, index], labels[:, index]
-            ignore = -1  # loss_and_stats' ignore_index, as in the JAX step
             with torch.no_grad():
-                kept = psum((labels != ignore).sum().float(), split)
+                kept = psum((labels != -1).sum().float(), split)
+            return inputs, labels, pos, kept
+
+        if pipe is not None:
+            # Each rank's stages compute their own gradients (the pipeline
+            # drives its backward across ranks); the eval forward is GPipe's.
+            kw = dict(attn_fn=attn_fn, shards=int(np.prod([a.size for a in split])))
+            pipe_eval = llama.make_pipelined_loss(mcfg, pipe, cfg.microbatches, **kw)
+            pipe_vg = pipe_eval
+            if cfg.pipeline_schedule == "1f1b":
+                pipe_vg = llama.make_1f1b_loss(mcfg, pipe, cfg.microbatches,
+                                               n_virtual=max(1, cfg.virtual_stages), **kw)
+            rows = int(np.prod([a.size for a in batch_axes]))
+
+            def pipe_run(fn, params, batch, grad):
+                inputs, labels, pos, kept = token_shard(batch)
+                b = inputs.shape[0] * rows  # the global batch, as the JAX step sees it
+                if b % cfg.microbatches:
+                    raise ValueError(f"batch {b} not divisible by {cfg.microbatches} microbatches")
+                return fn(params, inputs, labels, positions=pos, denom=kept, grad=grad)
+
+        def loss_fn(params, extra, batch, whole=False):
+            """``whole``: the batch is the placed accumulation microbatches
+            run at once (an eval pass), whose global order MoE routing
+            follows."""
+            full = gather_params(mesh, shardings, params, keep, replicas)
+            # -1 is loss_and_stats' ignore_index, as in the JAX step.
+            inputs, labels, pos, kept = token_shard(batch)
             here = dataclasses.replace(ctx, groups=accum) if whole and ctx else ctx
-            loss, stats = llama.loss_and_stats(full, inputs, mcfg, attn_fn, ignore, labels=labels,
+            loss, stats = llama.loss_and_stats(full, inputs, mcfg, attn_fn, -1, labels=labels,
                                                positions=pos, denom=kept, tp=tp, ctx=here)
             return loss, extra, stats
 
         def eval_stats(params, extra, batch):
-            loss, _, stats = loss_fn(params, extra, batch, whole=True)
+            if pipe is not None:
+                loss, _, stats = pipe_run(pipe_eval, params, batch, grad=False)
+            else:
+                loss, _, stats = loss_fn(params, extra, batch, whole=True)
             return {"loss": loss, **stats}
     else:
         logical = resnet.held_logical_axes(mcfg)
@@ -366,6 +448,9 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
                           extra={} if extra is None else extra)
 
     def grads_of(params, extra, batch):
+        if pipe is not None:
+            loss, grads, stats = pipe_run(pipe_vg, params, batch, grad=True)
+            return loss.detach(), extra, stats, list(tree_leaves(grads))
         leaves = list(tree_leaves(params))
         loss, new_extra, stats = loss_fn(params, extra, batch)
         grads = torch.autograd.grad(loss, leaves)
@@ -524,19 +609,25 @@ class Trainer:
         microbatch cut over the BATCH axes (``shard_batch``), so that a
         rank's i-th local microbatch is its part of the global i-th one, as
         the JAX step splits the global batch before sharding each
-        microbatch. Where one piece holds every row (one rank), a tensor
-        already on the device passes through untouched (a feed gathered
-        from a staged volume)."""
+        microbatch. Under rules "pipe" each accumulation microbatch is
+        split into the pipeline's microbatches first the same way. Where one
+        piece holds every row (one rank), a tensor already on the device
+        passes through untouched (a feed gathered from a staged volume)."""
         rules, accum = RULES[self.cfg.rules], max(1, self.cfg.accum_steps)
+        micro = self.cfg.microbatches if self.cfg.rules == "pipe" else 1
         batch = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
                  for k, v in batch.items()}
         if logical_sharding(self.mesh, rules, (BATCH,)).parts(self.mesh, 0)[0] > 1:
-            micro = {}
+            parts = {}
             for k, v in batch.items():
                 if v.shape[0] % accum:
                     raise ValueError(f"batch {v.shape[0]} not divisible by accum_steps {accum}")
-                micro[k] = v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
-            rows = shard_batch(self.mesh, rules, micro, {k: (None, BATCH) for k in micro})
+                if v.shape[0] // accum % micro:
+                    raise ValueError(
+                        f"batch {v.shape[0] // accum} not divisible by {micro} microbatches")
+                parts[k] = v.reshape((accum * micro, v.shape[0] // (accum * micro))
+                                     + tuple(v.shape[1:]))
+            rows = shard_batch(self.mesh, rules, parts, {k: (None, BATCH) for k in parts})
             batch = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in rows.items()}
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}

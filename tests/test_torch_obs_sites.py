@@ -103,6 +103,16 @@ PORTED_SITES = {
 
 
 @pytest.fixture(autouse=True, scope="module")
+def jax_staging_built():
+    """The JAX package's libstaging.so built (``staging.build()``, as
+    tests/test_staging.py's fixture builds it) before this file's first
+    ``jstaging`` read: a read made while the library is missing caches the
+    miss for the life of the process, and test_staging.py run later in the
+    same process would then skip all its native tests."""
+    jstaging.build()
+
+
+@pytest.fixture(autouse=True, scope="module")
 def fresh_rings():
     """One span recorder and one event ring per package for this file's
     process (big enough that nothing wraps), restored after."""

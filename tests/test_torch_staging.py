@@ -23,6 +23,16 @@ from oim_tpu_torch.data import staging as tstaging
 CASES = [(0, None), (12345, None), (1, 9 * (4 << 20) + 3), ((4 << 20) - 1, 5), (7, 1), (0, 0)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def jax_staging_built():
+    """The JAX package's libstaging.so built (``staging.build()``, as
+    tests/test_staging.py's fixture builds it) before this file's first
+    ``jstaging`` read: a read made while the library is missing caches the
+    miss for the life of the process, and test_staging.py run later in the
+    same process would then skip all its native tests."""
+    jstaging.build()
+
+
 @pytest.fixture(scope="module")
 def native():
     if shutil.which(tstaging.compiler()) is None:

@@ -142,8 +142,13 @@ def test_unported_trainer_options_refuse():
         ttrainer.Trainer(ttrainer.TrainConfig(rules="fsdp"), device="cpu")
     assert "Resource axis: fsdp" in str(jerr.value)
     assert "Resource axis: fsdp" in str(terr.value)
-    with pytest.raises(NotImplementedError, match="pipe"):
+    # Rules "pipe" on a mesh with no pipe axis: the JAX Trainer's own error.
+    with pytest.raises(ValueError) as jerr:
+        jtrainer.Trainer(jtrainer.TrainConfig(rules="pipe"))
+    with pytest.raises(ValueError) as terr:
         ttrainer.Trainer(ttrainer.TrainConfig(rules="pipe"), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert "pipe rules need a mesh with a 'pipe' axis" in str(terr.value)
 
 
 def test_entry_points_default_to_cuda():

@@ -1,7 +1,8 @@
 """One rank of a multi-rank run of the port on the CPU, for
 tests/test_torch_parallel.py, tests/test_torch_parallel_train.py,
 tests/test_torch_tp.py, tests/test_torch_ep.py,
-tests/test_torch_resnet_parallel.py and tests/test_torch_checkpoint_mesh.py.
+tests/test_torch_resnet_parallel.py, tests/test_torch_checkpoint_mesh.py and
+tests/test_torch_pipe.py.
 
     python tests/torch_parallel_worker.py JOB.json RANK
 
@@ -36,7 +37,7 @@ import torch.nn.functional as F  # noqa: E402
 from oim_tpu_torch.models import llama, moe, resnet  # noqa: E402
 from oim_tpu_torch.ops.losses import vocab_parallel_cross_entropy  # noqa: E402
 from oim_tpu_torch.parallel import collectives as C  # noqa: E402
-from oim_tpu_torch.parallel import ring  # noqa: E402
+from oim_tpu_torch.parallel import pipeline, pipeline_1f1b, ring  # noqa: E402
 from oim_tpu_torch.parallel.mesh import Mesh, build_mesh  # noqa: E402
 from oim_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from oim_tpu_torch.train import trainer as T  # noqa: E402
@@ -185,11 +186,12 @@ def _tree(inputs: dict, prefix: str) -> dict:
     return unflatten({k[len(prefix):]: v for k, v in inputs.items() if k.startswith(prefix)})
 
 
-def _init(tr, inputs: dict) -> None:
-    """The JAX Trainer's initial params (and BN state) from the inputs."""
+def _init(tr, inputs: dict, prefix: str = "params/") -> None:
+    """The JAX Trainer's initial params (and BN state) from the inputs
+    (the params under ``prefix``)."""
     lib = _lib(tr.cfg)
     extra = _tree(inputs, "extra/")
-    tr.init(lib.from_numpy(_tree(inputs, "params/"), device="cpu"),
+    tr.init(lib.from_numpy(_tree(inputs, prefix), device="cpu"),
             lib.from_numpy(extra, device="cpu") if extra else None)
 
 
@@ -218,7 +220,10 @@ def planted(fault: str | None):
     all_gather, whose backward reduce-scatters a cotangent already whole on
     every rank; "aux_everywhere" counts the load-balance loss in full on
     every rank of the token-splitting axes; "rank_bn" takes batch norm's
-    statistics over this rank's rows only."""
+    statistics over this rank's rows only; "head_unsummed" lets the
+    pipeline head's replicated input in without ``copy_to`` (the psum of
+    its cotangent over the vocab split forgotten); "canonical_order" runs
+    interleaved 1F1B on the canonical layer order."""
     if fault is None:
         yield
         return
@@ -247,6 +252,13 @@ def planted(fault: str | None):
                     n *= axis.size if axis is not None else 1
             return out, stats * torch.tensor([float(n), 1.0])
         patch(moe, "apply", everywhere)
+    elif fault == "head_unsummed":
+        patch(C, "copy_to", lambda x, axis: x)
+    elif fault == "canonical_order":
+        def canonical(n_layers, p, v):
+            order = np.arange(n_layers, dtype=np.int32)
+            return order, order
+        patch(pipeline_1f1b, "interleave_layer_permutation", canonical)
     elif fault == "rank_bn":
         patch(resnet, "_batchnorm", lambda x, p, s, training, momentum, eps, batch_axes=():
               batchnorm(x, p, s, training, momentum, eps))
@@ -269,10 +281,13 @@ def train(sc, inputs, rank, world, out):
     axes = [tuple(a) for a in sc["axes"]]
     with planted(sc.get("fault")):
         tr = T.Trainer(cfg, device="cpu", axes=axes)
-        _init(tr, inputs)
+        _init(tr, inputs, sc.get("params", "params/"))
         data = _batches(name, inputs, cfg)
         for step in range(sc["steps"]):
             tr.state, stats = tr.step_fn(tr.state, tr.place_batch(next(data)))
+            if cfg.rules == "pipe" and cfg.pipeline_schedule == "1f1b":
+                out[f"{name}/stash_peak{step}"] = np.asarray(
+                    [pipeline_1f1b.STASH_PEAK["x"], pipeline_1f1b.STASH_PEAK["dh"]])
             out[f"{name}/loss{step}"] = np.asarray(float(stats["loss"]))
             out[f"{name}/grad_norm{step}"] = np.asarray(float(stats["grad_norm"]))
             if "moe_drop_frac" in stats:
@@ -289,6 +304,54 @@ def train(sc, inputs, rank, world, out):
     for (leaf, _), s in zip(_leaf_items(tr.state.params), tree_leaves(tr.shardings)):
         out[f"{name}/piece/{leaf}"] = np.asarray(
             [s.parts(tr.mesh, d)[1] for d in range(len(s.dims))], dtype=np.int64)
+
+
+def pipe_toy(sc, inputs, rank, world, out):
+    """GPipe, or 1F1B with ``v`` chunks a rank, over a pipe axis of the
+    world on a toy stage (tanh(h @ w + b) per layer, this rank's L/P layers
+    held canonically) and a replicated MSE head, each microbatch weighted
+    1/M: the loss, this rank's gradient pieces, the head's gradient, the
+    inputs' cotangents and (1F1B) the stash peaks."""
+    name, schedule, v = sc["name"], sc["schedule"], sc.get("v", 1)
+    axis = build_mesh([("pipe", world)], device="cpu").axis("pipe")
+    w, b = inputs[f"{name}/w"], inputs[f"{name}/b"]
+    n_layers, m = w.shape[0], inputs[f"{name}/x"].shape[0]
+    per = n_layers // world
+    mine = slice(rank * per, (rank + 1) * per)
+    leaves = [torch.tensor(w[mine]).requires_grad_(True),
+              torch.tensor(b[mine]).requires_grad_(True)]
+    head = [torch.tensor(inputs[f"{name}/wo"]).requires_grad_(True)]
+    xs = [torch.tensor(x) for x in inputs[f"{name}/x"]]
+    tgt = [torch.tensor(t) for t in inputs[f"{name}/tgt"]]
+
+    def head_fn(h, j):
+        return torch.mean((h @ head[0] - tgt[j]) ** 2), None
+
+    chunks = [leaves]
+    if schedule == "1f1b" and v > 1:
+        chunks = pipeline_1f1b.to_schedule_layout(leaves, axis, v, n_layers)
+
+    def stage(h, c):
+        cw, cb = chunks[c]
+        for i in range(cw.shape[0]):
+            h = torch.tanh(h @ cw[i] + cb[i])
+        return h, None
+
+    weights = [1.0 / m] * m
+    if schedule == "gpipe":
+        res = pipeline.pipeline_value_and_grad(stage, head_fn, leaves, head, xs, weights, axis)
+        d_stage = res.d_stage[0]
+    else:
+        res = pipeline_1f1b.pipeline_1f1b_value_and_grad(stage, head_fn, chunks, head, xs,
+                                                         weights, axis)
+        d_stage = res.d_stage[0] if v == 1 else pipeline_1f1b.from_schedule_layout(
+            res.d_stage, axis, n_layers)
+        out[f"{name}/stash_peak"] = np.asarray(
+            [pipeline_1f1b.STASH_PEAK["x"], pipeline_1f1b.STASH_PEAK["dh"]])
+    out[f"{name}/loss"] = res.loss.numpy()
+    out[f"{name}/dw"], out[f"{name}/db"] = (g.numpy() for g in d_stage)
+    out[f"{name}/dwo"] = res.d_head[0].numpy()
+    out[f"{name}/dx"] = torch.stack(res.d_x).numpy()
 
 
 def batchnorm(sc, inputs, rank, world, out):
@@ -351,7 +414,7 @@ def checkpointed(sc, inputs, rank, world, out):
             mark(self, tmp, member)
         ckpt.Checkpointer._mark_done = killed
     if sc["phase"] == "save":
-        _init(tr, inputs)
+        _init(tr, inputs, sc.get("params", "params/"))
     t0 = time.monotonic()
     tr.run(steps=sc["steps"])
     out[f"{name}/seconds"] = np.asarray(time.monotonic() - t0)
@@ -449,6 +512,8 @@ def main() -> int:
             batchnorm(sc, inputs, rank, world, out)
         elif sc["type"] == "checkpoint":
             checkpointed(sc, inputs, rank, world, out)
+        elif sc["type"] == "pipe_toy":
+            pipe_toy(sc, inputs, rank, world, out)
         else:
             train(sc, inputs, rank, world, out)
     out["staged_calls"] = np.asarray(sum(C.STAGED_CALLS.values()))
