@@ -2,8 +2,9 @@
 or its pipeline runs alone, on one NVIDIA H100: a quicker loop than the
 whole script while that part changes.
 
-    python3 chip_phase15.py           # MoE, ResNet, checkpoints
-    python3 chip_phase15.py --pipe    # pipeline parallelism
+    python3 chip_phase15.py            # MoE, ResNet, checkpoints
+    python3 chip_phase15.py --pipe     # pipeline parallelism
+    python3 chip_phase15.py --slice14  # a volume across the mesh; a head split
 
 It builds the kernels, runs phase 11 (the MoE flagship trained 4 steps:
 the one-rank reference of run (a)), then chip_smoke's ``slice12_job`` on
@@ -17,6 +18,12 @@ With ``--pipe`` it builds the kernels and runs chip_smoke's pipe runs
 instead: the one-rank references (``pipe_references``), ``pipe_job`` on
 two gloo ranks sharing the card ((e)-(h), the memory readings and
 PIPE_FAULTS) and ``check_pipe``'s gates; its JSON line is ``pipe``.
+
+With ``--slice14`` it runs (i) and (j): the one-rank references (phase
+5's config for (i), ``slice14_references`` for (j)), the volumes
+(``slice14_volumes``), ``slice14_job`` on two gloo ranks sharing the card
+and ``check_slice14``'s gates (phase 8 is not run: its stage is printed
+as nan); its JSON line is ``slice14``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,34 @@ def pipe_job(rank: int, world: int, device: str) -> dict:
     import chip_smoke as cs
 
     return {"pipe": cs.pipe_job(rank, world, device)}
+
+
+def slice14_job(rank: int, world: int, device: str, volumes: dict) -> dict:
+    import chip_smoke as cs
+
+    return {"slice14": cs.slice14_job(rank, world, device, volumes)}
+
+
+def slice14_main(cs, missed: list, t0: float, card: str) -> int:
+    from oim_tpu_torch.cli import oim_trainer
+
+    hist = oim_trainer.run(cs.run_argv([], cs.BATCH, cs.SEQ, "cuda:0")).history
+    main = {"history": hist, "losses": [h["loss"] for h in hist]}
+    refs = cs.slice14_references("cuda:0")
+    root = tempfile.mkdtemp(prefix="oim-placed-")
+    try:
+        volumes = cs.slice14_volumes(root)
+        ranks = cs.run_ranks(functools.partial(slice14_job, volumes=volumes), cs.PAR_WORLD,
+                             "gloo", cs.PAR_RANK_TIMEOUT, "cuda:0")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nan = float("nan")
+    out, faults = cs.check_slice14(ranks, main, refs, {"stage_gbps": nan, "stage_s": nan,
+                                                       "volume_bytes": 0})
+    cs.say(f"  total {time.monotonic() - t0:.1f} s; {len(missed)} gate(s) missed")
+    cs.say(json.dumps({"slice14": out, "faults": faults, "missed": missed}))
+    cs.say(card)
+    return 1 if missed else 0
 
 
 def pipe_main(cs, missed: list, t0: float, card: str) -> int:
@@ -79,6 +114,8 @@ def main() -> int:
     cs.say(f"  built {kernels.build()}")
     if "--pipe" in sys.argv[1:]:
         return pipe_main(cs, missed, t0, card)
+    if "--slice14" in sys.argv[1:]:
+        return slice14_main(cs, missed, t0, card)
     moe_history = cs.phase_moe_main(False).pop("history")
     torch.cuda.empty_cache()
     refs = cs.slice12_references("cuda:0", moe_history)

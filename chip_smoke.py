@@ -317,6 +317,29 @@ Phases, in order; any failure exits nonzero:
    M=PIPE_M and at M=PIPE_M_WIDE (B=M) is printed: the memory law. Last PIPE_FAULTS (the interleaved run on the
    canonical layer order; the MoE aux counted on idle ticks too), each
    of which must break a limit.
+   Last slice 14's runs (``slice14_job``). (i) An int32 token volume
+   [PLACE_N, BATCH, SEQ + 1] (its first STEPS batches phase 5's) staged
+   by each rank through its own ``CUDABackend(mesh=data=2)`` with
+   sharding_axes ["", "data", ""]: a ``plane.Placed`` holding this
+   rank's coordinate only, its rows of the file byte for byte, PLACE_N
+   (= MAX_RUNS) runs and the rank's bytes read (counted at the file
+   reader), one plane call, ``placement_bytes``, the
+   volume's total and ``oim_staged_bytes_total``'s rise all the rank's
+   bytes, the device's allocation grown by at most the slice plus two
+   chunks, a restage served by the cache (no plane call, the same
+   storage); then phase 5's config under ``--rules dp --mesh data=2`` fed
+   ``vol[i]`` with place_batch handing back the staged storage at every
+   step, within PAR_LOSS_REL / PAR_NORM_REL of phase 5 at every step,
+   K1-K3 at LAYERS x STEPS a rank on ``wgmma``; then the same layout at
+   PLACE_FALLBACK_N batches, past MAX_RUNS, through the whole-read
+   fallback, equal to the file. Stage seconds, GB/s and breakdown a rank
+   are printed beside phase 8's. (j) ``--rules tp_sp --mesh
+   data=1,fsdp=1,seq=1,model=2`` on HEADSPLIT_MODEL (3 query heads of
+   128 over 2 ranks: a head straddles them), B=1, T=HEADSPLIT_T, against
+   one rank at every step within the limits, attention at (2, 1) heads
+   a rank, K1-K3 at LAYERS x STEPS a rank on ``wgmma``, each rank
+   holding half the split leaves, replicas equal by digest; the planted
+   ``gather_from`` in place of q's gather must break a limit.
 16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
@@ -4289,13 +4312,17 @@ def slice12_job(rank: int, world: int, device: str, root: str, full: bool = True
     return out
 
 
-def ranks_job(rank: int, world: int, device: str, root: str, full: bool = True) -> dict:
+def ranks_job(rank: int, world: int, device: str, root: str, full: bool = True,
+              volumes: dict | None = None) -> dict:
+    """Every multi-rank run of phase 15 on this rank; slice 14's (i) and
+    (j) where ``volumes`` (``slice14_volumes``) are given."""
     return {"collectives": check_collectives(rank, world, device),
             "attention": sp_attention_check(rank, world, device),
             "train": train_runs(rank, world, device),
             "faults": fault_runs(rank, world, device),
             "slice12": slice12_job(rank, world, device, root, full),
-            "pipe": pipe_job(rank, world, device, full)}
+            "pipe": pipe_job(rank, world, device, full),
+            "slice14": slice14_job(rank, world, device, volumes) if volumes else None}
 
 
 def nccl_world1_job(rank: int, world: int, device: str) -> dict:
@@ -4992,12 +5019,421 @@ def check_pipe(ranks: list, refs: dict, world: int) -> tuple[dict, dict, dict]:
     return out, faults, memory
 
 
-def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dict:
+# Phase 15, slice 14: (i) one token volume staged across the data=2 mesh,
+# each rank its slice, consumed in place by the llama3-8b-width dp step;
+# (j) a model axis that splits a query head. Both ranks share the card
+# over gloo: no multi-GPU speed is measured.
+#
+# (i): an int32 .npy laid out [PLACE_N, BATCH, SEQ + 1], staged with
+# sharding_axes ["", "data", ""]: each rank reads PLACE_N runs of SEQ + 1
+# tokens, the most runs a slice may have (plane.MAX_RUNS), 0.54 GB a rank
+# of a 1.07 GB file. Its first STEPS batches are phase 5's synthetic
+# ones, so phase 5's history is the one-rank reference on vol[i]; the
+# rest are seeded. The same layout at PLACE_FALLBACK_N batches exceeds
+# MAX_RUNS and must take the whole-read fallback.
+PLACE_N = 65_536
+PLACE_FALLBACK_N = 2 * PLACE_N
+PLACE_BLOCK = 4096            # batches written and compared at a time
+PLACE_CACHE = 4 << 30         # stage-cache bytes of a rank's backend
+# (j): no published config the repo holds has a head count that 2 ranks
+# split, so llama-tiny's 2 layers with 3 query heads of 128 and 1 KV head
+# (K1-K3 on wgmma in bf16), one row of HEADSPLIT_T tokens, widened to dim
+# 1024, mlp 3584 and a 32768 vocabulary: at llama-tiny's dim 64 and
+# vocabulary 256 the split's bf16 roundings alone (a rank's wo partial and
+# the q cotangent summed after rounding) move grad_norm by 8e-4 to 1.4e-3
+# of one rank's (CPU rehearsal at T 512-2048), past PAR_NORM_REL; at these
+# widths by 1.1e-4 (CPU, T 4096), the planted fault by 1.9e-2.
+HEADSPLIT_T = 4096
+HEADSPLIT_MODEL = ["--model", "llama-tiny"] + [
+    a for kv in ("n_heads=3", "n_kv_heads=1", "head_dim=128", "dim=1024", "mlp_dim=3584",
+                 "vocab=32768", "dtype=bfloat16") for a in ("--override", kv)]
+HEADSPLIT_FLAGS = ["--rules", "tp_sp", "--mesh", f"data=1,fsdp=1,seq=1,model={PAR_WORLD}"]
+
+
+def write_placed_volume(path: str, n: int, seed: int) -> int:
+    """An int32 .npy [n, BATCH, SEQ + 1]: phase 5's first STEPS synthetic
+    batches, then seeded tokens, written PLACE_BLOCK batches at a time and
+    synced; returns its payload offset."""
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.train.trainer import synthetic_batches
+
+    cfg = oim_trainer.config_from_args(oim_trainer.parse_args(main_path_argv()))
+    first = [b["tokens"] for _, b in zip(range(STEPS), synthetic_batches(cfg))]
+    vocab = cfg.model_config().vocab
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<i4", "fortran_order": False, "shape": (n, BATCH, SEQ + 1)})
+        payload = f.tell()
+        np.stack(first).astype(np.int32).tofile(f)
+        for a in range(STEPS, n, PLACE_BLOCK):
+            rng.integers(0, vocab, (min(PLACE_BLOCK, n - a), BATCH, SEQ + 1),
+                         dtype=np.int32).tofile(f)
+        f.flush()
+        os.fsync(f.fileno())
+    return payload
+
+
+def _slice_equal(local, path: str, rank: int) -> bool:
+    """This rank's staged [n, 1, SEQ + 1] against its rows of the file, on
+    the card, block by block."""
+    import torch
+
+    mm = np.load(path, mmap_mode="r")
+    if tuple(local.shape) != (mm.shape[0], 1, mm.shape[2]) or local.dtype != torch.int32:
+        return False
+    for a in range(0, mm.shape[0], PLACE_BLOCK):
+        want = torch.from_numpy(np.ascontiguousarray(mm[a:a + PLACE_BLOCK, rank:rank + 1]))
+        if not torch.equal(local[a:a + PLACE_BLOCK], want.to(local.device)):
+            return False
+    return True
+
+
+def _stage_placed(backend, volume_id: str, path: str) -> tuple:
+    """(volume, seconds, oim_staged_bytes_total delta, stage_source calls)
+    of one stage of ``path`` with sharding_axes ["", "data", ""]."""
+    from oim_tpu_torch.common import metrics as M
+    from oim_tpu_torch.controller import StagedVolume
+    from oim_tpu_torch.data import plane
+    from oim_tpu_torch.spec import ArraySpec, FileParams
+
+    vol = StagedVolume(volume_id, b"", ArraySpec(sharding_axes=("", "data", "")))
+    b0, calls, t0 = M.STAGED_BYTES.value, plane.STAGE_CALLS, time.monotonic()
+    backend.stage(vol, "file", FileParams(path, "npy"))
+    vol.wait()
+    return (vol, time.monotonic() - t0, M.STAGED_BYTES.value - b0,
+            plane.STAGE_CALLS - calls)
+
+
+def _runs_read(reads: list) -> int:
+    """Runs of a file read as (offset, length) pieces: a run split over two
+    chunks is read in two contiguous pieces, which count once."""
+    runs, end = 0, None
+    for off, n in sorted(reads):
+        runs += off != end
+        end = off + n
+    return runs
+
+
+def placement_job(rank: int, world: int, device: str, paths: dict) -> dict:
+    """(i) on this rank: the stage of the volume through its own
+    CUDABackend(mesh=...) with its byte, memory, cache and read checks; the
+    dp trainer fed the placed batches; the fallback stage past MAX_RUNS."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.controller import CUDABackend, StageState
+    from oim_tpu_torch.data import plane
+    from oim_tpu_torch.parallel.mesh import build_mesh
+    from oim_tpu_torch.train.trainer import Trainer
+
+    mesh = build_mesh([("data", world)], device=device)
+    backend = CUDABackend(device=device, mesh=mesh, cache_bytes=PLACE_CACHE,
+                          chunk_bytes=FED_CHUNK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.max_memory_allocated(device)
+    reads = []  # (offset, length) of each file read the stage makes
+    file_reader = plane.READERS["file"]
+
+    def counted(locator, offset, length, dst, headers, **kw):
+        reads.append((offset, length))
+        file_reader(locator, offset, length, dst, headers, **kw)
+
+    plane.READERS["file"] = counted
+    try:
+        vol, stage_s, staged, calls = _stage_placed(backend, "placed", paths["lowered"])
+    finally:
+        plane.READERS["file"] = file_reader
+    if vol.state != StageState.READY:
+        raise RuntimeError(f"the placed stage ended {vol.state}: {vol.error}")
+    growth = torch.cuda.max_memory_allocated(device) - before
+    placed = vol.array
+    shape = (PLACE_N, BATCH, SEQ + 1)
+    rank_bytes = plane.placement_bytes(shape, torch.int32,
+                                       plane.Placement.of(mesh, ("", "data", "")))
+    out = {"stage_s": stage_s, "stage_gbps": rank_bytes / stage_s / 1e9,
+           "breakdown": dict(plane.LAST_STAGE_BREAKDOWN), "staged_bytes": staged,
+           "plane_calls": calls, "placement_bytes": rank_bytes,
+           "volume_total_bytes": vol.total_bytes, "device_growth_bytes": growth,
+           "is_placed": isinstance(placed, plane.Placed),
+           "coords": [list(c) for c, _, _ in placed.shards],
+           "runs": _runs_read(reads), "bytes_read": sum(n for _, n in reads)}
+    out["slice_equal"] = _slice_equal(placed.local, paths["lowered"], rank)
+    # restage after unstage: the cache's copy, no read
+    ptr = placed.local.data_ptr()
+    backend.unstage(vol)
+    hit, out["cache_hit_s"], out["cache_hit_staged"], out["cache_hit_calls"] = _stage_placed(
+        backend, "placed", paths["lowered"])
+    out["cache_hit_same_storage"] = (hit.state == StageState.READY
+                                     and hit.array.local.data_ptr() == ptr)
+    # the dp trainer on the placed batches, through place_batch
+    cfg = oim_trainer.config_from_args(oim_trainer.parse_args(
+        run_argv(["--rules", "dp", "--mesh", f"data={world}"], BATCH, SEQ, device)))
+    trainer = Trainer(cfg, device=device, mesh=mesh)
+    untouched = []
+    place = trainer.place_batch
+
+    def checked(batch):
+        got = place(batch)
+        untouched.append(got["tokens"].data_ptr() == batch["tokens"].local.data_ptr())
+        return got
+
+    trainer.place_batch = checked
+    placed = hit.array
+    kernels.reset_launches()
+    trainer.run(steps=STEPS, data=({"tokens": placed[i]} for i in range(PLACE_N)))
+    _sync(device)
+    out.update(history=trainer.history, untouched=untouched,
+               launches=dict(kernels.LAUNCHES),
+               routes={n: dict(r) for n, r in kernels.ROUTES.items()},
+               step_s=[h["step_s"] for h in trainer.history])
+    del trainer, placed
+    backend.unstage(hit)
+    backend.cache.evict_idle()
+    hit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # past MAX_RUNS: the whole-read fallback, every addressable slice placed
+    other = CUDABackend(device=device, mesh=mesh, chunk_bytes=FED_CHUNK, keep_cached=False)
+    fb, fb_s, _, fb_calls = _stage_placed(other, "fallback", paths["fallback"])
+    out["fallback"] = {
+        "state": str(fb.state), "error": fb.error, "seconds": fb_s, "plane_calls": fb_calls,
+        "is_placed": isinstance(fb.array, plane.Placed),
+        "slice_equal": fb.array is not None and _slice_equal(fb.array.local,
+                                                             paths["fallback"], rank),
+        "bytes": fb.array.nbytes if fb.array is not None else 0}
+    other.unstage(fb)
+    return out
+
+
+def headsplit_argv(device: str, steps: int = STEPS, ranks: bool = True) -> list:
+    return (HEADSPLIT_MODEL + (HEADSPLIT_FLAGS if ranks else [])
+            + ["--batch-size", "1", "--seq-len", str(HEADSPLIT_T), "--steps", str(steps),
+               "--warmup-steps", "2", "--log-every", "1", "--device", device,
+               "--log-level", "warning"])
+
+
+def headsplit_job(rank: int, world: int, device: str) -> dict:
+    """(j) on this rank: the head-splitting tensor-parallel run with its
+    launches, the heads its attention took and its digests; then the
+    planted ``gather_from`` for PAR_FAULT_STEPS steps."""
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.parallel import collectives as C
+
+    heads: set = set()
+
+    def wrap(attention):
+        def seen(q, k, v, **kw):
+            heads.add((q.shape[2], k.shape[2]))
+            return attention(q, k, v, **kw)
+        return seen
+
+    kernels.reset_launches()
+    C.reset_counts()
+    with patched(llama, "default_attention", wrap):
+        trainer = oim_trainer.run(headsplit_argv(device))
+    _sync(device)
+    held, full, whole = _held_bytes(trainer)
+    out = {"history": trainer.history, "launches": dict(kernels.LAUNCHES),
+           "routes": {n: dict(r) for n, r in kernels.ROUTES.items()},
+           "heads": sorted(heads), "calls": dict(C.CALLS), "digests": _digests(trainer),
+           "held_bytes": held, "full_bytes": full, "whole_bytes": whole}
+    del trainer
+    with patched(llama, "_gather_heads",
+                 lambda _: lambda q, tp: C.gather_from(q, tp, gather_dim=2)):
+        out["fault"] = oim_trainer.run(headsplit_argv(device, PAR_FAULT_STEPS)).history
+    return out
+
+
+def slice14_job(rank: int, world: int, device: str, paths: dict) -> dict:
+    return {"placement": placement_job(rank, world, device, paths),
+            "headsplit": headsplit_job(rank, world, device)}
+
+
+def slice14_volumes(root: str) -> dict:
+    """The (i) volumes under ``root``: {"lowered", "fallback"} -> path,
+    with the seconds their writing took."""
+    t0 = time.monotonic()
+    paths = {"lowered": os.path.join(root, "placed.npy"),
+             "fallback": os.path.join(root, "placed_fallback.npy")}
+    free = shutil.disk_usage(root).free
+    need = (PLACE_N + PLACE_FALLBACK_N) * BATCH * (SEQ + 1) * 4
+    if free < need + (1 << 30):
+        fail(f"(i): {free / 2**30:.1f} GiB free at {root}, the volumes need "
+             f"{need / 2**30:.1f} GiB (+1)")
+    write_placed_volume(paths["lowered"], PLACE_N, 140)
+    write_placed_volume(paths["fallback"], PLACE_FALLBACK_N, 141)
+    say(f"  (i) wrote [{PLACE_N}, {BATCH}, {SEQ + 1}] and [{PLACE_FALLBACK_N}, {BATCH}, "
+        f"{SEQ + 1}] int32 .npy volumes ({os.path.getsize(paths['lowered']) / 1e9:.2f} and "
+        f"{os.path.getsize(paths['fallback']) / 1e9:.2f} GB) in "
+        f"{time.monotonic() - t0:.1f} s")
+    return paths
+
+
+def slice14_references(device: str) -> dict:
+    """(j)'s one-rank history on its batch and initial params ((i)'s is
+    phase 5's)."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+
+    hist = oim_trainer.run(headsplit_argv(device, ranks=False)).history
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"headsplit": hist}
+
+
+def check_slice14(ranks: list, main: dict, refs: dict, stage8: dict) -> tuple[dict, dict]:
+    """The gates of (i) and (j) on every rank's results; returns (train
+    records for the parallel line, the planted fault's record)."""
+    rank_bytes = PLACE_N * (SEQ + 1) * 4  # one row of every batch
+    per_rank = [res["slice14"]["placement"] for res in ranks]
+    for r, pr in enumerate(per_rank):
+        bd = pr["breakdown"]
+        say(f"  (i) rank {r}: staged {pr['placement_bytes']} B of [{PLACE_N}, {BATCH}, "
+            f"{SEQ + 1}] int32 ({pr['runs']} runs of {(SEQ + 1) * 4} B) in "
+            f"{pr['stage_s']:.3f} s, {pr['stage_gbps']:.2f} GB/s; breakdown disk_s "
+            f"{bd['disk_s']:.3f}, h2d_s {bd['h2d_s']:.3f}, dispatch_s {bd['dispatch_s']:.3f} "
+            f"(phase 8's one-device stage: {stage8['stage_gbps']:.2f} GB/s, "
+            f"{stage8['stage_s']:.3f} s for {stage8['volume_bytes']} B); "
+            f"oim_staged_bytes_total +{pr['staged_bytes']:.0f}; device growth "
+            f"{pr['device_growth_bytes']} B (limit slice + 2 chunks); equal to its rows of the "
+            f"file: {pr['slice_equal']}; restage: {pr['cache_hit_s'] * 1e3:.2f} ms, plane "
+            f"calls {pr['cache_hit_calls']}, same storage {pr['cache_hit_same_storage']}")
+        fb = pr["fallback"]
+        say(f"  (i) rank {r}, past MAX_RUNS ([{PLACE_FALLBACK_N}, {BATCH}, {SEQ + 1}]): "
+            f"{fb['state']} in {fb['seconds']:.2f} s through the whole-read fallback "
+            f"(plane calls {fb['plane_calls']}, a Placed {fb['is_placed']}, "
+            f"{fb['bytes']} B, equal to its rows of the file: {fb['slice_equal']})")
+        checks = {
+            "a Placed of this rank's coordinate": pr["is_placed"] and pr["coords"] == [[r]],
+            "one plane call": pr["plane_calls"] == 1,
+            f"runs read == MAX_RUNS ({PLACE_N})": pr["runs"] == PLACE_N,
+            "bytes read == the rank's rows": pr["bytes_read"] == rank_bytes,
+            "placement bytes == the rank's rows": pr["placement_bytes"] == rank_bytes,
+            "the volume's total == placement bytes": pr["volume_total_bytes"] == rank_bytes,
+            "oim_staged_bytes_total rose by the rank's bytes": pr["staged_bytes"] == rank_bytes,
+            "growth <= slice + 2 chunks": pr["device_growth_bytes"] <= rank_bytes
+            + 2 * FED_CHUNK,
+            "equal to the file": pr["slice_equal"],
+            "restage a cache hit": pr["cache_hit_calls"] == 0 and pr["cache_hit_staged"] == 0
+            and pr["cache_hit_same_storage"],
+            "place_batch untouched": len(pr["untouched"]) >= STEPS and all(pr["untouched"]),
+            "fallback READY": fb["state"] == "StageState.READY" and fb["plane_calls"] == 1
+            and fb["is_placed"] and fb["slice_equal"] and fb["bytes"] == 2 * rank_bytes,
+        }
+        missed = [k for k, ok in checks.items() if not ok]
+        if missed:
+            fail(f"(i) rank {r}: {missed}")
+    hists = [pr["history"] for pr in per_rank]
+    loss_rel, norm_rel = deviation(hists, main["history"])
+    losses = [[h["loss"] for h in hist] for hist in hists]
+    say(f"  (i) dp over data={PAR_WORLD} on the placed batches: losses {losses[0]}, grad_norms "
+        f"{[h['grad_norm'] for h in hists[0]]}; one rank on vol[i] (phase 5): losses "
+        f"{main['losses']}; worst step: loss rel {loss_rel:.3e} (tol {PAR_LOSS_REL}), "
+        f"grad_norm rel {norm_rel:.3e} (tol {PAR_NORM_REL}); place_batch untouched "
+        f"{[pr['untouched'] for pr in per_rank]}; step_s by rank "
+        f"{[[round(s, 4) for s in pr['step_s']] for pr in per_rank]}")
+    if any(len(ls) != STEPS or not all(math.isfinite(x) for x in ls) for ls in losses) \
+            or any(ls != losses[0] for ls in losses):
+        fail(f"(i): losses missing, not finite or not equal across ranks: {losses}")
+    if loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+        fail(f"(i): differs from one rank: loss rel {loss_rel}, grad_norm rel {norm_rel}")
+    want = LAYERS * STEPS
+    for r, pr in enumerate(per_rank):
+        for n, _ in KERNELS:
+            if pr["launches"][n] != want or pr["routes"][n]["wgmma"] != want:
+                fail(f"(i) rank {r}: {n} launched {pr['launches'][n]} ({pr['routes'][n]}), "
+                     f"want {want} on wgmma")
+    train = {"placement_dp": {
+        "losses_by_rank": losses, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+        "launches_by_rank": [{n: pr["launches"][n] for n, _ in KERNELS} for pr in per_rank],
+        "stage_s_by_rank": [pr["stage_s"] for pr in per_rank],
+        "stage_gbps_by_rank": [pr["stage_gbps"] for pr in per_rank],
+        "breakdown_by_rank": [pr["breakdown"] for pr in per_rank],
+        "device_growth_by_rank": [pr["device_growth_bytes"] for pr in per_rank],
+        "rank_bytes": rank_bytes, "runs_a_rank": per_rank[0]["runs"],
+        "fallback_s_by_rank": [pr["fallback"]["seconds"] for pr in per_rank],
+        "step_s_by_rank": [pr["step_s"] for pr in per_rank],
+        "phase8_stage_gbps": stage8["stage_gbps"]}}
+
+    # (j) head split
+    per_rank = [res["slice14"]["headsplit"] for res in ranks]
+    hists = [pr["history"] for pr in per_rank]
+    ref = refs["headsplit"]
+    loss_rel, norm_rel = deviation(hists, ref)
+    losses = [[h["loss"] for h in hist] for hist in hists]
+    say(f"  (j) llama-tiny's 2 layers at dim 1024, mlp 3584, vocab 32768, 3 heads of 128 / "
+        f"1 KV head, bf16, B=1, T={HEADSPLIT_T}, "
+        f"model={PAR_WORLD}: losses {losses[0]}, grad_norms "
+        f"{[h['grad_norm'] for h in hists[0]]}; one rank: losses {[h['loss'] for h in ref]}, "
+        f"grad_norms {[h['grad_norm'] for h in ref]}; worst step: loss rel {loss_rel:.3e}, "
+        f"grad_norm rel {norm_rel:.3e}; heads a rank {[pr['heads'] for pr in per_rank]}; "
+        f"collectives {per_rank[0]['calls']}")
+    if any(len(ls) != STEPS or not all(math.isfinite(x) for x in ls) for ls in losses) \
+            or any(ls != losses[0] for ls in losses):
+        fail(f"(j): losses missing, not finite or not equal across ranks: {losses}")
+    if loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+        fail(f"(j): differs from one rank: loss rel {loss_rel}, grad_norm rel {norm_rel}")
+    for r, pr in enumerate(per_rank):
+        if pr["heads"] != [(2, 1)]:
+            fail(f"(j) rank {r}: attention ran at (q, kv) heads {pr['heads']}, want [(2, 1)]: "
+                 "the two whole heads its columns touch, on their one KV head")
+        for n, _ in KERNELS:
+            if pr["launches"][n] != want or pr["routes"][n]["wgmma"] != want:
+                fail(f"(j) rank {r}: {n} launched {pr['launches'][n]} ({pr['routes'][n]}), "
+                     f"want {want} on wgmma")
+        want_held = (pr["full_bytes"] - pr["whole_bytes"]) // PAR_WORLD + pr["whole_bytes"]
+        if pr["held_bytes"] != want_held:
+            fail(f"(j) rank {r}: holds {pr['held_bytes']} B of params, want {want_held}")
+    pieces: dict = {}
+    for pr in per_rank:
+        for leaf, piece, s1, s2 in pr["digests"]:
+            pieces.setdefault((leaf, tuple(piece)), []).append((s1, s2))
+    split = [key for key, seen in pieces.items() if len(set(seen)) > 1]
+    replicas = sum(1 for seen in pieces.values() if len(seen) > 1)
+    say(f"    replicas: {replicas} leaf pieces held by both ranks, {len(split)} differing")
+    if split or not replicas:
+        fail(f"(j): replicas differ across ranks after the last step: {split}")
+    train["headsplit"] = {
+        "losses_by_rank": losses, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+        "heads_by_rank": [pr["heads"] for pr in per_rank],
+        "launches_by_rank": [{n: pr["launches"][n] for n, _ in KERNELS} for pr in per_rank],
+        "collective_calls": per_rank[0]["calls"], "replica_pieces_checked": replicas,
+        "held_bytes_by_rank": [pr["held_bytes"] for pr in per_rank]}
+    fhists = [pr["fault"] for pr in per_rank]
+    floss, fnorm = deviation(fhists, ref)
+    caught = floss > PAR_LOSS_REL or fnorm > PAR_NORM_REL
+    say(f"  planted gather_from in (j): losses {[[h['loss'] for h in hist] for hist in fhists]}, "
+        f"grad_norms {[[h['grad_norm'] for h in hist] for hist in fhists]}; worst step: "
+        f"loss rel {floss:.3e}, grad_norm rel {fnorm:.3e}: {'caught' if caught else 'NOT caught'}")
+    if not caught:
+        fail(f"planted gather_from in (j) stays within the limits: loss rel {floss}, "
+             f"grad_norm rel {fnorm}")
+    return train, {"gather_from": {"run": "headsplit", "loss_rel": floss,
+                                   "grad_norm_rel": fnorm}}
+
+
+def phase_parallel(main: dict, moe_history: list, stage8: dict,
+                   device: str = "cuda:0") -> dict:
     """Phase 15: NCCL at world size 1, then PAR_WORLD ranks on ``device``
     over gloo: the collectives, ring/zigzag/Ulysses attention against one
     rank, the trainer under dp, fsdp, zigzag tp_sp and tensor parallelism,
-    then MoE and ResNet across ranks and checkpoints under the mesh, each
-    against one rank."""
+    then MoE and ResNet across ranks, checkpoints under the mesh, the
+    pipeline, (i) a volume staged across the mesh and fed in place and (j)
+    a model axis that splits a query head, each against one rank
+    (``stage8``: phase 8's one-device stage, printed beside (i)'s)."""
     import gc
 
     import torch
@@ -5011,6 +5447,7 @@ def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dic
     single = one_rank_references(PAR_WORLD, device, main)
     refs12 = slice12_references(device, moe_history)
     refs_pipe = pipe_references(device, PAR_WORLD)
+    refs14 = slice14_references(device)
 
     say("  NCCL, world size 1")
     (nccl,) = run_ranks(nccl_world1_job, 1, "nccl", PAR_NCCL_TIMEOUT, device)
@@ -5033,15 +5470,18 @@ def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dic
     import functools
 
     root = tempfile.mkdtemp(prefix="oim-ckpt-")
+    vol_root = tempfile.mkdtemp(prefix="oim-placed-")
     try:
-        ranks = run_ranks(functools.partial(ranks_job, root=root), PAR_WORLD, "gloo",
-                          PAR_RANK_TIMEOUT, device)
+        volumes = slice14_volumes(vol_root)
+        ranks = run_ranks(functools.partial(ranks_job, root=root, volumes=volumes), PAR_WORLD,
+                          "gloo", PAR_RANK_TIMEOUT, device)
         out = check_ranks(ranks, PAR_WORLD, single, "gloo")
         say("  MoE and ResNet across ranks, checkpoints under the mesh")
         resumes = {"moe_fsdp": _resume_one_rank("moe_fsdp", f"{root}/one", device),
                    "ep": _resume_one_rank("ep", f"{root}/ep_one", device)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(vol_root, ignore_errors=True)
     slice12, faults12 = check_slice12(ranks, refs12, resumes)
     out["checkpoint"] = slice12.pop("checkpoint")
     out["train"].update(slice12)
@@ -5051,6 +5491,11 @@ def phase_parallel(main: dict, moe_history: list, device: str = "cuda:0") -> dic
     out["train"].update(pipe)
     out["faults"].update(faults_pipe)
     out["pipe_memory_gb"] = memory
+    say("  (i) one volume staged across the mesh, fed in place; (j) a model axis that "
+        "splits a query head")
+    train14, faults14 = check_slice14(ranks, main, refs14, stage8)
+    out["train"].update(train14)
+    out["faults"].update(faults14)
     return {"nccl_world1": {"losses": n_losses, "grad_norms": n_norms,
                             "launches": nccl["launches"], "calls": nccl["calls"]},
             **out, "wall_s": time.monotonic() - t_phase,
@@ -5127,6 +5572,12 @@ def main() -> int:
         # (fsdp=2, phase 15 (b)); under expert=2 each rank runs phase 11's.
         "phase 15 MoE flagship under fsdp=2, one row a rank; (h)'s microbatch":
             (1, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim, True, bf16, 18),
+        # (j): a rank attends the 2 whole heads its columns touch (of 3),
+        # on their one KV head; the one-rank reference all 3.
+        "phase 15 (j) head split at model=2, a rank's 2 whole heads":
+            (1, HEADSPLIT_T, HEADSPLIT_T, 2, 1, 128, True, bf16, 20),
+        "phase 15 (j) one rank, 3 heads / 1 KV head":
+            (1, HEADSPLIT_T, HEADSPLIT_T, 3, 1, 128, True, bf16, 21),
     }
     odd = [
         # b, tq, tk, h, hkv, d, causal, dtype, seed[, lse cotangent in delta]
@@ -5210,7 +5661,7 @@ def main() -> int:
 
     say("== 15. multi-rank training on the one card (NCCL at world size 1; two ranks "
         "over gloo)")
-    par = phase_parallel(main, moe_history)
+    par = phase_parallel(main, moe_history, fed)
     part = {"flash_fwd": ("out",), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
     for rec in records:
         n = rec["name"]

@@ -1,9 +1,12 @@
 """Mesh coordinates with wildcard merging (``oim_tpu/common/meshcoord.py``).
 
 A chip's position is ``x,y,z[,core]`` and ``-1`` means unset; ``complete``
-fills unset components from a second source. The JAX package's
-``to_proto``/``from_proto`` are left out: they need its protobuf messages,
-and the port carries no gRPC surface yet.
+fills unset components from a second source. A CUDA card has no torus
+position: ``CUDABackend.coord_of`` gives every component unset, as the
+JAX package does off a TPU. The JAX package's ``to_proto``/``from_proto``
+are left out: they convert to its protobuf messages, which only the gRPC
+surface uses (ROADMAP A.3, not ported: the card machine has neither grpcio
+nor protobuf).
 """
 
 from __future__ import annotations

@@ -31,8 +31,16 @@ rows, lm_head's columns). A layer enters each half through
 embedding is looked up on the local rows and summed the same way, and the
 loss is ``vocab_parallel_cross_entropy`` on the local head. Where the
 axis divides the query heads but not the KV heads (llama-tiny's 4/2 at
-4), wk/wv are gathered over the axis and each rank takes the KV head of
-each of its query heads. An MoE FFN takes the mesh context
+4), wk/wv are gathered over the axis and each rank takes the KV heads of
+its query heads. Where it does not divide the query heads either (3 heads
+over 2 ranks), the leaves are still cut evenly by columns, as the JAX
+package lays them out, so a head can straddle two ranks: each rank
+gathers q over the axis, attends on the whole heads that overlap its
+columns, and keeps its columns of the output before wo. A straddling
+head is attended on both ranks, so the gather's backward must sum every
+rank's share of its cotangent (the plain ``all_gather``, which
+reduce-scatters; ``gather_from`` would keep this rank's share alone).
+An MoE FFN takes the mesh context
 (``moe.MeshContext``): global routing, and its experts split over the
 ``expert`` axis and each expert's MLP over ``model``.
 """
@@ -208,30 +216,56 @@ def _ffn(h, layer, cfg: Config, ctx: moelib.MeshContext | None = None):
 
 
 def check_tensor_parallel(cfg: Config, n: int) -> None:
-    """Refuse a ``model`` axis of ``n`` the port's TP layer cannot split:
-    ``n`` not dividing the query heads (the JAX package then lets XLA
-    split inside a head)."""
-    if cfg.n_heads % n:
-        raise NotImplementedError(
-            f"a model axis of {n} that does not divide n_heads ({cfg.n_heads}): the port "
-            "splits whole query heads")
+    """Refuse a ``model`` axis of ``n`` that does not divide a dim the TP
+    rules split over it (the JAX package's device_put of the leaves
+    refuses an uneven split too). Dividing the query heads is not needed:
+    a head may straddle two ranks (``_layer``)."""
+    for what, size in (("n_heads x head_dim", cfg.q_dim),
+                       ("n_kv_heads x head_dim", cfg.kv_dim),
+                       ("mlp_dim", cfg.mlp_dim), ("vocab", cfg.vocab)):
+        if size % n:
+            raise ValueError(f"a model axis of {n} does not divide {what} ({size}): the "
+                             "tensor-parallel rules split it evenly over the axis")
 
 
-def _kv_heads(h, w, cfg: Config, tp):
-    """This rank's K or V heads [B, T, h_kv, hd] from ``w``'s piece: its
-    own contiguous KV heads where the axis divides them (all of them
-    without ``tp``), else the KV head of each of its query heads out of
-    ``w`` gathered over the axis."""
+def _head_range(cfg: Config, tp) -> tuple[int, int, int]:
+    """(first, end) of the query heads this rank attends and the offset of
+    its own q columns inside them: its contiguous heads where the axis
+    divides them (all of them without ``tp``), else every head that
+    overlaps its even share of the columns."""
+    if tp is None:
+        return 0, cfg.n_heads, 0
+    cols = cfg.q_dim // tp.size
+    start = tp.index * cols
+    lo, hi = start // cfg.head_dim, -(-(start + cols) // cfg.head_dim)
+    return lo, hi, start - lo * cfg.head_dim
+
+
+def _gather_heads(q, tp):
+    """Every rank's q columns [B, T, q_dim / n] gathered over ``tp``. The
+    backward reduce-scatters: a head that straddles two ranks is attended
+    on both, and its columns' gradient is the sum of both ranks' shares."""
+    return collectives.all_gather(q, tp, gather_dim=2)
+
+
+def _kv_heads(h, w, cfg: Config, tp, lo: int, hi: int):
+    """K or V [B, T, h_kv, hd] for query heads [lo, hi) from ``w``'s piece:
+    this rank's own contiguous KV heads where the axis divides them (all of
+    them without ``tp``); else, out of ``w`` gathered over the axis, the
+    KV heads of those query heads: whole groups, the one head they share,
+    or one head for each."""
     B, T, _ = h.shape
     n = tp.size if tp is not None else 1
     if cfg.n_kv_heads % n == 0:
         return (h @ w).reshape(B, T, cfg.n_kv_heads // n, cfg.head_dim)
     full = (h @ collectives.all_gather(w, tp, gather_dim=w.dim() - 1)).reshape(
         B, T, cfg.n_kv_heads, cfg.head_dim)
-    h_local = cfg.n_heads // n
     group = cfg.n_heads // cfg.n_kv_heads
-    index = (torch.arange(h_local, device=h.device) + tp.index * h_local) // group
-    return full[:, :, index]
+    if lo % group == 0 and hi % group == 0:
+        return full[:, :, lo // group:hi // group]
+    if lo // group == (hi - 1) // group:
+        return full[:, :, lo // group:lo // group + 1]
+    return full[:, :, torch.arange(lo, hi, device=h.device) // group]
 
 
 def _enter(x, tp):
@@ -249,15 +283,21 @@ def _layer(x, layer, cfg: Config, cos, sin, attn_fn: AttentionFn, tp=None, ctx=N
     the ``model`` and ``expert`` axes itself (``moe.apply`` under
     ``ctx``): its router is not split over ``model``."""
     B, T, _ = x.shape
-    h_local = cfg.n_heads // (tp.size if tp is not None else 1)
+    lo, hi, off = _head_range(cfg, tp)
     h = _enter(rmsnorm(x, layer["attn_norm"]), tp)
-    q = (h @ layer["wq"]).reshape(B, T, h_local, cfg.head_dim)
-    k = _kv_heads(h, layer["wk"], cfg, tp)
-    v = _kv_heads(h, layer["wv"], cfg, tp)
+    q = h @ layer["wq"]
+    cols = q.shape[-1]
+    if tp is not None and cfg.n_heads % tp.size:
+        # A head straddles ranks: attend on the whole heads this rank's
+        # columns touch.
+        q = _gather_heads(q, tp)[..., lo * cfg.head_dim:hi * cfg.head_dim]
+    q = q.reshape(B, T, hi - lo, cfg.head_dim)
+    k = _kv_heads(h, layer["wk"], cfg, tp, lo, hi)
+    v = _kv_heads(h, layer["wv"], cfg, tp, lo, hi)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = attn_fn(q, k, v, causal=True)
-    x = x + _leave(attn.reshape(B, T, h_local * cfg.head_dim) @ layer["wo"], tp)
+    attn = attn_fn(q, k, v, causal=True).reshape(B, T, (hi - lo) * cfg.head_dim)
+    x = x + _leave(attn[..., off:off + cols] @ layer["wo"], tp)
     h = rmsnorm(x, layer["mlp_norm"])
     if cfg.n_experts:
         ffn, aux = _ffn(h, layer, cfg, ctx)

@@ -27,13 +27,13 @@ fsdp is gathered before use and its gradient reduce-scattered (its
 backward), every gradient is then summed over the other splitting axes,
 and the clip sees the global norm. Under tp_sp a ``model`` axis of more
 than one rank is tensor parallelism: the heads, the MLP and the
-vocabulary stay split over it (``llama``'s TP layer and
-``vocab_parallel_cross_entropy``); an ``expert`` axis of more than one
-rank is expert parallelism (``moe.MeshContext``: each rank its share of
-the experts). The ranks of either axis hold the same tokens, so no
-gradient is summed over it, a replicated leaf's gradient is already whole
-on each of them, and a split leaf's squares are summed over it for the
-norm. An MoE model routes the global token set (``models/moe.py``).
+vocabulary stay split over it (``llama``'s TP layer, where a head may
+straddle two ranks, and ``vocab_parallel_cross_entropy``); an ``expert``
+axis of more than one rank is expert parallelism (``moe.MeshContext``:
+each rank its share of the experts). The ranks of either axis hold the
+same tokens, so no gradient is summed over it, a replicated leaf's
+gradient is already whole on each of them, and a split leaf's squares
+are summed over it for the norm. An MoE model routes the global token set (``models/moe.py``).
 ResNet-50 runs over the batch axes with its batch norm's statistics
 taken over the global batch and its running statistics replicated. A
 checkpoint under a mesh is written in pieces and resumes under any mesh
@@ -48,9 +48,17 @@ sequence inside every stage (``llama.make_pipelined_loss`` and
 ``make_1f1b_loss``). The pipeline computes its own gradients (autograd
 does not cross ranks); the eval forward is always GPipe's. An MoE model
 routes each rank's tokens of each microbatch, as the JAX package does
-inside its pipeline. Still to come, refused by ``check_supported``: a
-``model`` axis that splits a query head, and a ``model`` or ``expert``
-axis beside ``pipe``.
+inside its pipeline. A ``model`` or ``expert`` axis beside ``pipe``
+splits nothing (``PIPE_RULES`` maps neither): its ranks run the same
+pipeline on the same tokens, as the JAX trainer replicates over it.
+
+``check_supported`` refuses one mesh the JAX trainer runs: Ulysses
+attention over a ``seq`` axis beside a ``model`` axis that splits a query
+head, where the seq axis divides the heads (ring and zigzag run there).
+
+A batch leaf may be a ``plane.Placed``, staged under a placement over the
+trainer's mesh (``CUDABackend(mesh=...)``): ``place_batch`` takes this
+rank's tensor as it lies where its layout is the cut it would make.
 
 PyTorch runs eagerly, so the step is a plain function: forward, backward
 through ``torch.autograd.grad``, the gradients' sums over ranks, then the
@@ -72,6 +80,7 @@ from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common import tracing
 from oim_tpu_torch.common.device import require
 from oim_tpu_torch.common.logging import from_context
+from oim_tpu_torch.data import plane
 from oim_tpu_torch.models import llama, moe, resnet
 from oim_tpu_torch.ops.losses import accuracy, softmax_cross_entropy
 from oim_tpu_torch.parallel.collectives import all_gather, psum
@@ -86,6 +95,7 @@ from oim_tpu_torch.parallel.sharding import (
     HEAD,
     PIPE_RULES,
     TP_SP_RULES,
+    Sharding,
     gather_params,
     logical_sharding,
     param_shardings,
@@ -106,8 +116,6 @@ RULES = {
     "tp_sp": TP_SP_RULES,
     "pipe": PIPE_RULES,
 }
-# The mesh axes a rules table may split over more than one rank.
-PORTED_AXES = ("data", "fsdp", "seq", "model", "expert", "pipe")
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per device, for MFU and
 # roofline accounting, matched against torch.cuda.get_device_name() in
@@ -209,7 +217,10 @@ class TrainConfig:
         return mcfg
 
     def check_supported(self, mesh: Mesh | None = None) -> None:
-        """Refuse what the port cannot run yet, naming what brings it."""
+        """Refuse what the port cannot run, with the JAX trainer's error
+        where it refuses too. An axis the rules do not split over (pipe
+        under rules other than "pipe", model and expert beside pipe, a name
+        no rule uses) is replicated, as in the JAX trainer."""
         if self.rules not in RULES:
             raise ValueError(f"unknown rules {self.rules!r} (valid: {sorted(RULES)})")
         if self.rules == "pipe" and not self.model.startswith("llama"):
@@ -219,21 +230,21 @@ class TrainConfig:
             llama.check_supported(mcfg)
         if mesh is None:
             return
-        for name, size in mesh.shape.items():
-            if size > 1 and name not in PORTED_AXES:
-                raise NotImplementedError(
-                    f"mesh axis {name!r} of size {size}: only {PORTED_AXES} are ported")
         if self.rules == "pipe":
             self._check_pipe(mesh, mcfg)
-        elif mesh.shape.get("pipe", 1) > 1:
-            raise NotImplementedError(
-                f"a pipe axis of {mesh.shape['pipe']} under rules {self.rules!r}: the port "
-                "splits over pipe under rules 'pipe' only")
         n_model = mesh.shape.get("model", 1)
         if n_model > 1 and RULES[self.rules].axis_for(HEAD) == "model" \
                 and self.model.startswith("llama"):
             llama.check_tensor_parallel(mcfg, n_model)
-
+            n_seq = mesh.shape.get("seq", 1)
+            if mcfg.n_heads % n_model and n_seq > 1 and self.seq_parallel == "ulysses":
+                if mcfg.n_heads % n_seq:  # the JAX trainer's refusal
+                    raise ValueError(f"ulysses needs heads ({mcfg.n_heads}) divisible by the "
+                                     f"'seq' axis size ({n_seq})")
+                raise NotImplementedError(
+                    f"Ulysses over a seq axis of {n_seq} beside a model axis of {n_model} "
+                    f"that splits a query head ({mcfg.n_heads} heads): the port runs ring "
+                    "or zigzag there")
 
     def _check_pipe(self, mesh: Mesh, mcfg) -> None:
         """The JAX trainer's refusals of a pipelined run, with its errors."""
@@ -245,11 +256,6 @@ class TrainConfig:
             raise ValueError(
                 f"unknown pipeline_schedule {self.pipeline_schedule!r} "
                 "(valid: 'gpipe', '1f1b')")
-        for name in ("model", "expert"):
-            if mesh.shape.get(name, 1) > 1:
-                raise NotImplementedError(
-                    f"a {name} axis of {mesh.shape[name]} beside pipe: under rules 'pipe' the "
-                    "port splits over data, pipe and seq only")
         p, m = mesh.shape["pipe"], self.microbatches
         if self.pipeline_schedule == "1f1b":
             if m % p:
@@ -261,6 +267,24 @@ class TrainConfig:
                 raise ValueError(
                     f"{mcfg.n_layers} layers not divisible by pipe {p} x virtual {v}")
         pipeline_stage_slice(mcfg.n_layers, p, 0)  # refuses L % P
+
+
+def _norm_spec(dims, ndim: int) -> tuple:
+    """Per-dim axes padded to ``ndim`` with whole dims, for EQUIVALENCE:
+    ("data",), ("data", None) and (("data",), None) shard alike."""
+    parts = tuple(dims) + (None,) * (ndim - len(tuple(dims)))
+    return tuple(() if not p else tuple(p) if isinstance(p, (tuple, list)) else (p,)
+                 for p in parts)
+
+
+def _gathered(v: plane.Placed, mesh: Mesh) -> torch.Tensor:
+    """The global array of a placed leaf: assembled from its shards where
+    this process holds every slice, else gathered over ``mesh`` (the
+    placement's) from each rank's."""
+    if (v.placement.mesh_id != ("ranks", mesh.ranks)
+            or v.placement.axes != tuple(mesh.shape.items())):
+        return v.assemble()
+    return Sharding(v.placement.dims).gather(v.local.to(mesh.device), mesh)
 
 
 def _heads_gathered(sp, tp: Axis):
@@ -570,6 +594,7 @@ class Trainer:
             cfg, self.tx, self.device, mesh)
         self.state: TrainState | None = None
         self.last_eval_stats: dict[str, float] = {}
+        self._sharding_warned: set[str] = set()
         # One record per logged step (step, loss, grad_norm, step_s, mfu,
         # ...) and per eval pass (step, eval_loss, eval_<stat>).
         self.history: list[dict] = []
@@ -612,12 +637,48 @@ class Trainer:
         microbatch. Under rules "pipe" each accumulation microbatch is
         split into the pipeline's microbatches first the same way. Where one
         piece holds every row (one rank), a tensor already on the device
-        passes through untouched (a feed gathered from a staged volume)."""
+        passes through untouched (a feed gathered from a staged volume).
+
+        A device-resident feed (a ``plane.Placed`` leaf: a batch staged
+        straight into device memory under a placement over this trainer's
+        mesh, ``CUDABackend(mesh=...)``) whose layout is the cut made here
+        passes through untouched: this rank's tensor, no host round trip.
+        One laid out otherwise is warned about once per key, then gathered
+        over the mesh and cut again, every step. So is one laid out as the
+        step's cut under accumulation or pipeline microbatches over more
+        than one batch piece: the rows this rank holds are not the rows of
+        its microbatches (a warning of its own: the placement is right,
+        the split is not)."""
         rules, accum = RULES[self.cfg.rules], max(1, self.cfg.accum_steps)
         micro = self.cfg.microbatches if self.cfg.rules == "pipe" else 1
+        split = logical_sharding(self.mesh, rules, (BATCH,)).parts(self.mesh, 0)[0] > 1
+        placed = {}
+        for k, v in batch.items():
+            if not isinstance(v, plane.Placed):
+                continue
+            want = logical_sharding(self.mesh, rules, (BATCH,) + (None,) * (len(v.shape) - 1))
+            same = (v.placement.mesh_id == ("ranks", self.mesh.ranks)
+                    and v.placement.axes == tuple(self.mesh.shape.items())
+                    and _norm_spec(v.placement.dims, len(v.shape))
+                    == _norm_spec(want.dims, len(v.shape)))
+            if same and (accum * micro == 1 or not split):
+                placed[k] = v.local
+                continue
+            if k not in self._sharding_warned:
+                self._sharding_warned.add(k)
+                if same:
+                    from_context().warning(
+                        "device-resident feed cut by rows, not by microbatch; "
+                        "re-cutting every step", key=k, accum_steps=accum,
+                        microbatches=micro)
+                else:
+                    from_context().warning(
+                        "device-resident feed sharding mismatch; resharding every step",
+                        key=k, got=str(v.placement.dims), want=str(want.dims))
+            batch = {**batch, k: _gathered(v, self.mesh)}
         batch = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
-                 for k, v in batch.items()}
-        if logical_sharding(self.mesh, rules, (BATCH,)).parts(self.mesh, 0)[0] > 1:
+                 for k, v in batch.items() if k not in placed}
+        if split:
             parts = {}
             for k, v in batch.items():
                 if v.shape[0] % accum:
@@ -629,8 +690,9 @@ class Trainer:
                                      + tuple(v.shape[1:]))
             rows = shard_batch(self.mesh, rules, parts, {k: (None, BATCH) for k in parts})
             batch = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in rows.items()}
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+               for k, v in batch.items()}
+        return {**out, **{k: v.to(self.device) for k, v in placed.items()}}
 
     @torch.no_grad()
     def full_params(self) -> dict:

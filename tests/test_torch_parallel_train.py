@@ -273,12 +273,21 @@ def test_unported_mesh_options_refuse_naming_their_slice():
     # Pipe is ported: the rules pass without a mesh, and a pipe axis splits
     # nothing under the other rules.
     cfg(rules="pipe").check_supported(None)
-    # Tensor parallelism is ported; a model axis that splits a query head is not.
+    # Tensor parallelism is ported, a model axis that splits a query head
+    # too; one that does not divide the columns is refused, as JAX's
+    # device_put refuses it.
     model2 = Mesh([("data", 1), ("model", 2)], [0, 1], "cpu")
     cfg(rules="tp_sp").check_supported(model2)
-    refuse(cfg(rules="tp_sp", model_overrides={"n_heads": 3, "head_dim": 16}), model2,
-           "whole query heads")
-    refuse(cfg(), Mesh([("data", 1), ("pipe", 2)], [0, 1], "cpu"), "pipe")
+    cfg(rules="tp_sp", model_overrides={"n_heads": 3, "head_dim": 16}).check_supported(model2)
+    with pytest.raises(ValueError, match=r"does not divide n_heads x head_dim \(45\)"):
+        cfg(rules="tp_sp", model_overrides={"n_heads": 3, "head_dim": 15}).check_supported(
+            model2)
+    refuse(cfg(rules="tp_sp", seq_parallel="ulysses",
+               model_overrides={"n_heads": 6, "n_kv_heads": 2, "head_dim": 16}),
+           Mesh([("data", 1), ("seq", 2), ("model", 4)], list(range(8)), "cpu"),
+           "Ulysses over a seq axis of 2 beside a model axis of 4")
+    # A pipe axis under rules other than "pipe" splits nothing: replicated.
+    cfg().check_supported(Mesh([("data", 1), ("pipe", 2)], [0, 1], "cpu"))
     # Ported since: the expert axis, MoE and ResNet across ranks, and
     # checkpoints under a mesh.
     expert2 = Mesh([("data", 1), ("expert", 2)], [0, 1], "cpu")

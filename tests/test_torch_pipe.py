@@ -550,14 +550,16 @@ def test_refusals_carry_the_jax_trainers_errors(case):
 
 
 def test_port_refuses_what_it_does_not_split_under_pipe():
+    """The stage split's own refusals (layers a stage count, or a stage
+    count times the virtual stages, does not divide); an axis the rules do
+    not split over is replicated, not refused
+    (tests/test_torch_tp_headsplit.py)."""
     cfg = ttrainer.TrainConfig
-    with pytest.raises(NotImplementedError, match="beside pipe"):
-        cfg(rules="pipe").check_supported(Mesh([("data", 1), ("pipe", 2), ("model", 2)],
-                                               [0, 1, 2, 3], "cpu"))
     with pytest.raises(ValueError, match="3 layers not divisible by 2 stages"):
         cfg(rules="pipe", model_overrides={"n_layers": 3}).check_supported(PIPE2)
-    with pytest.raises(NotImplementedError, match="under rules 'pipe' only"):
-        cfg(rules="dp").check_supported(PIPE2)
+    with pytest.raises(ValueError, match="2 layers not divisible by pipe 2 x virtual 2"):
+        cfg(rules="pipe", pipeline_schedule="1f1b", virtual_stages=2,
+            model_overrides={"n_layers": 2}).check_supported(PIPE2)
     cfg(rules="pipe").check_supported(PIPE2)
     cfg(rules="pipe", pipeline_schedule="1f1b", virtual_stages=2,
         model_overrides={"n_layers": 4}).check_supported(PIPE2)

@@ -1,8 +1,8 @@
 """One rank of a multi-rank run of the port on the CPU, for
 tests/test_torch_parallel.py, tests/test_torch_parallel_train.py,
 tests/test_torch_tp.py, tests/test_torch_ep.py,
-tests/test_torch_resnet_parallel.py, tests/test_torch_checkpoint_mesh.py and
-tests/test_torch_pipe.py.
+tests/test_torch_resnet_parallel.py, tests/test_torch_checkpoint_mesh.py,
+tests/test_torch_pipe.py and tests/test_torch_tp_headsplit.py.
 
     python tests/torch_parallel_worker.py JOB.json RANK
 
@@ -223,7 +223,9 @@ def planted(fault: str | None):
     statistics over this rank's rows only; "head_unsummed" lets the
     pipeline head's replicated input in without ``copy_to`` (the psum of
     its cotangent over the vocab split forgotten); "canonical_order" runs
-    interleaved 1F1B on the canonical layer order."""
+    interleaved 1F1B on the canonical layer order; "gather_from" gathers q
+    over a head-splitting model axis with ``gather_from``, whose backward
+    keeps this rank's share of a straddling head's cotangent alone."""
     if fault is None:
         yield
         return
@@ -252,6 +254,8 @@ def planted(fault: str | None):
                     n *= axis.size if axis is not None else 1
             return out, stats * torch.tensor([float(n), 1.0])
         patch(moe, "apply", everywhere)
+    elif fault == "gather_from":
+        patch(llama, "_gather_heads", lambda q, tp: C.gather_from(q, tp, gather_dim=2))
     elif fault == "head_unsummed":
         patch(C, "copy_to", lambda x, axis: x)
     elif fault == "canonical_order":
