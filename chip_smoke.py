@@ -137,7 +137,21 @@ Phases, in order; any failure exits nonzero:
    none for a cache hit, the stage-cache hit, miss and eviction counters
    equal the backends' ``StageCache.stats()``, the flight recorder hold
    one ``stage_cache_eviction`` for each eviction, and
-   ``oim_stage_seconds_total`` rise.
+   ``oim_stage_seconds_total`` rise. Then the control plane's device half
+   (the gRPC half needs grpcio, which the card machine lacks, and is held
+   against the JAX services on the CPU by the tests): ReadVolume's byte
+   window (``controller.backend.read_window``) of the staged volume, the
+   first WINDOW bytes, an odd 7,013-byte window at WINDOW - 3 and the last
+   WINDOW_TAIL bytes through ``length=0``, and the same windows of a
+   64 MiB ``bfloat16`` volume staged alongside, each equal to the file's
+   bytes; WINDOW_TIMED windows of 64 MiB timed by the host clock (GB/s)
+   beside a pinned 64 MiB D2H by CUDA events, with no device growth and
+   host RSS growing by at most WINDOW_RSS_LIMIT; then the windowed feed
+   (``data.feeds.windowed_batches`` over ``read_window``, FEED_WINDOW =
+   24,000-byte windows, a multiple of neither the record nor the batch)
+   trains phase 8's config for STEPS steps with phase 5's checks, and its
+   losses must equal phase 8's in-place losses to the bit; its feed wait
+   and step_s are printed beside phase 8's.
 9. OIM-fed ResNet-50, bench.py's cell at full width (bench.py:333-342,
    :426-500): 1024 seeded uint8 images [1024,224,224,3] written raw to a
    temporary directory, staged through ``CUDABackend`` and checked byte
@@ -340,7 +354,9 @@ Phases, in order; any failure exits nonzero:
    a rank, K1-K3 at LAYERS x STEPS a rank on ``wgmma``, each rank
    holding half the split leaves, replicas equal by digest; the planted
    ``gather_from`` in place of q's gather must break a limit.
-16. the host cost of one ``Histogram.observe`` and one ``events.emit``;
+16. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+   card's path needs neither); the host cost of one ``Histogram.observe``
+   and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
@@ -350,7 +366,8 @@ Phases, in order; any failure exits nonzero:
    ``parallel_max_abs_err`` (phase 15's sequence-parallel attention
    against the plain versions on one rank: K1 its output, K2 dk and dv,
    K3 dq),
-   ``oim_fed_launches`` (phase 8's launches), ``sources_launches`` (phase
+   ``oim_fed_launches`` (phase 8's launches),
+   ``oim_fed_windowed_launches`` (phase 8's windowed feed's), ``sources_launches`` (phase
    14's), ``resnet_launches`` and
    ``llama_remat_launches`` (phase 9's), ``moe_launches`` and
    ``moe_routes`` (phase 11's), ``max_abs_err_by_path`` (phase 3's
@@ -2109,13 +2126,14 @@ def check_stage_after_queued_work(path: str, nbytes: int) -> dict:
     return {"queued_work_block_reused": reused, "queued_work_bytes_equal": equal}
 
 
-def train_on_tokens(tokens, what: str, others: dict) -> dict:
+def train_on_tokens(tokens, what: str, others: dict, feed=None,
+                    feed_note: str = "") -> dict:
     """Phase 5's trainer (llama3-8b width, LAYERS layers, B=BATCH, T=SEQ)
     for STEPS steps on ``volume_token_batches`` of a token tensor on the
-    card, with phase 5's checks: every loss finite, the first near
-    ln(vocab), K1-K3 at LAYERS x STEPS launches each, all on ``wgmma``.
-    ``others`` holds other paths' step_s by name, printed beside and
-    returned with the run's own."""
+    card (or on ``feed``, described by ``feed_note``), with phase 5's
+    checks: every loss finite, the first near ln(vocab), K1-K3 at LAYERS x
+    STEPS launches each, all on ``wgmma``. ``others`` holds other paths'
+    step_s by name, printed beside and returned with the run's own."""
     import torch
 
     from oim_tpu_torch import kernels
@@ -2129,7 +2147,9 @@ def train_on_tokens(tokens, what: str, others: dict) -> dict:
                       log_every=1)
     trainer = Trainer(cfg, device="cuda")
     trainer.init()
-    feed = volume_token_batches(tokens, cfg)
+    if feed is None:
+        feed = volume_token_batches(tokens, cfg)
+        feed_note = f"a gather of {BATCH} x {SEQ + 1} int32 on the card"
     kernels.reset_launches()
     t0 = time.monotonic()
     trainer.run(steps=STEPS, data=feed)
@@ -2147,8 +2167,7 @@ def train_on_tokens(tokens, what: str, others: dict) -> dict:
     say(f"  launches {launches}, routes {routes}  (want {LAYERS} x {STEPS} each, all wgmma)")
     say(f"  step_s {step_s:.4f} (steps 2..{STEPS}), MFU {mfu:.4f}; "
         + "; ".join(f"{k} {v:.4f}" for k, v in others.items())
-        + f"; feed wait {feed_wait * 1e3:.3f} ms a step (a gather of {BATCH} x {SEQ + 1} "
-        f"int32 on the card); wall {wall:.1f} s")
+        + f"; feed wait {feed_wait * 1e3:.3f} ms a step ({feed_note}); wall {wall:.1f} s")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"{what}: losses not finite or missing: {losses}")
     if abs(losses[0] - math.log(vocab)) > 1.0:
@@ -2159,6 +2178,139 @@ def train_on_tokens(tokens, what: str, others: dict) -> dict:
                  f"{LAYERS * STEPS} on wgmma")
     return {"launches": launches, "routes": routes, "losses": losses, "step_s": step_s,
             "mfu": mfu, "feed_wait_s": feed_wait, **others}
+
+
+# ReadVolume's byte window on the card (phase 8): the windows read and
+# compared, the timed windows, and the windowed feed's window, a multiple
+# of neither the 8,196-byte record nor the 16,392-byte batch.
+WINDOW = 64 << 20
+WINDOW_ODD = (WINDOW - 3, 7_013)        # cuts an element and a staging chunk's edge
+WINDOW_TAIL = (1 << 20) + 3             # the volume's last bytes, through length=0
+WINDOW_TIMED = 16                       # 64 MiB windows timed: 1 GiB
+WINDOW_BF16 = 64 << 20                  # the bfloat16 volume's bytes
+FEED_WINDOW = 24_000
+WINDOW_RSS_LIMIT = 512 << 20            # host growth allowed over the timed windows
+
+
+def d2h_gbps() -> float:
+    """One WINDOW copy from the card into page-locked memory, by CUDA
+    events: the D2H yardstick beside the windows' rate."""
+    import torch
+
+    pinned = torch.empty(WINDOW, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(WINDOW, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: pinned.copy_(dev, non_blocking=True), 20, warmup=2)
+    return WINDOW / (ms * 1e-3) / 1e9
+
+
+def host_rss() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def check_window_bytes(arr, file_bytes: np.ndarray, what: str) -> list:
+    """ReadVolume's windows of a staged tensor (``read_window``) against the
+    file's bytes: the first WINDOW, an odd window cutting an element and a
+    chunk edge, and the last WINDOW_TAIL bytes through ``length=0``."""
+    from oim_tpu_torch.controller.backend import read_window
+
+    total = file_bytes.size
+    reads = [(0, WINDOW), WINDOW_ODD, (total - WINDOW_TAIL, 0)]
+    for offset, length in reads:
+        got, n = read_window(arr, offset, length)
+        end = total if length == 0 else min(offset + length, total)
+        if n != total or not _same_bytes(got, file_bytes[offset:end]):
+            fail(f"oim-fed windows: {what} window ({offset}, {length}) is not the file's "
+                 f"bytes [{offset}, {end}) (total {n} against {total})")
+    say(f"  {what}: windows {reads} equal to the file's bytes")
+    return reads
+
+
+def phase_windows(arr, path: str, sobs, expect_staged, tmp: str) -> dict:
+    """ReadVolume's byte window (``controller.backend.read_window``, the
+    function ReadVolume and a local Feeder call) on the card: windows of
+    the int32 volume and of a bfloat16 volume against the files' bytes;
+    WINDOW_TIMED windows timed by the host clock beside a pinned D2H
+    yardstick; the device and host memory a window run takes."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
+    from oim_tpu_torch.controller.backend import read_window
+    from oim_tpu_torch.spec import ArraySpec, FileParams
+
+    nbytes = arr.numel() * arr.element_size()
+    mm = np.load(path, mmap_mode="r")
+    out = {"int32_windows": check_window_bytes(arr, mm.view(np.uint8), "int32 volume")}
+    del mm
+
+    bf_path = os.path.join(tmp, "bf16.raw")
+    np.random.default_rng(1).integers(0, 1 << 16, WINDOW_BF16 // 2,
+                                      dtype=np.uint16).tofile(bf_path)
+    bf_backend = CUDABackend(chunk_bytes=FED_CHUNK, keep_cached=False)
+    sobs.backends.append(bf_backend)
+    bvol = StagedVolume("oim-fed-bf16", b"", ArraySpec(dtype="bfloat16"))
+
+    def stage_bf16():
+        bf_backend.stage(bvol, "file", FileParams(bf_path, "raw"))
+        bvol.wait()
+
+    _, got = sobs.staged(stage_bf16)
+    expect_staged("bfloat16 window volume", got, WINDOW_BF16)
+    if bvol.state != StageState.READY or bvol.array.dtype != torch.bfloat16:
+        fail(f"oim-fed windows: the bfloat16 volume ended {bvol.state} "
+             f"{getattr(bvol.array, 'dtype', None)}: {bvol.error}")
+    out["bf16_windows"] = check_window_bytes(bvol.array, np.fromfile(bf_path, np.uint8),
+                                             "bfloat16 volume")
+    bf_backend.unstage(bvol)
+    del bvol
+    gc.collect()
+
+    read_window(arr, 0, WINDOW)  # first-use costs out of the timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev0, rss0 = torch.cuda.memory_allocated(), host_rss()
+    rss_peak = rss0
+    t0 = time.monotonic()
+    for i in range(WINDOW_TIMED):
+        w, _ = read_window(arr, (i * WINDOW) % nbytes, WINDOW)
+        if w.size != WINDOW:
+            fail(f"oim-fed windows: window {i} gave {w.size} bytes, not {WINDOW}")
+        rss_peak = max(rss_peak, host_rss())
+        del w
+    seconds = time.monotonic() - t0
+    dev_growth = torch.cuda.max_memory_allocated() - dev0
+    rss_growth = rss_peak - rss0
+    out.update(window_bytes=WINDOW, windows_timed=WINDOW_TIMED, window_s=seconds,
+               window_gbps=WINDOW_TIMED * WINDOW / seconds / 1e9, d2h_gbps=d2h_gbps(),
+               device_growth_bytes=dev_growth, host_rss_growth_bytes=rss_growth)
+    say(f"  {WINDOW_TIMED} windows of {WINDOW >> 20} MiB ({WINDOW_TIMED * WINDOW >> 20} MiB, "
+        f"host clock): {seconds:.3f} s, {out['window_gbps']:.2f} GB/s; yardstick, same run: "
+        f"pinned {WINDOW >> 20} MiB D2H {out['d2h_gbps']:.2f} GB/s (CUDA events)")
+    say(f"  memory over the windows: device peak growth {dev_growth} bytes, host RSS peak "
+        f"growth {rss_growth} bytes (volume {nbytes}; limits 0 and {WINDOW_RSS_LIMIT})")
+    if dev_growth > 0 or rss_growth > WINDOW_RSS_LIMIT:
+        fail(f"oim-fed windows: a window run grew device memory by {dev_growth} bytes and "
+             f"host RSS by {rss_growth}: a window must move only its own bytes")
+    return out
+
+
+def windowed_token_feed(arr):
+    """Phase 8's batches through the windowed feed (``windowed_batches``
+    over ``read_window`` of the staged tensor, FEED_WINDOW bytes at a
+    time): host int32 [BATCH, SEQ + 1] batches, the trainer uploads
+    them."""
+    from oim_tpu_torch.controller.backend import read_window
+    from oim_tpu_torch.data.feeds import windowed_batches
+
+    rec = (SEQ + 1) * 4
+    for raw in windowed_batches(lambda off, n: read_window(arr, off, n), FEED_WINDOW,
+                                rec, BATCH * rec):
+        yield {"tokens": raw.view(np.int32).reshape(BATCH, -1).astype(np.int32)}
 
 
 def phase_oim_fed(synthetic_step_s: float) -> dict:
@@ -2310,7 +2462,27 @@ def phase_oim_fed(synthetic_step_s: float) -> dict:
         expect_staged("restage after eviction", got, nbytes)
         if vol.state != StageState.READY:
             fail(f"oim-fed: the restage ended {vol.state}: {vol.error}")
+        say("  ReadVolume's byte window on the card (read_window; nothing over gRPC runs "
+            "here: the card machine has no grpcio)")
+        out["windows"] = phase_windows(vol.array, path, sobs, expect_staged, tmp)
     out.update(train_on_tokens(vol.array, "oim-fed", {"synthetic_step_s": synthetic_step_s}))
+    say(f"  the windowed feed: {FEED_WINDOW}-byte windows (records of {(SEQ + 1) * 4} B, "
+        f"batches of {BATCH * (SEQ + 1) * 4} B straddle them), the same tokens")
+    win = train_on_tokens(
+        vol.array, "oim-fed windowed", {"synthetic_step_s": synthetic_step_s,
+                                        "oim_fed_step_s": out["step_s"]},
+        feed=windowed_token_feed(vol.array),
+        feed_note=f"{FEED_WINDOW}-byte windows off the card, records rebuilt on the host "
+                  "and uploaded")
+    same = win["losses"] == out["losses"]
+    say(f"  windowed feed losses equal to phase 8's in-place losses, bit for bit: {same}; "
+        f"feed wait {win['feed_wait_s'] * 1e3:.3f} ms a step against "
+        f"{out['feed_wait_s'] * 1e3:.3f}; step_s {win['step_s']:.4f} against "
+        f"{out['step_s']:.4f}")
+    if not same:
+        fail(f"oim-fed windowed: losses {win['losses']} differ from phase 8's in-place "
+             f"{out['losses']}")
+    out["windowed_feed"] = {"window_bytes": FEED_WINDOW, **win}
     backend.unstage(vol)
     backend.cache.evict_idle()
     out["obs"] = {"staged_bytes": staged, **sobs.check("oim-fed")}
@@ -5630,6 +5802,7 @@ def main() -> int:
     fed = phase_oim_fed(main["step_s"])
     for rec in records:
         rec["oim_fed_launches"] = fed["launches"][rec["name"]]
+        rec["oim_fed_windowed_launches"] = fed["windowed_feed"]["launches"][rec["name"]]
 
     say("== 9. OIM-fed ResNet-50: bench.py's cell through the trainer")
     res = phase_resnet(main, args.profile)
@@ -5673,6 +5846,12 @@ def main() -> int:
                                           for t in part[n])
 
     say("== 16. summary")
+    wire = sorted(m for m in sys.modules
+                  if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
+    say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
+    if wire:
+        fail(f"the card's path loaded the gRPC surface: {wire[:5]}")
+    fed["grpc_loaded"] = False
     obs = {"main_path": {"step_s": main["step_s"], **main.pop("obs")},
            "serve": {"decode_step_ms": serve["decode_step_ms"], **serve.pop("obs")},
            "oim_fed": fed.pop("obs"), "moe_train": moe_main.pop("obs"),

@@ -1,17 +1,85 @@
-"""Observability flags shared by the port's CLIs (``oim_tpu/cli/common.py``'s
-``add_observability_flags`` and ``start_observability``).
+"""Flags shared by the port's CLIs (``oim_tpu/cli/common.py``):
+``--registry``, the logging and mTLS flags, and the observability flags.
 
 ``--metrics-port`` serves ``/metrics``, ``/debug/spans`` and
 ``/debug/events``; ``--trace-dir`` streams finished spans to
 ``<service>-<pid>.trace.json`` and receives the flight recorder's dump on
 SIGQUIT, an unhandled crash and ``Observability.stop()``. The telemetry
-registry row (``--telemetry-id``) needs the registry over gRPC and waits
-for it.
+registry row (the JAX CLIs' ``--telemetry-id``) is not ported yet
+(ROADMAP A.3.1). ``load_tls_flags`` imports ``common/tlsutil`` (grpcio)
+only when ``--ca``/``--key`` are given, so this module loads on a machine
+without grpcio.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+from oim_tpu_torch.common import logging as oim_logging
+
+
+def add_registry_flag(
+    parser: argparse.ArgumentParser,
+    default: str = "",
+    required: bool = False,
+    help_suffix: str = "",
+) -> None:
+    """The shared ``--registry`` flag: one endpoint, or a comma-separated
+    list (``primary:9421,standby:9421``) with a replicated registry;
+    clients fail over to the next endpoint on UNAVAILABLE /
+    FAILED_PRECONDITION (common/endpoints.py)."""
+    parser.add_argument(
+        "--registry",
+        default=default,
+        required=required,
+        help="registry endpoint, or comma-separated list primary,standby "
+             "(clients fail over on UNAVAILABLE/FAILED_PRECONDITION)"
+             + (f"; {help_suffix}" if help_suffix else ""),
+    )
+
+
+def add_common_flags(parser: argparse.ArgumentParser) -> None:
+    """--log-level (default $OIM_LOG_LEVEL or info), --log-format, and the
+    mTLS material --ca / --key."""
+    parser.add_argument(
+        "--log-level",
+        default=os.environ.get("OIM_LOG_LEVEL", "info"),
+        help="debug|info|warning|error (OIM_LOG_LEVEL env overrides the default)",
+    )
+    parser.add_argument(
+        "--log-format",
+        default="text",
+        choices=oim_logging.FORMATS,
+        help="text = '<time> <level> <msg> | k: v'; json = one JSON object "
+             "per line with fields flattened (log aggregators)",
+    )
+    parser.add_argument("--ca", default="", help="CA certificate file (mTLS)")
+    parser.add_argument(
+        "--key",
+        default="",
+        help="path prefix for <prefix>.key/.crt (reference .key/.crt convention)",
+    )
+
+
+def setup_logging(args: argparse.Namespace) -> None:
+    oim_logging.set_global(
+        oim_logging.Logger(
+            level=oim_logging.parse_level(args.log_level),
+            fmt=getattr(args, "log_format", "text"),
+        )
+    )
+
+
+def load_tls_flags(args: argparse.Namespace, peer_name: str = ""):
+    """The TLSConfig of --ca/--key, or None when neither is given."""
+    if not args.ca and not args.key:
+        return None
+    if not (args.ca and args.key):
+        raise SystemExit("--ca and --key must be given together")
+    from oim_tpu_torch.common.tlsutil import load_tls
+
+    return load_tls(args.ca, args.key, peer_name)
 
 
 def add_observability_flags(parser: argparse.ArgumentParser) -> None:
@@ -62,6 +130,11 @@ def add_observability_flags(parser: argparse.ArgumentParser) -> None:
              "(typed control-plane events stamped with trace ids); "
              "0 disables event recording",
     )
+    parser.add_argument(
+        "--telemetry-id", default="",
+        help="the JAX CLIs' telemetry/<id> registry row: not ported yet "
+             "(ROADMAP A.3.1), so any value but '' or 'none' is refused",
+    )
 
 
 class Observability:
@@ -107,6 +180,10 @@ def start_observability(args: argparse.Namespace, service: str) -> Observability
     from oim_tpu_torch.common import events, tracing
     from oim_tpu_torch.common.logging import from_context
 
+    if getattr(args, "telemetry_id", "") not in ("", "none"):
+        raise SystemExit(
+            "--telemetry-id: the telemetry/<id> registry row is not ported yet "
+            "(ROADMAP A.3.1: it follows the controller heartbeat in a later slice)")
     trace_dir = getattr(args, "trace_dir", "")
     recorder = tracing.configure(
         service, trace_dir=trace_dir,

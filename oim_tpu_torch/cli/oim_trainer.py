@@ -30,8 +30,26 @@ with the kernels' plain versions. ``--metrics-port`` serves the trainer's
 gauges at ``/metrics`` and its ``train.step`` spans at ``/debug/spans``;
 ``--trace-dir`` streams the spans to ``oim-trainer-<pid>.trace.json``. Checkpoints are the port's own format,
 not orbax's: the JAX trainer cannot resume from them, nor this one from
-the JAX trainer's. The feeder, registry and volume flags (the OIM-fed
-feed) and webdataset input are not ported yet.
+the JAX trainer's.
+
+Fed through the control plane: ``--registry`` with ``--controller-id``
+publishes ``--volume`` (``--volume-file``, or the controller's malloc
+buffer of that name) through the feeder, MapVolume through the registry's
+proxy to the controller, and trains on it: in windows of
+``--feed-window-bytes`` (64 MiB by default; ``--shuffle`` then runs the
+records through a reservoir of ``--shuffle-buffer-records``), or read
+whole with ``--feed-window-bytes 0`` (``--shuffle`` permutes each epoch,
+and ``--checkpoint-dir`` resumes by seeking the feed). A file volume is
+staged by the controller, so its path is the controller's:
+
+    python -m oim_tpu_torch.cli.oim_trainer --registry 127.0.0.1:9421 \
+        --controller-id host-0 --volume-file /data/tokens.npy \
+        --model llama3-8b --override n_layers=2 --steps 5 --batch-size 2 --seq-len 2048
+
+Not ported yet, and refused: TFRecord and webdataset volumes through the
+feeder (``--volume-tfrecord``, ``--volume-webdataset``: ROADMAP
+A.3.3-A.3.4), ``--registry`` under several ranks (the registry bootstrap,
+A.3.8) and the telemetry row (``--telemetry-id``, A.3.1).
 
 Several ranks: under ``torchrun`` (``WORLD_SIZE`` set) each process joins
 the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
@@ -56,15 +74,28 @@ import sys
 import torch
 import torch.distributed as dist
 
-from oim_tpu_torch.cli.common import add_observability_flags, start_observability
+from oim_tpu_torch.cli.common import (
+    add_observability_flags,
+    add_registry_flag,
+    load_tls_flags,
+    start_observability,
+)
 from oim_tpu_torch.common import logging as oimlog
 from oim_tpu_torch.common.profiling import profile_trace
 from oim_tpu_torch.data.augment import augment_batches
+from oim_tpu_torch.data.feeds import (
+    SeekableFeed,
+    eval_feed_args,
+    feeder_batches,
+    refuse_unported,
+)
+from oim_tpu_torch.data.prefetch import prefetch_batches
+from oim_tpu_torch.data.shuffle import shuffle_batches
 from oim_tpu_torch.parallel.mesh import backend_for, parse_axes
 from oim_tpu_torch.train import TrainConfig, Trainer
 from oim_tpu_torch.train.trainer import synthetic_batches
 
-# The JAX CLI's augmentation seed for shuffle seed 0 on process 0:
+# The JAX CLI's augmentation seed on process 0:
 # (shuffle_seed + 1) * 1_000_003 + process_index.
 AUGMENT_SEED = 1_000_003
 
@@ -138,6 +169,40 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--eval-steps", type=int, default=8, help="batches per eval pass")
     p.add_argument("--augment", action="store_true",
                    help="host-side random flip + crop on image batches")
+    # Data source (feeder mode).
+    add_registry_flag(p, help_suffix="feeder data source")
+    p.add_argument("--controller-id", default="")
+    p.add_argument("--volume", default="train-data")
+    p.add_argument("--volume-file", default="",
+                   help="stage this file (on the controller's host) as the training volume")
+    p.add_argument("--volume-tfrecord", default="",
+                   help="not ported yet (ROADMAP A.3.4): refused")
+    p.add_argument("--volume-webdataset", default="",
+                   help="not ported yet (ROADMAP A.3.3-A.3.4): refused")
+    p.add_argument("--eval-volume-file", default="",
+                   help="held-out volume staged as '<volume>-eval' and used for "
+                        "--eval-every in feeder mode")
+    p.add_argument("--shuffle", action="store_true",
+                   help="shuffle records: whole-volume feeds permute per epoch; "
+                        "windowed feeds run through a bounded reservoir "
+                        "(--shuffle-buffer-records)")
+    p.add_argument("--shuffle-buffer-records", type=int, default=2048,
+                   help="reservoir size (records) for shuffling windowed feeds")
+    p.add_argument("--shuffle-seed", type=int, default=0)
+    p.add_argument("--prefetch-batches", type=int, default=2,
+                   help="feed batches read ahead in a background thread "
+                        "(0 = synchronous feed)")
+    p.add_argument("--feed-window-bytes", type=int, default=64 << 20,
+                   help="host-resident feed window; 0 = read the whole volume "
+                        "(small volumes only)")
+    p.add_argument("--publish-timeout", type=float, default=60.0)
+    p.add_argument("--no-direct-data", dest="direct_data", action="store_false",
+                   help="stream feed windows through the registry proxy instead of "
+                        "dialing the owning controller directly (the proxy always "
+                        "remains the fallback)")
+    p.add_argument("--ca", default="", help="CA certificate file (mTLS)")
+    p.add_argument("--key", default="",
+                   help="path prefix for <prefix>.key/.crt (mTLS)")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace of the train loop into "
                         "this directory")
@@ -201,27 +266,91 @@ def run(argv: list[str] | None = None) -> Trainer:
     oimlog.set_global(oimlog.Logger(level=oimlog.parse_level(args.log_level),
                                     fmt=args.log_format))
     axes = parse_mesh(args.mesh)
+    if args.registry:
+        check_fed_args(args)
     device, made_group = init_distributed(args.device)
     obs = start_observability(args, "oim-trainer")
+    feeder = None
     try:
         cfg = config_from_args(args)
         trainer = Trainer(cfg, device=device, axes=axes)
         data = eval_data = None
+        if args.registry:
+            data, eval_data, feeder = fed_data(args, cfg)
         if args.augment:
-            if args.eval_every:
+            if args.eval_every and data is None:
                 # The augmented stream is no longer the Trainer's own
                 # default, so the held-out stream is built here, as run()
                 # would.
                 eval_data = synthetic_batches(
                     dataclasses.replace(cfg, seed=cfg.seed + 10_000))
-            data = augment_batches(synthetic_batches(cfg), seed=AUGMENT_SEED)
+            data = augment_batches(data if data is not None else synthetic_batches(cfg),
+                                   seed=(args.shuffle_seed + 1) * AUGMENT_SEED)
+        if data is not None and args.prefetch_batches > 0 and not hasattr(data, "seek"):
+            # Fetch of batch N+1 overlaps the train step on batch N (a
+            # SeekableFeed already prefetches inside its factory).
+            data = prefetch_batches(data, depth=args.prefetch_batches)
         with profile_trace(args.profile):
             trainer.run(steps=args.steps, data=data, eval_data=eval_data)
     finally:
+        if feeder is not None:
+            feeder.close()
         obs.stop()
         if made_group:
             dist.destroy_process_group()
     return trainer
+
+
+def check_fed_args(args: argparse.Namespace) -> None:
+    """SystemExit for a --registry run the port cannot serve yet, before
+    any process group or server starts."""
+    if not args.controller_id:
+        raise SystemExit("--registry needs --controller-id (the controller that stages "
+                         "the volume)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit(
+            "--registry under several ranks needs the registry bootstrap, which is not "
+            "ported yet (ROADMAP A.3.8, bootstrap.initialize_from_registry): run one "
+            "process, or train the ranks on synthetic batches")
+    refuse_unported(args)
+
+
+def fed_data(args: argparse.Namespace, cfg: TrainConfig):
+    """(training batches, eval batches or None, the Feeder) of the volume
+    published through ``--registry``, as the JAX trainer builds them."""
+    from oim_tpu_torch.feeder import Feeder
+
+    tls = load_tls_flags(args)
+    # One Feeder for every rebuild: its publish cache makes MapVolume a
+    # one-time cost (a seek repositions in index space; it must not
+    # re-stage the volume).
+    feeder = Feeder(registry_address=args.registry, controller_id=args.controller_id,
+                    tls=tls, direct_data=args.direct_data)
+    if args.feed_window_bytes <= 0 and args.checkpoint_dir and not args.augment:
+        # Whole-volume feeds reposition in index arithmetic on checkpoint
+        # resume (SeekableFeed.seek) instead of replaying start_step
+        # batches. The factory rebuilds the chain including the
+        # prefetcher, so a seek also drops batches read ahead of the old
+        # position.
+        def make_feed(start):
+            d = feeder_batches(args, cfg, tls, start, feeder=feeder)
+            if args.prefetch_batches > 0:
+                d = prefetch_batches(d, depth=args.prefetch_batches)
+            return d
+
+        data = SeekableFeed(make_feed)
+    else:
+        data = feeder_batches(args, cfg, tls, feeder=feeder)
+    if args.shuffle and args.feed_window_bytes > 0:
+        # Windowed feeds stream in volume order; a bounded record
+        # reservoir restores sample randomness with fixed host memory.
+        data = shuffle_batches(data, args.shuffle_buffer_records, seed=args.shuffle_seed)
+    eval_data = None
+    if args.eval_every:
+        eval_args = eval_feed_args(args)
+        if eval_args is not None:
+            eval_data = feeder_batches(eval_args, cfg, tls, feeder=feeder)
+    return data, eval_data, feeder
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -15,9 +15,8 @@ Event attribute values pass through ``redact_text`` at EMIT time, so no
 exit can leak a credential. ``oim_events_total{type}`` counts emissions,
 so rates survive the ring's wrap.
 
-The port declares the event types its own modules emit; the control
-plane's, the router's, the fleet tier's and the sharded replica's wait
-for the code that emits them.
+The port declares the event types its own modules emit; the router's,
+the registry's and the fleet tier's wait for the code that emits them.
 """
 
 from __future__ import annotations
@@ -33,8 +32,13 @@ from typing import Any
 from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.redact import redact_text
 
-# Canonical event types (the emit sites: serve/engine.py and
-# controller/stagecache.py).
+# Canonical event types (the emit sites: serve/engine.py,
+# controller/stagecache.py and feeder/driver.py).
+FEEDER_FAILOVER = "feeder_failover"
+VOLUME_HEALED = "volume_healed"
+# The feeder's address watch fell back to GetValues polling against a
+# registry without the Watch RPC.
+WATCH_RESYNC = "watch_resync"
 REPLICA_DRAIN = "replica_drain"
 STAGE_CACHE_EVICTION = "stage_cache_eviction"
 SLOT_EVICTED = "slot_evicted"

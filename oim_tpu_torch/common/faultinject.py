@@ -1,13 +1,23 @@
-"""Deterministic fault injection (``oim_tpu/common/faultinject.py``),
-without the gRPC-status fault that module also defines.
+"""Deterministic fault injection (``oim_tpu/common/faultinject.py``).
+The gRPC-status fault that module also defines, ``InjectedRpcError``,
+is in ``common/rpcfault.py``, so this module loads without grpcio.
 
 Production code calls ``fire(point, **ctx)`` at named fault points, which
 is a no-op until a test arms the point. Faults are DETERMINISTIC, armed
 with an exact count and an optional context match, so tests assert
 recovery behavior and never race a random fault schedule.
 
-Named points wired in the port (``serve/engine.py``):
+Named points wired in the port:
 
+* ``controller.heartbeat`` — before the controller's Heartbeat RPC (ctx:
+  controller_id). Arming it simulates heartbeats lost on the wire.
+* ``controller.register`` — before ``register_once``'s SetValue calls
+  (ctx: controller_id). Arming it simulates a registry outage.
+* ``feeder.rpc`` — before each remote feeder data-plane RPC (ctx:
+  controller_id, method). Arming it simulates a controller that accepted
+  the publish and then froze.
+* ``prestage.fanout`` — before the feeder's warm-standby PrestageVolume
+  RPC (ctx: volume, target). Absorbed: warming is advisory.
 * ``serve.admit``  — in ``ServeEngine.submit`` before the queue (ctx:
   engine). Arm a ``QueueFull``/``Draining`` instance to simulate admission
   refusal; an injected ``QueueFull`` counts as rejected.

@@ -3,10 +3,9 @@
 A chip's position is ``x,y,z[,core]`` and ``-1`` means unset; ``complete``
 fills unset components from a second source. A CUDA card has no torus
 position: ``CUDABackend.coord_of`` gives every component unset, as the
-JAX package does off a TPU. The JAX package's ``to_proto``/``from_proto``
-are left out: they convert to its protobuf messages, which only the gRPC
-surface uses (ROADMAP A.3, not ported: the card machine has neither grpcio
-nor protobuf).
+JAX package does off a TPU. ``to_proto``/``from_proto`` convert to the
+wire's ``MeshCoordinate`` and import protobuf inside the method, so the
+module loads on a machine without protobuf.
 """
 
 from __future__ import annotations
@@ -63,3 +62,12 @@ class MeshCoord:
 
     def is_complete(self) -> bool:
         return UNSET not in (self.x, self.y, self.z)
+
+    def to_proto(self):
+        from oim_tpu_torch.spec import oim_pb2 as pb
+
+        return pb.MeshCoordinate(x=self.x, y=self.y, z=self.z, core=self.core)
+
+    @classmethod
+    def from_proto(cls, msg) -> "MeshCoord":
+        return cls(msg.x, msg.y, msg.z, msg.core)

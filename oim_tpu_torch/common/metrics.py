@@ -398,6 +398,10 @@ STAGE_SECONDS = DEFAULT.counter(
     "oim_stage_seconds_total", "wall seconds spent staging")
 STAGE_GBPS = DEFAULT.gauge(
     "oim_stage_gbps", "throughput of the most recent staging operation")
+STAGE_WAIT_SECONDS = DEFAULT.histogram(
+    "oim_stage_wait_seconds",
+    "time a feeder publish spent polling StageStatus until the volume "
+    "materialized (publish latency attributable to staging + polling)")
 STAGE_CACHE_HITS = DEFAULT.counter(
     "oim_stage_cache_hits_total",
     "publishes served a resident staged array by content address, "
@@ -587,6 +591,40 @@ SERVE_PREFILL_CHUNK_SECONDS = DEFAULT.histogram(
     "cadence can stall behind prompt work between interleaved steps",
     buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
              0.5, 1.0, 2.5))
+# Control plane (controller/controller.py, feeder/driver.py,
+# common/channelpool.py, common/rpctelemetry.py).
+HEARTBEAT_RTT = DEFAULT.gauge(
+    "oim_heartbeat_rtt_seconds",
+    "round-trip time of the controller's most recent registry heartbeat")
+FEEDER_FAILOVERS = DEFAULT.counter(
+    "oim_feeder_failovers_total",
+    "feeder re-targets to a different controller serving the same mesh "
+    "coordinate after the pinned controller became unavailable")
+WINDOW_PATH_TOTAL = DEFAULT.counter(
+    "oim_window_path_total",
+    "data windows served, by path: direct = feeder dialed the owning "
+    "controller's registered endpoint; proxy = streamed through the "
+    "registry's transparent proxy (first contact, direct-dial failure, "
+    "or direct_data=False)",
+    labelnames=("path",))
+WINDOW_GBPS = DEFAULT.histogram(
+    "oim_window_gbps",
+    "throughput of each remote data-window read (window bytes / wall "
+    "seconds, GB/s), both paths",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0,
+             16.0, 32.0))
+CHANNEL_POOL_SIZE = DEFAULT.gauge(
+    "oim_channel_pool_size",
+    "live pooled gRPC channels across every ChannelPool in this process")
+RPC_LATENCY = DEFAULT.histogram(
+    "oim_rpc_latency_seconds",
+    "gRPC call latency by method and final status code (streaming calls "
+    "time the whole stream)",
+    labelnames=("method", "code"))
+RPC_TOTAL = DEFAULT.counter(
+    "oim_rpc_total",
+    "gRPC calls completed, by method and final status code",
+    labelnames=("method", "code"))
 # Flight recorder (common/events.py): the counter survives ring wrap.
 EVENTS_TOTAL = DEFAULT.counter(
     "oim_events_total",

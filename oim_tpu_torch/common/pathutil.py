@@ -1,9 +1,15 @@
-"""Registry key components the port reads (``oim_tpu/common/pathutil.py``).
+"""Registry key components the port reads and writes
+(``oim_tpu/common/pathutil.py``), and the proxy's routing metadata key.
 
-A controller registers ``<id>/mesh``, its mesh coordinate, beside
-``<id>/address``; ``parallel.mesh.topology_from_registry`` reads the first.
+A controller registers ``<id>/address``, its gRPC address, and
+``<id>/mesh``, its mesh coordinate; ``parallel.mesh.topology_from_registry``
+reads the second. The registry's transparent proxy routes a Controller
+call to the controller named by the ``controllerid`` request metadata
+(``CONTROLLER_ID_META``, ``oim_tpu/registry/registry.py``).
 """
 
 from __future__ import annotations
 
+REGISTRY_ADDRESS = "address"
 REGISTRY_MESH = "mesh"
+CONTROLLER_ID_META = "controllerid"

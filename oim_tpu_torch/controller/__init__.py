@@ -1,7 +1,9 @@
-"""The controller's data plane (``oim_tpu/controller``): backends that
-stage volumes into host memory (``MallocBackend``) or a CUDA device
-(``CUDABackend``), with the content-addressed stage cache. The gRPC
-``Controller``/``ControllerService`` is not ported yet."""
+"""The controller (``oim_tpu/controller``): backends that stage volumes
+into host memory (``MallocBackend``) or a CUDA device (``CUDABackend``),
+with the content-addressed stage cache, and ``backend.read_window``, the
+data window. The gRPC ``Controller``/``ControllerService`` are in
+``controller.controller``, imported from there: this package loads
+without grpcio and protobuf, as the card machine needs."""
 
 from oim_tpu_torch.controller.backend import StagedVolume, StageState, StagingBackend
 from oim_tpu_torch.controller.cuda_backend import CUDABackend

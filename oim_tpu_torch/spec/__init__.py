@@ -1,12 +1,20 @@
 """The request messages the data plane reads (``oim_tpu/spec/oim.proto``),
 as plain dataclasses with the proto messages' field names.
 
-The card machine has no ``protobuf``, so the port's controller takes these
+The card machine has no ``protobuf``, so the port's backends take these
 in place of ``pb.ArraySpec``, ``pb.FileParams`` and the other params
-messages (fields in the proto's order); the gRPC surface that carries
-them is not ported yet (ROADMAP A.4). ``spec_bytes`` stands in for
+messages (fields in the proto's order), and this package imports no
+protobuf. ``spec_bytes`` stands in for
 ``SerializeToString(deterministic=True)`` where the stage cache keys on
 the spec.
+
+The wire itself is in the submodules, which need grpcio and protobuf:
+``spec.oim_pb2`` is a byte-identical copy of ``oim_tpu/spec/oim_pb2.py``
+(it registers ``oim.proto`` under the same name, so in one process both
+packages' messages are the same classes), and ``spec.services`` holds the
+stubs, servicers and method tables of ``oim_tpu/spec/services.py``.
+``controller/controller.py`` converts between the two at the servicer
+edge.
 """
 
 from __future__ import annotations
