@@ -354,13 +354,31 @@ Phases, in order; any failure exits nonzero:
    a rank, K1-K3 at LAYERS x STEPS a rank on ``wgmma``, each rank
    holding half the split leaves, replicas equal by digest; the planted
    ``gather_from`` in place of q's gather must break a limit.
-16. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+16. the serving daemon's device half (``phase_serve_daemon``): importing
+   ``oim_tpu_torch.cli.oim_serve`` loads no ``grpc`` and no
+   ``google.protobuf``; llama3-8b at full width cut to DAEMON_LAYERS
+   layers, bf16, drawn on the card and packed to a temporary file
+   (``save_packed``, the ``--pack-to`` artifact), staged through
+   ``CUDABackend`` as the raw uint8 file volume ``weights_request``
+   describes, then restored by ``restore_from_array`` (the grpc-free core
+   of ``restore_weights``) whole and as members 0 and 1 of shard 2. Every
+   restored leaf must equal the original to the bit, each member tree
+   ``member_params``' piece, ``LAST_RESTORE["bytes_staged"]`` the member
+   weight bytes, and a ``ServeEngine`` on the restored tree must stream
+   the same tokens as one on the original params for DAEMON_PROMPTS'
+   greedy requests. It prints the blob's bytes, the stage's seconds and
+   GB/s beside its bound (the slower of the file read alone and a pinned
+   H2D), the restore's seconds, how many leaves it copied (an offset in
+   the blob that the element size does not divide) and the device and
+   host growth over the stage and the restore; the ``serve_daemon`` JSON
+   line.
+17. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
    card's path needs neither); the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
-   15) and the kernels line (JSON),
+   15), the ``serve_daemon`` line (phase 16) and the kernels line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``parallel_launches`` (phase 15's, by path and rank),
    ``parallel_max_abs_err`` (phase 15's sequence-parallel attention
@@ -5674,6 +5692,179 @@ def phase_parallel(main: dict, moe_history: list, stage8: dict,
             "note": "two ranks share one card over gloo: not a multi-GPU speed"}
 
 
+# Phase 16: the serving daemon's device half. llama3-8b at full width cut to
+# DAEMON_LAYERS layers, bf16: 3,846,325,857 bytes of blob (embed and head
+# 1.05 GB each, 0.436 GB a layer); full depth would write and stage 16 GB.
+DAEMON_LAYERS = 4
+DAEMON_SEED = 16
+DAEMON_PROMPTS = (17, 48, 100, 200)     # prompt lengths of the 4 greedy requests
+DAEMON_NEW = 32                          # tokens each request decodes
+DAEMON_ENGINE = dict(max_batch=4, max_seq=256, queue_depth=8, prefix_block=16)
+
+
+def _bit_equal(a, b) -> bool:
+    """Whether two tensors hold the same bytes."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _allocated(device) -> int:
+    import torch
+
+    return torch.cuda.memory_allocated(device) if torch.device(device).type == "cuda" else 0
+
+
+def _daemon_streams(cfg, params, reqs, device) -> list:
+    """The greedy streams of ``reqs`` from a ServeEngine on ``params``."""
+    from oim_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(params, cfg, device=device, **DAEMON_ENGINE)
+    try:
+        return run_requests(eng, reqs)
+    finally:
+        eng.stop(drain=False)
+
+
+def phase_serve_daemon(device="cuda") -> dict:
+    """Phase 16: the device half of ``oim_tpu_torch.cli.oim_serve``. The
+    CLI module imports without grpc or protobuf; the params of
+    ``llama.init`` on the card are packed to a file (``save_packed``, the
+    ``--pack-to`` artifact), staged through ``CUDABackend`` as the raw uint8
+    file volume ``weights_request`` describes, and restored by the
+    grpc-free ``restore_from_array`` whole and as both members of shard 2.
+    Every leaf must equal the original to the bit, each member tree
+    ``member_params``' piece, ``LAST_RESTORE["bytes_staged"]`` the member
+    weight bytes, and an engine on the restored tree must stream the
+    original engine's greedy tokens."""
+    import dataclasses
+
+    import torch
+
+    import oim_tpu_torch.cli.oim_serve  # noqa: F401 - the daemon's module, for its imports
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume
+    from oim_tpu_torch.data import plane
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import shard as shardlib
+    from oim_tpu_torch.serve import weights as W
+
+    wire = sorted(m for m in sys.modules
+                  if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
+    if wire:
+        fail(f"serve daemon: importing oim_tpu_torch.cli.oim_serve loaded {wire[:5]}")
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=DAEMON_LAYERS)
+    params = llama.init(torch.Generator(device=device).manual_seed(DAEMON_SEED), cfg)
+    leaves = dict(_named_leaves(params))
+    tmp = tempfile.mkdtemp(prefix="oim-serve-daemon-")
+    try:
+        path = os.path.join(tmp, "weights.oimw")
+        t0 = time.monotonic()
+        blob = W.save_packed(params, path)
+        pack_s = time.monotonic() - t0
+        spec, fparams = W.weights_params(path, blob)
+        read_gbps = source_read_gbps(plane.lower_source("file", fparams))
+        link_gbps = h2d_gbps()
+        bound_s = blob / (min(read_gbps, link_gbps) * 1e9)
+
+        backend = CUDABackend(device=device)
+        vol = StagedVolume("weights", b"", spec)
+        _sync(device)
+        dev0, rss0 = _allocated(device), host_rss()
+        t0 = time.monotonic()
+        backend.stage(vol, "file", fparams)
+        vol.wait()
+        stage_s = time.monotonic() - t0
+        if vol.error or vol.array is None:
+            fail(f"serve daemon: staging the weights blob failed: {vol.error}")
+        _sync(device)
+        dev1, rss1 = _allocated(device), host_rss()
+        if tuple(vol.array.shape) != (blob,) or vol.array.dtype != torch.uint8:
+            fail(f"serve daemon: staged {tuple(vol.array.shape)} {vol.array.dtype}, "
+                 f"not the raw uint8 volume of {blob} bytes")
+
+        t0 = time.monotonic()
+        tree = W.restore_from_array(vol.array)
+        _sync(device)
+        restore_s = time.monotonic() - t0
+        dev2, rss2 = _allocated(device), host_rss()
+        last = dict(W.LAST_RESTORE)
+        got = dict(_named_leaves(tree))
+        if got.keys() != leaves.keys():
+            fail(f"serve daemon: restored leaves {sorted(got)} != {sorted(leaves)}")
+        base, end = vol.array.data_ptr(), vol.array.data_ptr() + blob
+        copied = [n for n, t in got.items() if not base <= t.data_ptr() < end]
+        bad = [n for n in leaves if got[n].device != vol.array.device
+               or not _bit_equal(got[n], leaves[n])]
+        if bad:
+            fail(f"serve daemon: restored leaves differ from the originals: {bad}")
+        if last != {"shard": 1, "rank": 0, "bytes_staged": blob, "total_bytes": blob}:
+            fail(f"serve daemon: LAST_RESTORE {last} after the whole restore of {blob} B")
+
+        members = []
+        want_bytes = shardlib.member_weight_bytes(params, 2)
+        for rank in (0, 1):
+            t0 = time.monotonic()
+            member = W.restore_from_array(vol.array, shard=2, rank=rank)
+            _sync(device)
+            member_s = time.monotonic() - t0
+            piece = dict(_named_leaves(shardlib.member_params(params, 2, rank)))
+            mine = dict(_named_leaves(member))
+            bad = [n for n in piece if not _bit_equal(mine[n], piece[n])]
+            if bad or mine.keys() != piece.keys():
+                fail(f"serve daemon: member {rank} of shard 2 differs from member_params: "
+                     f"{bad or sorted(mine)}")
+            if W.LAST_RESTORE["bytes_staged"] != want_bytes:
+                fail(f"serve daemon: member {rank} staged {W.LAST_RESTORE['bytes_staged']} B, "
+                     f"member_weight_bytes says {want_bytes}")
+            members.append({"rank": rank, "restore_s": member_s,
+                            "bytes_staged": W.LAST_RESTORE["bytes_staged"]})
+            del member, piece, mine
+
+        rs = np.random.RandomState(DAEMON_SEED)
+        reqs = [(rs.randint(0, cfg.vocab, n).tolist(), DAEMON_NEW, 0.0, i)
+                for i, n in enumerate(DAEMON_PROMPTS)]
+        t0 = time.monotonic()
+        want = _daemon_streams(cfg, params, reqs, device)
+        streams = _daemon_streams(cfg, tree, reqs, device)
+        engines_s = time.monotonic() - t0
+        if streams != want:
+            fail(f"serve daemon: the engine on the restored tree streamed {streams}, "
+                 f"the one on the original params {want}")
+        del tree, got
+        backend.unstage(vol)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "model": f"llama3-8b width, {DAEMON_LAYERS} layers, bf16", "blob_bytes": blob,
+        "pack_s": pack_s, "stage_s": stage_s, "stage_gbps": blob / stage_s / 1e9,
+        "read_gbps": read_gbps, "h2d_gbps": link_gbps, "bound_s": bound_s,
+        "bound_by": "read" if read_gbps < link_gbps else "h2d",
+        "restore_s": restore_s, "stage_device_growth_bytes": dev1 - dev0,
+        "restore_device_growth_bytes": dev2 - dev1, "stage_host_rss_growth_bytes": rss1 - rss0,
+        "restore_host_rss_growth_bytes": rss2 - rss1,
+        "leaves": len(leaves), "leaves_copied": len(copied),
+        "leaves_viewed": len(leaves) - len(copied), "members": members,
+        "member_weight_bytes": want_bytes, "requests": len(reqs), "tokens_each": DAEMON_NEW,
+        "streams_equal": True, "engines_s": engines_s, "grpc_loaded": False,
+        "phase_s": time.monotonic() - t_phase}
+    say(f"  blob {blob} B packed in {pack_s:.2f} s; staged in {stage_s:.3f} s "
+        f"({out['stage_gbps']:.2f} GB/s; read {read_gbps:.2f}, pinned H2D {link_gbps:.2f} "
+        f"GB/s: bound {bound_s:.3f} s by the {out['bound_by']}); device growth "
+        f"{dev1 - dev0} B, host RSS growth {rss1 - rss0} B")
+    say(f"  restore {restore_s * 1e3:.2f} ms: {len(copied)} of {len(leaves)} leaves copied "
+        f"(offset not a multiple of the element size), device growth {dev2 - dev1} B, host "
+        f"RSS growth {rss2 - rss1} B; every leaf equal to the bit")
+    member_ms = ", ".join(f"{m['restore_s'] * 1e3:.2f}" for m in members)
+    say(f"  shard 2: members 0 and 1 equal to member_params, {want_bytes} B each "
+        f"({member_ms} ms)")
+    say(f"  {len(reqs)} greedy requests x {DAEMON_NEW} tokens: the restored tree's streams "
+        f"equal the original's ({engines_s:.2f} s for both engines); phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5845,7 +6036,11 @@ def main() -> int:
         rec["parallel_max_abs_err"] = max(a["max_abs_err"][t] for a in par["attention"].values()
                                           for t in part[n])
 
-    say("== 16. summary")
+    say("== 16. serving daemon: oim_serve's weights staged through CUDABackend and "
+        "restored, llama3-8b width, 4 layers")
+    daemon = phase_serve_daemon()
+
+    say("== 17. summary")
     wire = sorted(m for m in sys.modules
                   if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
@@ -5873,6 +6068,7 @@ def main() -> int:
     say(json.dumps({"sources": sources, "card": card}))
     say(json.dumps({"obs": obs, "card": card}))
     say(json.dumps({"parallel": par, "card": card}))
+    say(json.dumps({"serve_daemon": daemon, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

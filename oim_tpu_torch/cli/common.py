@@ -4,10 +4,11 @@
 ``--metrics-port`` serves ``/metrics``, ``/debug/spans`` and
 ``/debug/events``; ``--trace-dir`` streams finished spans to
 ``<service>-<pid>.trace.json`` and receives the flight recorder's dump on
-SIGQUIT, an unhandled crash and ``Observability.stop()``. The telemetry
-registry row (the JAX CLIs' ``--telemetry-id``) is not ported yet
-(ROADMAP A.3.1). ``load_tls_flags`` imports ``common/tlsutil`` (grpcio)
-only when ``--ca``/``--key`` are given, so this module loads on a machine
+SIGQUIT, an unhandled crash and ``Observability.stop()``.
+``start_telemetry_row`` publishes the daemon's ``telemetry/<id>`` registry
+row (``--telemetry-id``) when a metrics server and a registry are both
+set. ``load_tls_flags`` and ``start_telemetry_row`` import the gRPC
+modules only when they are used, so this module loads on a machine
 without grpcio.
 """
 
@@ -132,14 +133,19 @@ def add_observability_flags(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--telemetry-id", default="",
-        help="the JAX CLIs' telemetry/<id> registry row: not ported yet "
-             "(ROADMAP A.3.1), so any value but '' or 'none' is refused",
+        help="id for this daemon's TTL-leased telemetry/<id> registry "
+             "row (metrics endpoint + role; the `oimctl --top` "
+             "discovery row). Default: derived from the daemon's own "
+             "identity; 'none' disables. Published only when both a "
+             "metrics server and a registry are configured; under mTLS "
+             "the id must match the dialing identity's own id (or be a "
+             "dot-suffixed variant)",
     )
 
 
 class Observability:
     """Started telemetry for one process: span recorder + flight recorder
-    + metrics server."""
+    + metrics server (+ the telemetry registry row, when started)."""
 
     def __init__(self, server, recorder, service: str = "",
                  trace_dir: str = ""):
@@ -147,6 +153,7 @@ class Observability:
         self.recorder = recorder
         self.service = service
         self.trace_dir = trace_dir
+        self.telemetry = None  # TelemetryRegistration | None
 
     def dump_events(self) -> str | None:
         """Flight-recorder post-mortem dump into --trace-dir (SIGQUIT /
@@ -162,6 +169,9 @@ class Observability:
             return None
 
     def stop(self) -> None:
+        if self.telemetry is not None:
+            self.telemetry.stop(deregister=True)
+            self.telemetry = None
         self.dump_events()
         self.recorder.flush()
         self.recorder.close()
@@ -180,10 +190,6 @@ def start_observability(args: argparse.Namespace, service: str) -> Observability
     from oim_tpu_torch.common import events, tracing
     from oim_tpu_torch.common.logging import from_context
 
-    if getattr(args, "telemetry_id", "") not in ("", "none"):
-        raise SystemExit(
-            "--telemetry-id: the telemetry/<id> registry row is not ported yet "
-            "(ROADMAP A.3.1: it follows the controller heartbeat in a later slice)")
     trace_dir = getattr(args, "trace_dir", "")
     recorder = tracing.configure(
         service, trace_dir=trace_dir,
@@ -221,3 +227,32 @@ def start_observability(args: argparse.Namespace, service: str) -> Observability
 
         sys.excepthook = _dump_on_crash
     return obs
+
+
+def start_telemetry_row(
+    obs: Observability,
+    telemetry_id: str,
+    role: str,
+    registry_address: str,
+    tls=None,
+    interval: float = 10.0,
+):
+    """Self-publish this daemon's TTL-leased ``telemetry/<id>`` registry
+    row (metrics endpoint + role) so ``oimctl --top`` discovers it. A
+    no-op without a metrics server or registry, or with the id "none".
+    Stops with ``obs.stop()``."""
+    if (obs.server is None or not registry_address or not telemetry_id
+            or telemetry_id == "none"):
+        return None
+    from oim_tpu_torch.common.logging import from_context
+    from oim_tpu_torch.common.telemetry import TelemetryRegistration
+
+    registration = TelemetryRegistration(
+        telemetry_id, role,
+        f"{obs.server.host}:{obs.server.port}",
+        registry_address, interval=interval, tls=tls)
+    registration.start()
+    obs.telemetry = registration
+    from_context().info("telemetry row published", row=registration.key,
+                        role=role, metrics=registration.metrics_endpoint)
+    return registration

@@ -12,8 +12,10 @@ card, round robin); ``--backend malloc`` holds volumes in host memory.
 ``--device-mesh data=4,model=2`` places specs that name mesh axes over a
 ``plane.LocalMesh`` of this host's cards (the devices named by
 ``--device``, in index order; ``--device cpu`` stands as many CPU
-devices as the axes need in for them). The JAX daemon's telemetry row (``--telemetry-id``) is not
-ported yet.
+devices as the axes need in for them). With ``--metrics-port`` and a
+registry the daemon publishes its ``telemetry/<id>`` row
+(``--telemetry-id``, default the controller id), renewed by the
+controller's own heartbeat as a batched key.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from oim_tpu_torch.cli.common import (
     load_tls_flags,
     setup_logging,
     start_observability,
+    start_telemetry_row,
 )
 from oim_tpu_torch.common.meshcoord import MeshCoord
 from oim_tpu_torch.controller import CUDABackend, MallocBackend
@@ -122,11 +125,15 @@ def build(args: argparse.Namespace):
         backend = MallocBackend(cache_bytes=cache_bytes,
                                 keep_cached=not args.no_keep_cached)
     coord = MeshCoord.parse(args.mesh_coord) if args.mesh_coord else None
+    # The telemetry/<id> row rides the controller heartbeat as a batched
+    # key, as the JAX daemon's does.
+    telemetry_id = args.telemetry_id or args.controller_id
     controller = Controller(
         controller_id=args.controller_id, backend=backend,
         controller_address=args.controller_address, registry_address=args.registry,
         registry_delay=args.registry_delay, lease_seconds=args.lease_seconds,
-        mesh_coord=coord, tls=tls)
+        mesh_coord=coord, tls=tls,
+        extra_lease_keys=[f"telemetry/{telemetry_id}"] if telemetry_id != "none" else [])
     server = controller_server(args.endpoint, controller.service, tls=tls)
     controller.start()
     return controller, server
@@ -137,6 +144,8 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging(args)
     obs = start_observability(args, "oim-controller")
     controller, server = build(args)
+    start_telemetry_row(obs, args.telemetry_id or args.controller_id, "controller",
+                        args.registry, tls=load_tls_flags(args))
     try:
         server.wait()
     except KeyboardInterrupt:

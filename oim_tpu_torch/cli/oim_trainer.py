@@ -46,10 +46,17 @@ staged by the controller, so its path is the controller's:
         --controller-id host-0 --volume-file /data/tokens.npy \
         --model llama3-8b --override n_layers=2 --steps 5 --batch-size 2 --seq-len 2048
 
+With ``--registry`` and ``--metrics-port`` the trainer publishes its
+``telemetry/<id>`` row (``--telemetry-id``, default
+``<controller-id>.trainer``). ``--smoke`` is the JAX CLI's: llama-tiny, at
+most 5 steps of batch 2 and 32 tokens, logged every step, on ``data=`` the
+smaller of the batch and the ranks; ``--synthetic`` names the default
+source.
+
 Not ported yet, and refused: TFRecord and webdataset volumes through the
 feeder (``--volume-tfrecord``, ``--volume-webdataset``: ROADMAP
-A.3.3-A.3.4), ``--registry`` under several ranks (the registry bootstrap,
-A.3.8) and the telemetry row (``--telemetry-id``, A.3.1).
+A.3.3-A.3.4) and ``--registry`` under several ranks (the registry
+bootstrap, A.3.8).
 
 Several ranks: under ``torchrun`` (``WORLD_SIZE`` set) each process joins
 the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
@@ -79,6 +86,7 @@ from oim_tpu_torch.cli.common import (
     add_registry_flag,
     load_tls_flags,
     start_observability,
+    start_telemetry_row,
 )
 from oim_tpu_torch.common import logging as oimlog
 from oim_tpu_torch.common.profiling import profile_trace
@@ -169,7 +177,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--eval-steps", type=int, default=8, help="batches per eval pass")
     p.add_argument("--augment", action="store_true",
                    help="host-side random flip + crop on image batches")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny model, 5 steps, CPU-friendly")
     # Data source (feeder mode).
+    p.add_argument("--synthetic", action="store_true", default=False,
+                   help="train on synthetic batches (the default without --registry)")
     add_registry_flag(p, help_suffix="feeder data source")
     p.add_argument("--controller-id", default="")
     p.add_argument("--volume", default="train-data")
@@ -212,7 +224,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--log-level", default="info")
     p.add_argument("--log-format", default="text", choices=("text", "json"))
     add_observability_flags(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.smoke:
+        args.model = "llama-tiny"
+        args.steps = min(args.steps, 5)
+        args.batch_size = min(args.batch_size, 2)
+        args.seq_len = min(args.seq_len, 32)
+        args.log_every = 1
+        if not args.mesh:
+            ranks = int(os.environ.get("WORLD_SIZE", "1"))
+            args.mesh = f"data={min(args.batch_size, ranks)}"
+    return args
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
@@ -270,6 +292,11 @@ def run(argv: list[str] | None = None) -> Trainer:
         check_fed_args(args)
     device, made_group = init_distributed(args.device)
     obs = start_observability(args, "oim-trainer")
+    if args.registry:
+        start_telemetry_row(
+            obs, args.telemetry_id or (f"{args.controller_id}.trainer"
+                                       if args.controller_id else ""),
+            "trainer", args.registry, tls=load_tls_flags(args))
     feeder = None
     try:
         cfg = config_from_args(args)

@@ -228,17 +228,22 @@ def check_tensor_parallel(cfg: Config, n: int) -> None:
                              "tensor-parallel rules split it evenly over the axis")
 
 
-def _head_range(cfg: Config, tp) -> tuple[int, int, int]:
-    """(first, end) of the query heads this rank attends and the offset of
-    its own q columns inside them: its contiguous heads where the axis
-    divides them (all of them without ``tp``), else every head that
+def head_range(cfg: Config, n: int, index: int) -> tuple[int, int, int]:
+    """(first, end) of the query heads rank ``index`` of a ``model`` axis of
+    ``n`` attends and the offset of its own q columns inside them: its
+    contiguous heads where the axis divides them, else every head that
     overlaps its even share of the columns."""
-    if tp is None:
-        return 0, cfg.n_heads, 0
-    cols = cfg.q_dim // tp.size
-    start = tp.index * cols
+    cols = cfg.q_dim // n
+    start = index * cols
     lo, hi = start // cfg.head_dim, -(-(start + cols) // cfg.head_dim)
     return lo, hi, start - lo * cfg.head_dim
+
+
+def _head_range(cfg: Config, tp) -> tuple[int, int, int]:
+    """``head_range`` of this rank of ``tp`` (every head without it)."""
+    if tp is None:
+        return 0, cfg.n_heads, 0
+    return head_range(cfg, tp.size, tp.index)
 
 
 def _gather_heads(q, tp):
@@ -319,6 +324,19 @@ def _embed(params, ids, cfg: Config, tp=None):
     mine = (local >= 0) & (local < rows)
     x = F.embedding(local.clamp(0, rows - 1), table)
     return collectives.reduce_from(torch.where(mine[..., None], x, 0).to(cfg.dtype), tp)
+
+
+def _embed_grad(table, ids, d_x, cfg: Config, tp):
+    """The gradient of ``_embed``'s vocab-parallel table from the cotangent
+    ``d_x`` of its output: autograd's own embedding backward, without the
+    forward's graph (or its output) held until it runs."""
+    ids = torch.where(ids < 0, ids + cfg.vocab, ids)
+    rows = table.shape[0]
+    local = ids - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    g = torch.where(mine[..., None], d_x.to(table.dtype), 0)
+    return torch.ops.aten.embedding_dense_backward(g, local.clamp(0, rows - 1), rows, -1,
+                                                   False)
 
 
 def _rope(cfg: Config, t: int, positions, device):
@@ -461,6 +479,12 @@ def _stage_fn(cfg: Config, chunks: list, n: int, cos, sin, attn_fn: AttentionFn 
     return fn
 
 
+# Bytes of the embedding's output this rank held through the latest
+# pipelined call: the whole batch on global stage 0's rank, which reads it,
+# none on the other ranks of the pipe.
+PIPE_HELD = {"x": 0}
+
+
 def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: int,
                shards: int, n_virtual: int | None):
     """The pipelined loss over the ``pipe`` axis: GPipe where ``n_virtual``
@@ -478,9 +502,15 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
         if denom is None:
             denom = (labels != ignore_index).sum().float()
         cos, sin = _rope(cfg, t, positions, inputs.device)
-        with torch.set_grad_enabled(grad):
+        # Only global stage 0 (this axis's first rank) reads the embedding's
+        # output: the other ranks drop it once their share of the sum is in.
+        with torch.no_grad():
             x = _embed(params, inputs.long(), cfg, pipe)
-        xs, targets = list(x.detach().chunk(m)), labels.chunk(m)
+        like = torch.zeros((), dtype=x.dtype, device=x.device).expand(b // m, t, x.shape[-1])
+        xs = list(x.chunk(m)) if pipe.index == 0 else [like] * m
+        del x
+        PIPE_HELD["x"] = sum(h.numel() * h.element_size() for h in xs if h is not like)
+        targets = labels.chunk(m)
         weights = [1.0 / torch.clamp(denom, min=1.0)] * m
         head_params = [params["final_norm"], params["lm_head"]]
 
@@ -499,7 +529,7 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
                           chunk_leaves[0][0].shape[0], cos, sin, attn_fn)
         aux_seed = None
         if cfg.n_experts:
-            aux_seed = torch.tensor([cfg.moe_aux_weight / (m * shards), 0.0], device=x.device)
+            aux_seed = torch.tensor([cfg.moe_aux_weight / (m * shards), 0.0], device=like.device)
         if n_virtual is not None and grad:
             res = pipeline_1f1b.pipeline_1f1b_value_and_grad(
                 stage, head_fn, chunk_leaves, head_params, xs, weights, pipe, aux_seed)
@@ -517,7 +547,9 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
             return loss, None, stats
         d_layers = (pipeline_1f1b.from_schedule_layout(res.d_stage, pipe, cfg.n_layers)
                     if interleaved else res.d_stage[0])
-        (d_embed,) = torch.autograd.grad(x, [params["embed"]], torch.cat(res.d_x))
+        d_x, res.d_x = res.d_x.reshape(b, t, -1), None
+        d_embed = _embed_grad(params["embed"], inputs.long(), d_x, cfg, pipe)
+        del d_x
         grads = {"embed": d_embed, "layers": tree_unflatten(params["layers"], d_layers),
                  "final_norm": res.d_head[0], "lm_head": res.d_head[1]}
         return loss, grads, stats

@@ -70,7 +70,8 @@ class PipeResult:
     microbatch) pairs (None without aux); ``extra``: sum_j w_j * extra_j
     of the head's extra output (None without it); ``d_stage``: one list of
     gradients a chunk, like the chunks' params; ``d_head``; ``d_x``: each
-    microbatch input's cotangent, whole on every rank. The gradients are
+    microbatch input's cotangent, stacked [M, ...] and whole on every rank
+    (the embedding's vocab-parallel backward reads all of them). The gradients are
     None for a forward-only pass."""
 
     loss: torch.Tensor
@@ -78,7 +79,7 @@ class PipeResult:
     extra: torch.Tensor | None = None
     d_stage: list | None = None
     d_head: list | None = None
-    d_x: list | None = None
+    d_x: torch.Tensor | None = None
 
 
 class Grads:
@@ -152,13 +153,17 @@ def add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def whole_inputs_grads(d_x: list, axis: Axis, like: torch.Tensor) -> list:
+def whole_inputs_grads(d_x: list, axis: Axis, like: torch.Tensor) -> torch.Tensor:
     """Global stage 0's input cotangents (on the axis's first rank) on
-    every rank of the axis: one psum of them stacked."""
-    stacked = torch.stack(d_x) if axis.index == 0 else None
-    full = broadcast_from(stacked, axis, 0, torch.empty(
-        (len(d_x),) + tuple(like.shape), dtype=like.dtype, device=like.device))
-    return list(full.unbind(0))
+    every rank of the axis, stacked [M, ...]: one psum. The first rank's
+    list is emptied as it stacks, so one copy of them stays live."""
+    m = len(d_x)
+    stacked = None
+    if axis.index == 0:
+        stacked = torch.stack(d_x)
+        d_x.clear()
+    return broadcast_from(stacked, axis, 0, torch.empty(
+        (m,) + tuple(like.shape), dtype=like.dtype, device=like.device))
 
 
 def pipeline_value_and_grad(stage_fn: StageFn, head_fn: HeadFn, stage_params: list,

@@ -1,7 +1,8 @@
 """Serving (``oim_tpu/serve``): the packed-weights blob and the
 continuous-batching engine over a paged KV cache.
 
-* ``weights``     the ``OIMW0001`` blob (pack / unpack).
+* ``weights``     the ``OIMW0001`` blob (pack / unpack), publishing it as
+  a volume and restoring a tree (or a member's) from the staged bytes.
 * ``engine``      the slot-based continuous-batching scheduler: mid-flight
   admission, lockstep decode over a paged KV pool (``pagepool``), prompt
   prefix reuse (``prefixcache``) with a host-RAM tier (``kvtier``),
@@ -11,8 +12,10 @@ continuous-batching engine over a paged KV cache.
 * ``shard``       tensor-parallel serving: one replica over several
   members, the Megatron split of the weights and the pool.
 
-Not ported yet: the gRPC service, registration (with the members' leases),
-weight publish/restore and KV volumes.
+The gRPC half, which needs grpcio and protobuf and is imported from its
+modules: ``service`` (``oim.v1.Serve``), ``registration`` (the
+``serve/<id>`` row) and ``members`` (a sharded replica's member leases).
+Not ported yet: KV volumes (ROADMAP A.3.7).
 """
 
 from oim_tpu_torch.serve.engine import (  # noqa: F401

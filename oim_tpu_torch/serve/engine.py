@@ -278,6 +278,15 @@ class ServeEngine:
     MIN_PREFILL_BUCKET = 8
     # Sliding window of the oim_serve_qps gauge.
     QPS_WINDOW_S = 10.0
+    # How many hot chain hashes the serve row advertises for the router's
+    # prefix-affinity pick (serve/registration.py).
+    ADVERTISE_PREFIXES = 16
+    # stats() keys the JAX engine keeps in its metrics only: the serve
+    # row (serve/registration.load_snapshot) leaves them out, so a port
+    # replica publishes JAX's row for the same state.
+    LOCAL_STATS = ("decode_row_steps", "finished_total", "prefix_hits", "prefix_misses",
+                   "prefill_tokens_cached", "prefill_tokens_computed",
+                   "pool_blocked_episodes")
 
     def __init__(
         self,
@@ -663,12 +672,25 @@ class ServeEngine:
                 })
             return snap
 
-    def hot_prefixes(self, n: int = 16) -> list[str]:
-        """The ``n`` hottest cached chain hashes (MRU first); empty when
-        the cache is disabled."""
+    def hot_prefixes(self, n: int | None = None) -> list[str]:
+        """The hottest cached chain hashes (MRU first), ``n`` of them
+        (default ``ADVERTISE_PREFIXES``): what the serve row advertises for
+        the router's prefix-affinity pick. Empty when the cache is
+        disabled."""
         if self._prefix is None:
             return []
-        return self._prefix.hot(n)
+        return self._prefix.hot(self.ADVERTISE_PREFIXES if n is None else n)
+
+    def prefix_tiers(self, n: int | None = None) -> dict:
+        """Hash -> tier ("hbm" | "host") for the serve row: the hottest
+        store entries, then the hottest demoted blocks (a hash in both
+        tiers reads "hbm"). Empty when the prefix cache is disabled."""
+        limit = self.ADVERTISE_PREFIXES if n is None else n
+        out = {h: "hbm" for h in self.hot_prefixes(limit)}
+        if self._host_tier is not None:
+            for h in self._host_tier.hot(limit):
+                out.setdefault(h, "host")
+        return out
 
     def host_stats(self) -> dict:
         """Host-tier census; zeros when tiering is off."""

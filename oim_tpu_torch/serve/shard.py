@@ -28,8 +28,9 @@ two ranks on one card), so ``devices=["cuda:0", "cuda:0"]`` runs a
 two-member replica on one card, the counterpart of JAX's fake CPU
 devices, and ``["cpu", "cpu"]`` runs it in the tests.
 
-Not ported here: the registry leases of ``ShardMembers`` (gRPC); the
-engine's ``set_member_watch`` takes any callable that returns the counts.
+The members' registry leases (``ShardMembers``, gRPC) are in
+``serve/members.py``; the engine's ``set_member_watch`` takes any callable
+that returns the counts.
 """
 
 from __future__ import annotations

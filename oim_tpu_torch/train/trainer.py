@@ -52,9 +52,9 @@ inside its pipeline. A ``model`` or ``expert`` axis beside ``pipe``
 splits nothing (``PIPE_RULES`` maps neither): its ranks run the same
 pipeline on the same tokens, as the JAX trainer replicates over it.
 
-``check_supported`` refuses one mesh the JAX trainer runs: Ulysses
+``check_supported`` takes every mesh the JAX trainer takes. Ulysses
 attention over a ``seq`` axis beside a ``model`` axis that splits a query
-head, where the seq axis divides the heads (ring and zigzag run there).
+head runs on the whole heads, gathered over ``model`` (``_heads_whole``).
 
 A batch leaf may be a ``plane.Placed``, staged under a placement over the
 trainer's mesh (``CUDABackend(mesh=...)``): ``place_batch`` takes this
@@ -75,6 +75,7 @@ from typing import Iterator
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common import tracing
@@ -237,14 +238,10 @@ class TrainConfig:
                 and self.model.startswith("llama"):
             llama.check_tensor_parallel(mcfg, n_model)
             n_seq = mesh.shape.get("seq", 1)
-            if mcfg.n_heads % n_model and n_seq > 1 and self.seq_parallel == "ulysses":
-                if mcfg.n_heads % n_seq:  # the JAX trainer's refusal
-                    raise ValueError(f"ulysses needs heads ({mcfg.n_heads}) divisible by the "
-                                     f"'seq' axis size ({n_seq})")
-                raise NotImplementedError(
-                    f"Ulysses over a seq axis of {n_seq} beside a model axis of {n_model} "
-                    f"that splits a query head ({mcfg.n_heads} heads): the port runs ring "
-                    "or zigzag there")
+            if (mcfg.n_heads % n_model and n_seq > 1 and self.seq_parallel == "ulysses"
+                    and mcfg.n_heads % n_seq):  # the JAX trainer's refusal
+                raise ValueError(f"ulysses needs heads ({mcfg.n_heads}) divisible by the "
+                                 f"'seq' axis size ({n_seq})")
 
     def _check_pipe(self, mesh: Mesh, mcfg) -> None:
         """The JAX trainer's refusals of a pipelined run, with its errors."""
@@ -285,6 +282,35 @@ def _gathered(v: plane.Placed, mesh: Mesh) -> torch.Tensor:
             or v.placement.axes != tuple(mesh.shape.items())):
         return v.assemble()
     return Sharding(v.placement.dims).gather(v.local.to(mesh.device), mesh)
+
+
+def _heads_whole(sp, tp: Axis, mcfg):
+    """Ulysses over the ``seq`` axis on every query head where ``tp`` splits
+    a head: each rank holds the whole heads its columns touch
+    (``llama.head_range``, overlapping its neighbours'). The ranks' heads,
+    gathered over ``tp``, give each head once, taken from the first rank
+    that holds it, and K/V the same way expanded to one head a query head;
+    every rank attends every head and keeps its own range. The gathers'
+    backward sums each head's cotangent into the copy taken, and the q
+    gather inside the layer then sums a straddling head's shares over its
+    owners (trap 11)."""
+    n, group = tp.size, mcfg.n_heads // mcfg.n_kv_heads
+    ranges = [llama.head_range(mcfg, n, r)[:2] for r in range(n)]
+    width = max(hi - lo for lo, hi in ranges)
+    take = [next(r * width + h - lo for r, (lo, hi) in enumerate(ranges) if lo <= h < hi)
+            for h in range(mcfg.n_heads)]
+    lo, hi = ranges[tp.index]
+
+    def whole(x):
+        x = F.pad(x, (0, 0, 0, width - x.shape[2]))
+        return all_gather(x, tp, gather_dim=2)[:, :, torch.tensor(take, device=x.device)]
+
+    def fn(q, k, v):
+        if k.shape[2] != hi - lo:  # a KV head a group: one a query head
+            index = torch.arange(lo, hi, device=k.device) // group - lo // group
+            k, v = k[:, :, index], v[:, :, index]
+        return sp(whole(q), whole(k), whole(v))[:, :, lo:hi]
+    return fn
 
 
 def _heads_gathered(sp, tp: Axis):
@@ -352,7 +378,9 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
         if n_seq > 1:
             sp = make_sequence_parallel_attention(mesh, kind=cfg.seq_parallel, axis="seq",
                                                   causal=True)
-            if (tp is not None and cfg.seq_parallel == "ulysses"
+            if tp is not None and cfg.seq_parallel == "ulysses" and mcfg.n_heads % tp.size:
+                sp = _heads_whole(sp, tp, mcfg)
+            elif (tp is not None and cfg.seq_parallel == "ulysses"
                     and (mcfg.n_heads // tp.size) % n_seq):
                 sp = _heads_gathered(sp, tp)
             attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731

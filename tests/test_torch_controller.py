@@ -557,7 +557,9 @@ GRPC_SURFACE = {
     "common/channelpool.py", "common/interceptors.py", "common/server.py",
     "common/identity.py", "common/rpctelemetry.py", "common/rpcfault.py",
     "controller/controller.py", "feeder/__init__.py", "feeder/driver.py",
-    "feeder/emulation.py", "feeder/watch.py", "cli/oim_controller.py"}
+    "feeder/emulation.py", "feeder/watch.py", "cli/oim_controller.py",
+    "common/telemetry.py", "serve/registration.py", "serve/service.py", "serve/members.py",
+    "cli/oim_serve.py"}
 
 
 def test_data_plane_modules_import_only_stdlib_numpy_torch_and_the_port():

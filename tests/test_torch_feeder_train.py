@@ -11,7 +11,7 @@ package's: registry (JAX's, in process), controller and feeder.
   trains llama-tiny at fp32 for 3 steps, whole-volume and windowed, to the
   JAX ``Trainer``'s losses on the JAX feed's batches within 2e-5.
 * The refusals: TFRecord and webdataset volumes through the feeder,
-  ``--registry`` under several ranks, ``--telemetry-id``.
+  ``--registry`` under several ranks.
 """
 
 from __future__ import annotations
@@ -318,7 +318,6 @@ def test_trainer_cli_fed_through_the_control_plane_matches_jax(tokens, monkeypat
     (["--volume-tfrecord", "/x.tfrecord"], {}, "A.3.4"),
     (["--volume-webdataset", "/x.tar"], {}, "A.3.3"),
     ([], {"WORLD_SIZE": "2"}, "A.3.8"),
-    (["--telemetry-id", "host-0.trainer"], {}, "A.3.1"),
     (["--controller-id", ""], {}, "--controller-id"),
 ])
 def test_refusals_name_the_roadmap_item(tokens, monkeypatch, argv, env, match):

@@ -114,6 +114,8 @@ PORTED_SITES = {
     "oim_tpu/feeder/driver.py": "oim_tpu_torch/feeder/driver.py",
     "oim_tpu/common/channelpool.py": "oim_tpu_torch/common/channelpool.py",
     "oim_tpu/common/tracing.py": "oim_tpu_torch/common/rpctelemetry.py",
+    "oim_tpu/serve/service.py": "oim_tpu_torch/serve/service.py",
+    "oim_tpu/common/telemetry.py": "oim_tpu_torch/common/telemetry.py",
 }
 
 
@@ -694,7 +696,7 @@ def test_span_names_and_fault_points_are_jax_ones():
     port_files = [str(p.relative_to(_ROOT)) for p in (_ROOT / "oim_tpu_torch").rglob("*.py")]
     assert _names(spans, port_files) == _names(spans, PORTED_SITES) == {
         "serve.prefill", "serve.draft_prefill", "serve.queue_wait", "serve.decode",
-        "stage", "train.step", "feeder.publish", "feeder.window"}
+        "stage", "train.step", "feeder.publish", "feeder.window", "serve.generate"}
     assert _names(faults, port_files) == _names(faults, PORTED_SITES) == {
         "serve.admit", "spec.propose", "serve.retire", "serve.decode",
         "controller.register", "controller.heartbeat", "feeder.rpc", "prestage.fanout"}

@@ -425,6 +425,23 @@ def test_stash_stays_within_the_schedule(runs):
                          sched)
 
 
+@pytest.mark.parametrize("name", ["gpipe", "1f1b", "1f1b_v2", "dp2_1f1b", "seq_ring_1f1b"])
+def test_only_stage_zero_holds_the_embedding_output(runs, name):
+    """The embedding's output [B, T, D] (this rank's rows and positions)
+    is held through the pipeline by the first rank of pipe alone, whose
+    global stage 0 reads it; the other ranks of pipe hold none of it (the
+    JAX package shards it over pipe)."""
+    got = runs[0]
+    world, axes, extra, _ = SCENARIOS[name]
+    shape = dict(axes)
+    rows = extra["batch_size"] // shape.get("data", 1) // extra.get("accum_steps", 1)
+    share = rows * extra["seq_len"] // shape.get("seq", 1) * 64 * 4  # llama-tiny dim, f32
+    for rank, r in enumerate(got[world]):
+        stage = Mesh(axes, list(range(world)), "cpu", rank=rank).axis("pipe").index
+        for step in range(STEPS):
+            assert int(r[f"{name}/embed_held{step}"]) == (share if stage == 0 else 0)
+
+
 def test_z_loss_term_reported_by_gpipe_only(runs):
     """GPipe reports the z-loss term as JAX does; 1F1B carries the z-loss in
     its loss but no term, exactly as JAX's 1F1B."""

@@ -5,8 +5,10 @@ synthetic global batches.
 
 * A ``model`` axis that splits a query head (tp_sp): 6 heads of 16 (2 KV
   heads) over model=4; 3 heads (1 KV head) over model=2, over
-  fsdp=2,model=2 and over seq=2,model=2 with zigzag attention; and
-  llama-tiny's 4 heads over model=8. JAX cuts wq/wk/wv by columns and wo
+  fsdp=2,model=2 and over seq=2,model=2 with zigzag attention;
+  llama-tiny's 4 heads over model=8; and 6 heads over seq=2,model=4 with
+  Ulysses attention, which runs on the whole heads gathered over model.
+  JAX cuts wq/wk/wv by columns and wo
   by rows evenly over the axis, so a head straddles two ranks; the port
   cuts the same bytes, gathers q over the axis, attends on the whole
   heads each rank's columns touch and keeps its own columns.
@@ -60,6 +62,9 @@ SCENARIOS = {
                                   dict(batch_size=2, seq_parallel="zigzag",
                                        model_overrides=THREE), None),
     "heads4_model8": (8, "llama-tiny", "tp_sp", _tp(model=8), dict(batch_size=2), None),
+    "heads6_seq2_model4_ulysses": (8, "llama-tiny", "tp_sp", _tp(seq=2, model=4),
+                                   dict(batch_size=2, seq_parallel="ulysses",
+                                        model_overrides=SIX), None),
     "pipe2_model2": (4, "llama-tiny", "pipe", [("data", 1), ("pipe", 2), ("model", 2)],
                      dict(batch_size=4, microbatches=2), None),
     "pipe2_model2_1f1b": (4, "llama-tiny", "pipe", [("data", 1), ("pipe", 2), ("model", 2)],
@@ -258,9 +263,9 @@ def test_uneven_columns_are_refused_where_jax_refuses_them():
 def test_ulysses_beside_a_head_split_is_refused_naming_it():
     """Ring and zigzag run beside a head split (held above). Ulysses over
     3 heads at seq=2 is refused by the JAX Trainer, and the port raises
-    its error; where the seq axis divides the heads (6 over 2) the JAX
-    Trainer runs Ulysses on the whole heads and the port refuses it with a
-    message that names the pair."""
+    its error; where the seq axis divides the heads (6 over 2) both
+    Trainers run Ulysses on the whole heads (held above at model=4), so
+    the port refuses nothing there."""
     cfg = dict(model="llama-tiny", rules="tp_sp", seq_parallel="ulysses", **COMMON,
                batch_size=2, model_overrides=THREE)
     tr = jtrainer.Trainer(jtrainer.TrainConfig(**cfg), axes=_tp(seq=2, model=2))
@@ -272,7 +277,5 @@ def test_ulysses_beside_a_head_split_is_refused_naming_it():
         ttrainer.TrainConfig(**cfg).check_supported(mesh)
     assert str(terr.value) == str(jerr.value)
     six = Mesh(_tp(seq=2, model=4), list(range(8)), "cpu")
-    with pytest.raises(NotImplementedError, match="Ulysses over a seq axis of 2 beside a "
-                                                  "model axis of 4 that splits a query head"):
-        ttrainer.TrainConfig(**{**cfg, "model_overrides": SIX}).check_supported(six)
+    ttrainer.TrainConfig(**{**cfg, "model_overrides": SIX}).check_supported(six)
     ttrainer.TrainConfig(**{**cfg, "seq_parallel": "ring"}).check_supported(mesh)

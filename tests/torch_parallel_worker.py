@@ -292,6 +292,8 @@ def train(sc, inputs, rank, world, out):
             if cfg.rules == "pipe" and cfg.pipeline_schedule == "1f1b":
                 out[f"{name}/stash_peak{step}"] = np.asarray(
                     [pipeline_1f1b.STASH_PEAK["x"], pipeline_1f1b.STASH_PEAK["dh"]])
+            if cfg.rules == "pipe":
+                out[f"{name}/embed_held{step}"] = np.asarray(llama.PIPE_HELD["x"])
             out[f"{name}/loss{step}"] = np.asarray(float(stats["loss"]))
             out[f"{name}/grad_norm{step}"] = np.asarray(float(stats["grad_norm"]))
             if "moe_drop_frac" in stats:
@@ -355,7 +357,7 @@ def pipe_toy(sc, inputs, rank, world, out):
     out[f"{name}/loss"] = res.loss.numpy()
     out[f"{name}/dw"], out[f"{name}/db"] = (g.numpy() for g in d_stage)
     out[f"{name}/dwo"] = res.d_head[0].numpy()
-    out[f"{name}/dx"] = torch.stack(res.d_x).numpy()
+    out[f"{name}/dx"] = res.d_x.numpy()
 
 
 def batchnorm(sc, inputs, rank, world, out):
