@@ -1296,7 +1296,7 @@ def phase_serve_agreement(device="cuda"):
 
     eng = ServeEngine(params, cfg, **engine_kw)
     plain = run(eng)
-    hits = eng.stats()["prefix_hits"]
+    hits = eng.request_stats()["prefix_hits"]
     eng.stop()
     solo = [gen.generate(params, torch.tensor([p], device=device), n, cfg,
                          max_seq=64)[0, len(p):].tolist() for p, n, _, _ in reqs]
@@ -1410,7 +1410,7 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
             r["out"] = r["handle"].result(timeout=RESULT_TIMEOUT)
     watcher.join(RESULT_TIMEOUT)
     wall = time.monotonic() - t0
-    stats = eng.stats()
+    stats = {**eng.stats(), **eng.request_stats()}
     if eng.error:
         fail(f"serving: the engine thread died:\n{eng.error}")
     for r in reqs:
@@ -1533,7 +1533,7 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     eng = ServeEngine(params, cfg, device=device, max_batch=8, max_seq=2048, queue_depth=16,
                       draft_params=params, draft_cfg=cfg, spec_tokens=4)
     outs = run_requests(eng, [(by[n]["prompt"], by[n]["max_new"], 0.0, 0) for n in spec_names])
-    st = eng.stats()
+    st = {**eng.stats(), **eng.request_stats()}
     eng.stop()
     # Tokens a live row gains per target forward: 1 for plain decode.
     tpts = st["decode_tokens"] / max(st["decode_row_steps"], 1)
@@ -3279,7 +3279,7 @@ def phase_moe_serve(profile: bool) -> dict:
         if h.finish_reason != "length" or len(o) != r["max_new"]:
             fail(f"MoE serving: {r['name']} ended {h.finish_reason!r} after {len(o)} of "
                  f"{r['max_new']} tokens; engine error: {eng.error}")
-    stats = eng.stats()
+    stats = {**eng.stats(), **eng.request_stats()}
     scraped, obs_out = check_burst(obs, reqs, "MoE serving")
     prefix = {"hits": delta(scraped, obs.before, M.SERVE_PREFIX_HITS.name),
               "cache_tokens": delta(scraped, obs.before, M.SERVE_PREFILL_TOKENS.name,

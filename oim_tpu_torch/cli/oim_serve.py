@@ -87,7 +87,7 @@ def _volume_params(args, feeder, volume: str, path: str, log):
         publish_weights(feeder, volume, path)
         for peer in args.prestage:
             _prestage_peer(feeder, request, peer, log)
-    return restore_weights(feeder, volume, device=args.device)
+    return restore_weights(feeder, volume)
 
 
 def _load_params(args, log):

@@ -326,19 +326,6 @@ def _embed(params, ids, cfg: Config, tp=None):
     return collectives.reduce_from(torch.where(mine[..., None], x, 0).to(cfg.dtype), tp)
 
 
-def _embed_grad(table, ids, d_x, cfg: Config, tp):
-    """The gradient of ``_embed``'s vocab-parallel table from the cotangent
-    ``d_x`` of its output: autograd's own embedding backward, without the
-    forward's graph (or its output) held until it runs."""
-    ids = torch.where(ids < 0, ids + cfg.vocab, ids)
-    rows = table.shape[0]
-    local = ids - tp.index * rows
-    mine = (local >= 0) & (local < rows)
-    g = torch.where(mine[..., None], d_x.to(table.dtype), 0)
-    return torch.ops.aten.embedding_dense_backward(g, local.clamp(0, rows - 1), rows, -1,
-                                                   False)
-
-
 def _rope(cfg: Config, t: int, positions, device):
     """RoPE's cos/sin at ``positions`` (host ints; default 0..t-1)."""
     if positions is None:
@@ -479,10 +466,73 @@ def _stage_fn(cfg: Config, chunks: list, n: int, cos, sin, attn_fn: AttentionFn 
     return fn
 
 
-# Bytes of the embedding's output this rank held through the latest
-# pipelined call: the whole batch on global stage 0's rank, which reads it,
-# none on the other ranks of the pipe.
-PIPE_HELD = {"x": 0}
+# What this rank held of the embedding's output and its cotangent through
+# the latest pipelined call (``_PipeEmbedding``), in bytes: the most
+# microbatch outputs at once ("x"), the most microbatch cotangents at once
+# ("d_x"), and the cotangent rows kept for the table's gradient ("d_rows").
+PIPE_HELD = {"x": 0, "d_x": 0, "d_rows": 0}
+
+
+class _PipeEmbedding:
+    """The vocab-parallel embedding over ``pipe`` as the pipeline's feed
+    (``parallel.pipeline.Feed``), one microbatch at a time. ``take(j)``
+    looks up microbatch j's ids on this rank's rows and sums the slices
+    over ``pipe``; only the first rank keeps the sum (global stage 0 reads
+    it), until its cotangent comes back. ``give(j, d)`` broadcasts that
+    cotangent from the first rank, and each rank keeps the rows of the
+    positions whose ids are its own; ``table_grad()`` is autograd's
+    embedding backward on those rows, once. So no rank holds the whole
+    batch's output or cotangent."""
+
+    def __init__(self, params, ids, cfg: Config, pipe, m: int, grad: bool):
+        self.params, self.cfg, self.pipe, self.grad = params, cfg, pipe, grad
+        self.ids, self.n = ids.chunk(m), m
+        b, t = self.ids[0].shape
+        self.like = torch.zeros((), dtype=cfg.dtype, device=ids.device).expand(b, t, cfg.dim)
+        self.nbytes = self.like.numel() * self.like.element_size()
+        self.held = dict.fromkeys(PIPE_HELD, 0)
+        PIPE_HELD.update(self.held)
+        if grad:
+            rows = params["embed"].shape[0]
+            local = (torch.where(ids < 0, ids + cfg.vocab, ids) - pipe.index * rows).reshape(m, -1)
+            self.sel = [torch.nonzero((r >= 0) & (r < rows)).squeeze(1) for r in local]
+            self.local = torch.cat([r[s] for r, s in zip(local, self.sel)])
+            self.starts = np.cumsum([0] + [len(s) for s in self.sel]).tolist()
+            self.d_rows = None
+
+    def _hold(self, what: str, nbytes: int) -> None:
+        self.held[what] += nbytes
+        PIPE_HELD[what] = max(PIPE_HELD[what], self.held[what])
+
+    def take(self, j: int):
+        with torch.no_grad():
+            x = _embed(self.params, self.ids[j], self.cfg, self.pipe)
+        self._hold("x", self.nbytes)
+        if not (self.grad and self.pipe.index == 0):
+            self._hold("x", -self.nbytes)  # dropped, or read once by an eval's stage
+        return x if self.pipe.index == 0 else None
+
+    def give(self, j: int, d) -> None:
+        from oim_tpu_torch.parallel.pipeline import broadcast_from
+
+        own = 0 if d is None else self.nbytes
+        self._hold("d_x", own)
+        d = broadcast_from(d, self.pipe, 0, self.like)
+        self._hold("d_x", self.nbytes)
+        if self.d_rows is None:
+            self.d_rows = d.new_empty(len(self.local), d.shape[-1])
+            self._hold("d_rows", self.d_rows.numel() * self.d_rows.element_size())
+        a, b = self.starts[j], self.starts[j + 1]
+        torch.index_select(d.reshape(-1, d.shape[-1]), 0, self.sel[j], out=self.d_rows[a:b])
+        del d
+        self._hold("d_x", -own - self.nbytes)
+        if self.pipe.index == 0:
+            self._hold("x", -self.nbytes)  # stage 0 dropped microbatch j's input
+
+    def table_grad(self) -> torch.Tensor:
+        table = self.params["embed"]
+        return torch.ops.aten.embedding_dense_backward(
+            self.d_rows.to(table.dtype), self.local, table.shape[0], -1, False)
 
 
 def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: int,
@@ -502,14 +552,7 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
         if denom is None:
             denom = (labels != ignore_index).sum().float()
         cos, sin = _rope(cfg, t, positions, inputs.device)
-        # Only global stage 0 (this axis's first rank) reads the embedding's
-        # output: the other ranks drop it once their share of the sum is in.
-        with torch.no_grad():
-            x = _embed(params, inputs.long(), cfg, pipe)
-        like = torch.zeros((), dtype=x.dtype, device=x.device).expand(b // m, t, x.shape[-1])
-        xs = list(x.chunk(m)) if pipe.index == 0 else [like] * m
-        del x
-        PIPE_HELD["x"] = sum(h.numel() * h.element_size() for h in xs if h is not like)
+        feed = _PipeEmbedding(params, inputs.long(), cfg, pipe, m, grad)
         targets = labels.chunk(m)
         weights = [1.0 / torch.clamp(denom, min=1.0)] * m
         head_params = [params["final_norm"], params["lm_head"]]
@@ -529,13 +572,14 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
                           chunk_leaves[0][0].shape[0], cos, sin, attn_fn)
         aux_seed = None
         if cfg.n_experts:
-            aux_seed = torch.tensor([cfg.moe_aux_weight / (m * shards), 0.0], device=like.device)
+            aux_seed = torch.tensor([cfg.moe_aux_weight / (m * shards), 0.0],
+                                    device=inputs.device)
         if n_virtual is not None and grad:
             res = pipeline_1f1b.pipeline_1f1b_value_and_grad(
-                stage, head_fn, chunk_leaves, head_params, xs, weights, pipe, aux_seed)
+                stage, head_fn, chunk_leaves, head_params, feed, weights, pipe, aux_seed)
         else:
             res = pipeline.pipeline_value_and_grad(
-                stage, head_fn, leaves, head_params, xs, weights, pipe, aux_seed, grad)
+                stage, head_fn, leaves, head_params, feed, weights, pipe, aux_seed, grad)
         loss, stats = res.loss, {}
         if cfg.z_loss and n_virtual is None:
             stats["z_loss_term"] = res.extra
@@ -547,10 +591,7 @@ def _pipelined(cfg: Config, pipe, n_microbatches: int, attn_fn, ignore_index: in
             return loss, None, stats
         d_layers = (pipeline_1f1b.from_schedule_layout(res.d_stage, pipe, cfg.n_layers)
                     if interleaved else res.d_stage[0])
-        d_x, res.d_x = res.d_x.reshape(b, t, -1), None
-        d_embed = _embed_grad(params["embed"], inputs.long(), d_x, cfg, pipe)
-        del d_x
-        grads = {"embed": d_embed, "layers": tree_unflatten(params["layers"], d_layers),
+        grads = {"embed": feed.table_grad(), "layers": tree_unflatten(params["layers"], d_layers),
                  "final_norm": res.d_head[0], "lm_head": res.d_head[1]}
         return loss, grads, stats
 

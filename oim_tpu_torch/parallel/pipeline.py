@@ -32,8 +32,11 @@ the microbatch's weight. Its cotangent comes out whole on every rank; the
 last stage seeds its backward with it. ``pipeline_value_and_grad`` returns
 the gradients of sum_j w_j * head_j + aux_seed . sum(aux): stage
 parameters (summed in f32 over the microbatches, then cast to their
-dtype), head parameters, and the inputs' cotangents, summed over the axis
-so every rank holds them whole.
+dtype) and head parameters. Global stage 0's inputs come from a ``Feed``
+when that stage first reads them, and their cotangents go back to it as
+that stage makes them, one microbatch at a time: a feed that computes its
+inputs (the vocab-parallel embedding) holds no more of them, or of their
+cotangents, than the schedule keeps live.
 """
 
 from __future__ import annotations
@@ -69,17 +72,37 @@ class PipeResult:
     ``aux``: the stage aux vectors summed over this rank's real (stage,
     microbatch) pairs (None without aux); ``extra``: sum_j w_j * extra_j
     of the head's extra output (None without it); ``d_stage``: one list of
-    gradients a chunk, like the chunks' params; ``d_head``; ``d_x``: each
-    microbatch input's cotangent, stacked [M, ...] and whole on every rank
-    (the embedding's vocab-parallel backward reads all of them). The gradients are
-    None for a forward-only pass."""
+    gradients a chunk, like the chunks' params; ``d_head``. The inputs'
+    cotangents went to the ``Feed``. The gradients are None for a
+    forward-only pass."""
 
     loss: torch.Tensor
     aux: torch.Tensor | None = None
     extra: torch.Tensor | None = None
     d_stage: list | None = None
     d_head: list | None = None
-    d_x: torch.Tensor | None = None
+
+
+class Feed:
+    """Global stage 0's M microbatch inputs and the sink of their
+    cotangents. An executor calls ``take(j)`` at the tick that stage first
+    reads microbatch j, and ``give(j, d)`` at the tick its backward makes
+    d_j, at the same point on every rank of the axis, so either may run
+    collectives over it: ``take`` returns the input on the axis's first
+    rank (anything elsewhere), ``give`` gets the cotangent there (None
+    elsewhere). ``like`` has a microbatch input's shape, dtype and device.
+    This feed holds ``xs`` and keeps the cotangents in ``d_x`` on the first
+    rank."""
+
+    def __init__(self, xs: list):
+        self.xs, self.like, self.n = xs, xs[0], len(xs)
+        self.d_x: list = [None] * self.n
+
+    def take(self, j: int) -> torch.Tensor:
+        return self.xs[j]
+
+    def give(self, j: int, d: torch.Tensor | None) -> None:
+        self.d_x[j] = d
 
 
 class Grads:
@@ -153,21 +176,8 @@ def add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def whole_inputs_grads(d_x: list, axis: Axis, like: torch.Tensor) -> torch.Tensor:
-    """Global stage 0's input cotangents (on the axis's first rank) on
-    every rank of the axis, stacked [M, ...]: one psum. The first rank's
-    list is emptied as it stacks, so one copy of them stays live."""
-    m = len(d_x)
-    stacked = None
-    if axis.index == 0:
-        stacked = torch.stack(d_x)
-        d_x.clear()
-    return broadcast_from(stacked, axis, 0, torch.empty(
-        (m,) + tuple(like.shape), dtype=like.dtype, device=like.device))
-
-
 def pipeline_value_and_grad(stage_fn: StageFn, head_fn: HeadFn, stage_params: list,
-                            head_params: list, xs: list, weights, axis: Axis,
+                            head_params: list, feed: Feed, weights, axis: Axis,
                             aux_seed: torch.Tensor | None = None,
                             grad: bool = True) -> PipeResult:
     """GPipe over ``axis`` on this rank's stage.
@@ -177,20 +187,22 @@ def pipeline_value_and_grad(stage_fn: StageFn, head_fn: HeadFn, stage_params: li
     head_fn(h, j) -> (loss_j, extra_j or None): microbatch j's head on the
         last stage's output, run on every rank of the axis.
     stage_params / head_params: the tensors to differentiate.
-    xs: the M microbatch inputs (read by stage 0).
+    feed: the M microbatch inputs of stage 0 and the sink of their
+        cotangents (``Feed``).
     weights: M seeds of the head losses (floats or 0-d tensors).
     aux_seed: the cotangent of each (stage, microbatch)'s aux vector.
     grad=False is the forward only (an eval pass)."""
-    p, s, m = axis.size, axis.index, len(xs)
-    like = xs[0]
+    p, s, m = axis.size, axis.index, feed.n
+    like = feed.like
     shape, dtype, device = tuple(like.shape), like.dtype, like.device
     kept: list = [None] * m
     aux_total = None
     recv = None
     for t in range(m + p - 1):
         j, out = t - s, None
+        x = feed.take(t) if t < m else None  # stage 0 reads microbatch t now
         if 0 <= j < m:
-            h = xs[j] if s == 0 else recv
+            h = x if s == 0 else recv
             h = h.detach().requires_grad_(grad)
             with torch.set_grad_enabled(grad):
                 out, aux = stage_fn(h, 0)
@@ -215,7 +227,6 @@ def pipeline_value_and_grad(stage_fn: StageFn, head_fn: HeadFn, stage_params: li
         return PipeResult(head.loss, aux_total, head.extra)
 
     grads = Grads(stage_params)
-    d_x: list = [None] * m
     recv = None
     for t in reversed(range(m + p - 1)):
         j, d_in = t - s, None
@@ -224,12 +235,12 @@ def pipeline_value_and_grad(stage_fn: StageFn, head_fn: HeadFn, stage_params: li
             d_in, d_params, _ = stage_backward(*kept[j], stage_params, dh, aux_seed)
             kept[j] = None  # the graph goes as soon as it is used
             grads.add(d_params)
-            if s == 0:
-                d_x[j] = d_in
+        if t < m:  # stage 0 has made microbatch t's cotangent
+            feed.give(t, d_in if s == 0 else None)
         sends = [(d_in, s - 1, TAG_BWD)] if d_in is not None and s > 0 else []
         recvs = ([(shape, dtype, s + 1, TAG_BWD)]
                  if s < p - 1 and 0 <= t - s - 1 < m else [])
         got = collectives.send_recv(axis, sends, recvs, device)
         recv = got[0] if got else None
     return PipeResult(head.loss, aux_total, head.extra, [grads.result()],
-                      head.grads.result(), whole_inputs_grads(d_x, axis, like))
+                      head.grads.result())

@@ -40,8 +40,8 @@ attention over ``seq``) still pair up. Each tick is:
 
 Autograd never crosses a process: every cross-rank edge of the graph is a
 tensor handed over by hand and its cotangent handed back. Global stage
-0's input cotangents (the embedding's) are summed over the axis at the
-end, so every rank holds them whole. ``STASH_PEAK`` records the most live
+0's inputs come from the ``Feed`` at the tick it runs their forward, and
+their cotangents go back to it at the tick it makes them. ``STASH_PEAK`` records the most live
 stash entries of one chunk the last call held, which ``validate_schedule``
 bounds by ``stash_x``/``stash_dh``; a write into a live slot (the ring
 buffer of depth ``stash_x`` the JAX kernel uses) raises.
@@ -65,13 +65,13 @@ from oim_tpu_torch.parallel.mesh import Axis
 from oim_tpu_torch.parallel.pipeline import (
     TAG_BWD,
     TAG_FWD,
+    Feed,
     Grads,
     Head,
     PipeResult,
     add_aux,
     broadcast_from,
     stage_backward,
-    whole_inputs_grads,
 )
 
 
@@ -407,7 +407,7 @@ class _Stash:
 
 
 def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_params: list,
-                                 xs: list, weights, axis: Axis,
+                                 feed: Feed, weights, axis: Axis,
                                  aux_seed: torch.Tensor | None = None) -> PipeResult:
     """1F1B (v = len(chunk_params) chunks a rank; v > 1 interleaved) over
     ``axis`` on this rank's stages; returns a ``PipeResult`` with the
@@ -415,25 +415,24 @@ def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_par
 
     stage_fn(h, c) -> (out, aux): chunk c's layers on h (global stage
         c*P + d); chunk_params[c] are the tensors it differentiates.
-    head_fn, head_params, xs, weights, aux_seed: as in GPipe's
+    head_fn, head_params, feed, weights, aux_seed: as in GPipe's
         ``pipeline_value_and_grad``.
 
     Requires M % P == 0 (the JAX kernel's restriction; v > 1 needs it for
     its grouping)."""
-    p, d, m, v = axis.size, axis.index, len(xs), len(chunk_params)
+    p, d, m, v = axis.size, axis.index, feed.n, len(chunk_params)
     if m % p:
         raise ValueError(
             f"1F1B shards the microbatch dim over the pipe axis: "
             f"n_microbatches {m} must divide by pipe size {p}")
     sched = simulate_1f1b(p, m, v)
-    like = xs[0]
+    like = feed.like
     shape, dtype, device = tuple(like.shape), like.dtype, like.device
     stash_x = _Stash(sched.stash_x, "input")
     stash_dh = _Stash(sched.stash_dh, "cotangent")
     stash_y: dict = {}  # the last global stage's outputs, for the head
     head = Head(head_fn, head_params, weights, True)
     grads = [Grads(ps) for ps in chunk_params]
-    d_x: list = [None] * m
     aux_total = None
     recv_y = recv_dh = None
     for t in range(sched.n_ticks):
@@ -444,11 +443,15 @@ def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_par
             stash_dh.put(int(sched.arr_b_c[t, d]), int(sched.arr_b[t, d]), recv_dh)
 
         # Forward, no graph: the backward recomputes it from the stash.
+        # Global stage 0 (rank 0's chunk 0) reads or makes a microbatch's
+        # input now: every rank calls the feed, which may take collectives.
+        j0 = int(sched.fwd[t, 0]) if sched.fwd_c[t, 0] == 0 else -1
+        x = feed.take(j0) if j0 >= 0 else None
         y_send = None
         j, c = int(sched.fwd[t, d]), int(sched.fwd_c[t, d])
         if j >= 0:
             if d == 0 and c == 0:
-                stash_x.put(0, j, xs[j].detach())
+                stash_x.put(0, j, x.detach())
             with torch.no_grad():
                 y, _ = stage_fn(stash_x.get(c, j), c)
             if d == p - 1 and c == v - 1:
@@ -465,7 +468,7 @@ def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_par
 
         # Backward: recompute from the stash, seeded from the head or the
         # stashed cotangent.
-        dx_send = None
+        dx_send = d_in = None
         j, c = int(sched.bwd[t, d]), int(sched.bwd_c[t, d])
         if j >= 0:
             h = stash_x.pop(c, j).requires_grad_(True)
@@ -474,10 +477,13 @@ def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_par
             d_in, d_params, aux = stage_backward(h, out, aux, chunk_params[c], dh, aux_seed)
             grads[c].add(d_params)
             aux_total = add_aux(aux_total, aux)
-            if d == 0 and c == 0:
-                d_x[j] = d_in
-            else:
+            if d or c:
                 dx_send = d_in
+        # Global stage 0 made a microbatch's cotangent now: every rank
+        # gives it to the feed, rank 0 the tensor.
+        j0 = int(sched.bwd[t, 0]) if sched.bwd_c[t, 0] == 0 else -1
+        if j0 >= 0:
+            feed.give(j0, d_in if d == 0 else None)
 
         # Hand-offs, received as the next tick's arrivals.
         sends, recvs = [], []
@@ -497,7 +503,7 @@ def pipeline_1f1b_value_and_grad(stage_fn, head_fn, chunk_params: list, head_par
         raise AssertionError("1F1B ended with live stash entries")
     STASH_PEAK["x"], STASH_PEAK["dh"] = stash_x.peak, stash_dh.peak
     return PipeResult(head.loss, aux_total, head.extra, [g.result() for g in grads],
-                      head.grads.result(), whole_inputs_grads(d_x, axis, like))
+                      head.grads.result())
 
 
 # ---------------------------------------------------- interleaved layout ----

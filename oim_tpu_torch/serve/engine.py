@@ -281,12 +281,6 @@ class ServeEngine:
     # How many hot chain hashes the serve row advertises for the router's
     # prefix-affinity pick (serve/registration.py).
     ADVERTISE_PREFIXES = 16
-    # stats() keys the JAX engine keeps in its metrics only: the serve
-    # row (serve/registration.load_snapshot) leaves them out, so a port
-    # replica publishes JAX's row for the same state.
-    LOCAL_STATS = ("decode_row_steps", "finished_total", "prefix_hits", "prefix_misses",
-                   "prefill_tokens_cached", "prefill_tokens_computed",
-                   "pool_blocked_episodes")
 
     def __init__(
         self,
@@ -612,8 +606,8 @@ class ServeEngine:
         self._member_watch = fn
 
     def stats(self) -> dict:
-        """One consistent load snapshot, with the counts the reference
-        keeps in its metrics."""
+        """One consistent load snapshot, the reference's keys: what the
+        serve row publishes and the router routes on."""
         counts = None
         if self.shard > 1 and self._member_watch is not None:
             counts = self._member_watch()  # may be an RPC: never under lock
@@ -628,14 +622,7 @@ class ServeEngine:
                 "ready": not (self._draining or self._stopping),
                 "target_steps": self._target_steps,
                 "decode_tokens": self._decode_tokens,
-                "decode_row_steps": self._row_steps,
                 "role": self.role,
-                "finished_total": self.finished_total,
-                "prefix_hits": self._prefix_hits,
-                "prefix_misses": self._prefix_misses,
-                "prefill_tokens_cached": self._prefill_cached,
-                "prefill_tokens_computed": self._prefill_computed,
-                "pool_blocked_episodes": self._pool_blocked_episodes,
             }
             if self.shard > 1:
                 # One lapsed member flips the whole replica not-ready: a
@@ -713,6 +700,20 @@ class ServeEngine:
         if self._host_tier is None:
             return 0
         return self._host_tier.evict_all()
+
+    def request_stats(self) -> dict:
+        """Request census: the running counts the reference keeps in its
+        metrics only, so they stay off the serve row."""
+        with self._lock:
+            return {
+                "finished_total": self.finished_total,
+                "decode_row_steps": self._row_steps,
+                "prefix_hits": self._prefix_hits,
+                "prefix_misses": self._prefix_misses,
+                "prefill_tokens_cached": self._prefill_cached,
+                "prefill_tokens_computed": self._prefill_computed,
+                "pool_blocked_episodes": self._pool_blocked_episodes,
+            }
 
     def prefix_stats(self) -> dict:
         """Prefix-store census; zeros when disabled."""

@@ -55,10 +55,6 @@ def load_snapshot(endpoint: str, engine) -> dict:
     load alone (mixed-version safe)."""
     snap = {"endpoint": endpoint}
     snap.update(engine.stats())
-    # The port engine's stats() also carries census counters the JAX
-    # engine keeps in its metrics only; the row leaves them out.
-    for key in getattr(engine, "LOCAL_STATS", ()):
-        snap.pop(key, None)
     hot = getattr(engine, "hot_prefixes", None)
     if callable(hot):
         hashes = hot()

@@ -237,16 +237,14 @@ def _unpack_shard(data: torch.Tensor, shard: int, rank: int) -> dict:
     return tree
 
 
-def restore_from_array(data, *, shard: int = 1, rank: int = 0, device=None) -> dict:
+def restore_from_array(data, *, shard: int = 1, rank: int = 0) -> dict:
     """The params tree from a staged weights volume's array (a ``uint8``
     tensor on the host or the card, a numpy array or bytes), on the
-    array's device or ``device`` (the blob moves there once, whole). The
-    grpc-free core of ``restore_weights``; ``shard``/``rank`` as there."""
+    array's own device: the engine places it. The grpc-free core of
+    ``restore_weights``; ``shard``/``rank`` as there."""
     if not 0 <= rank < max(shard, 1):
         raise ValueError(f"rank {rank} outside shard={shard}")
     data = _as_bytes(data)
-    if device is not None:
-        data = data.to(device)
     if shard >= 2:
         return _unpack_shard(data, shard, rank)
     tree = _tree(data)
@@ -257,10 +255,10 @@ def restore_from_array(data, *, shard: int = 1, rank: int = 0, device=None) -> d
 
 
 def restore_weights(feeder, volume_id: str, timeout: float = 300.0, *,
-                    shard: int = 1, rank: int = 0, device=None) -> dict:
+                    shard: int = 1, rank: int = 0) -> dict:
     """The params tree from a published weights volume: views of the
     staged array in local mode (on the backend's device), one whole-volume
-    window read in remote mode (onto ``device``, default the CPU).
+    window read into host memory in remote mode.
     ``shard > 1``: member ``rank``'s tree of an N-way tensor-parallel
     replica, out of the same volume every member reads."""
     if not 0 <= rank < max(shard, 1):
@@ -273,4 +271,4 @@ def restore_weights(feeder, volume_id: str, timeout: float = 300.0, *,
     else:
         raw, _, _ = feeder.fetch_window(volume_id, 0, 0, timeout=timeout)
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
-    return restore_from_array(data, shard=shard, rank=rank, device=device)
+    return restore_from_array(data, shard=shard, rank=rank)

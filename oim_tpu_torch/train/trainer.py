@@ -54,7 +54,7 @@ pipeline on the same tokens, as the JAX trainer replicates over it.
 
 ``check_supported`` takes every mesh the JAX trainer takes. Ulysses
 attention over a ``seq`` axis beside a ``model`` axis that splits a query
-head runs on the whole heads, gathered over ``model`` (``_heads_whole``).
+head runs on the whole heads, gathered over ``model`` (``_heads_gathered``).
 
 A batch leaf may be a ``plane.Placed``, staged under a placement over the
 trainer's mesh (``CUDABackend(mesh=...)``): ``place_batch`` takes this
@@ -284,45 +284,38 @@ def _gathered(v: plane.Placed, mesh: Mesh) -> torch.Tensor:
     return Sharding(v.placement.dims).gather(v.local.to(mesh.device), mesh)
 
 
-def _heads_whole(sp, tp: Axis, mcfg):
-    """Ulysses over the ``seq`` axis on every query head where ``tp`` splits
-    a head: each rank holds the whole heads its columns touch
-    (``llama.head_range``, overlapping its neighbours'). The ranks' heads,
-    gathered over ``tp``, give each head once, taken from the first rank
-    that holds it, and K/V the same way expanded to one head a query head;
-    every rank attends every head and keeps its own range. The gathers'
-    backward sums each head's cotangent into the copy taken, and the q
-    gather inside the layer then sums a straddling head's shares over its
-    owners (trap 11)."""
+def _heads_gathered(sp, tp: Axis, mcfg):
+    """Ulysses over the ``seq`` axis on the heads gathered over ``tp``:
+    where a rank's own heads do not split over ``seq`` but the full heads
+    do (the JAX package runs sequence parallelism on whole heads), every
+    rank of ``tp`` attends every head and keeps its own. Where ``tp``
+    splits a head, each rank holds the whole heads its columns touch
+    (``llama.head_range``, overlapping its neighbours'): the gather takes
+    each head once, from the first rank that holds it, and K/V the same
+    way expanded to one head a query head. The gathers' backward sums
+    each head's cotangent into the copy taken, and the q gather inside
+    the layer then sums a straddling head's shares over its owners
+    (trap 11)."""
     n, group = tp.size, mcfg.n_heads // mcfg.n_kv_heads
     ranges = [llama.head_range(mcfg, n, r)[:2] for r in range(n)]
-    width = max(hi - lo for lo, hi in ranges)
-    take = [next(r * width + h - lo for r, (lo, hi) in enumerate(ranges) if lo <= h < hi)
-            for h in range(mcfg.n_heads)]
     lo, hi = ranges[tp.index]
+    take = None
+    if mcfg.n_heads % n:
+        width = max(b - a for a, b in ranges)
+        take = [next(r * width + h - a for r, (a, b) in enumerate(ranges) if a <= h < b)
+                for h in range(mcfg.n_heads)]
 
     def whole(x):
+        if take is None:  # disjoint ranges, each rank's KV heads its own
+            return all_gather(x, tp, gather_dim=2)
         x = F.pad(x, (0, 0, 0, width - x.shape[2]))
         return all_gather(x, tp, gather_dim=2)[:, :, torch.tensor(take, device=x.device)]
 
     def fn(q, k, v):
-        if k.shape[2] != hi - lo:  # a KV head a group: one a query head
+        if take is not None and k.shape[2] != hi - lo:  # one KV head a query head
             index = torch.arange(lo, hi, device=k.device) // group - lo // group
             k, v = k[:, :, index], v[:, :, index]
         return sp(whole(q), whole(k), whole(v))[:, :, lo:hi]
-    return fn
-
-
-def _heads_gathered(sp, tp: Axis):
-    """Ulysses over the ``seq`` axis on the heads gathered over ``tp``:
-    where a rank's own heads do not split over ``seq`` but the full heads
-    do (the JAX package runs sequence parallelism on whole heads), every
-    rank of ``tp`` attends every head and keeps its own slice of the
-    output. The gathers' backward sums the slices' gradients back."""
-    def fn(q, k, v):
-        h = q.shape[2]
-        full = [all_gather(x, tp, gather_dim=2) for x in (q, k, v)]
-        return sp(*full)[:, :, tp.index * h:(tp.index + 1) * h]
     return fn
 
 
@@ -378,11 +371,9 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
         if n_seq > 1:
             sp = make_sequence_parallel_attention(mesh, kind=cfg.seq_parallel, axis="seq",
                                                   causal=True)
-            if tp is not None and cfg.seq_parallel == "ulysses" and mcfg.n_heads % tp.size:
-                sp = _heads_whole(sp, tp, mcfg)
-            elif (tp is not None and cfg.seq_parallel == "ulysses"
-                    and (mcfg.n_heads // tp.size) % n_seq):
-                sp = _heads_gathered(sp, tp)
+            if tp is not None and cfg.seq_parallel == "ulysses" and (
+                    mcfg.n_heads % tp.size or (mcfg.n_heads // tp.size) % n_seq):
+                sp = _heads_gathered(sp, tp, mcfg)
             attn_fn = lambda q, k, v, causal=True: sp(q, k, v)  # noqa: E731
         logical = llama.param_logical_axes(mcfg)
         ctx = None

@@ -491,7 +491,7 @@ def test_engine_greedy_streams_equal_jax_generate(small):
         handles = [eng.submit(p, max_new=6) for p in reqs[:4]]
         outs = [h.result(timeout=60) for h in handles]
         outs.append(eng.submit(reqs[4], max_new=6).result(timeout=60))  # a prefix hit
-        hits = eng.stats()["prefix_hits"]
+        hits = eng.request_stats()["prefix_hits"]
     finally:
         eng.stop()
     assert outs == want

@@ -425,21 +425,51 @@ def test_stash_stays_within_the_schedule(runs):
                          sched)
 
 
+def _stage_zero_live(p: int, m: int, v: int) -> int:
+    """The most microbatch inputs global stage 0 holds at once under 1F1B:
+    each from the tick it runs its forward to the tick of its backward."""
+    sched = tp1.simulate_1f1b(p, m, v)
+    live = peak = 0
+    for t in range(sched.n_ticks):
+        live += int(sched.fwd[t, 0] >= 0 and sched.fwd_c[t, 0] == 0)
+        peak = max(peak, live)
+        live -= int(sched.bwd[t, 0] >= 0 and sched.bwd_c[t, 0] == 0)
+    return peak
+
+
 @pytest.mark.parametrize("name", ["gpipe", "1f1b", "1f1b_v2", "dp2_1f1b", "seq_ring_1f1b"])
 def test_only_stage_zero_holds_the_embedding_output(runs, name):
-    """The embedding's output [B, T, D] (this rank's rows and positions)
-    is held through the pipeline by the first rank of pipe alone, whose
-    global stage 0 reads it; the other ranks of pipe hold none of it (the
-    JAX package shards it over pipe)."""
+    """The embedding's output and its cotangent go through the pipeline a
+    microbatch at a time (this rank's rows and positions, [B/M, T, D]):
+    the first rank of pipe holds the outputs global stage 0 keeps live
+    (all M under GPipe, the schedule's depth under 1F1B) and two
+    cotangents at once (its own and the broadcast copy); every other rank
+    at most one output and one cotangent. For the table's gradient each
+    rank keeps the cotangent rows whose ids fall in its vocabulary slice:
+    the ranks of pipe split the batch's cotangent between them, none
+    holds it whole (the JAX package shards both over pipe)."""
     got = runs[0]
     world, axes, extra, _ = SCENARIOS[name]
     shape = dict(axes)
+    m = extra.get("microbatches", 4)
     rows = extra["batch_size"] // shape.get("data", 1) // extra.get("accum_steps", 1)
-    share = rows * extra["seq_len"] // shape.get("seq", 1) * 64 * 4  # llama-tiny dim, f32
+    micro = rows // m * extra["seq_len"] // shape.get("seq", 1) * 64 * 4  # llama-tiny dim, f32
+    if extra.get("pipeline_schedule") == "1f1b":
+        live = _stage_zero_live(shape["pipe"], m, extra.get("virtual_stages", 1))
+    else:
+        live = m
+    kept: dict = {}
     for rank, r in enumerate(got[world]):
-        stage = Mesh(axes, list(range(world)), "cpu", rank=rank).axis("pipe").index
+        mesh = Mesh(axes, list(range(world)), "cpu", rank=rank)
+        stage = mesh.axis("pipe").index
+        group = tuple(mesh.axis(a).index for a in shape if a != "pipe")
         for step in range(STEPS):
-            assert int(r[f"{name}/embed_held{step}"]) == (share if stage == 0 else 0)
+            x, d_x, d_rows = r[f"{name}/embed_held{step}"].tolist()
+            assert [x, d_x] == ([live * micro, 2 * micro] if stage == 0 else [micro, micro])
+            assert 0 < d_rows < m * micro, (rank, step, d_rows)
+            kept.setdefault((group, step), []).append(d_rows)
+    for (group, step), parts in kept.items():
+        assert len(parts) == shape["pipe"] and sum(parts) == m * micro, (group, step, parts)
 
 
 def test_z_loss_term_reported_by_gpipe_only(runs):

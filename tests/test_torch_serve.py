@@ -364,7 +364,7 @@ def test_midflight_admission_greedy_equals_jax_sampled_equals_solo(model):
         eng.stop(timeout=30)
     for (p, n, t, s), out in zip(reqs, outs):
         assert out == solo(model, p, n, t, s), (p, t, s)
-    st = eng.stats()
+    st = {**eng.stats(), **eng.request_stats()}
     assert st["finished_total"] == 6 and eng.error is None
     assert st["decode_tokens"] == sum(n for _, n, _, _ in reqs) - len(reqs)
 
@@ -465,7 +465,7 @@ def test_pool_exhaustion_backpressures_then_recovers(model):
         resident = eng.submit([1, 2, 3, 4], max_new=400)  # reserves all 26 pages
         assert wait_for(lambda: eng.active_slots == 1)
         queued = eng.submit([5, 6], max_new=4)
-        assert wait_for(lambda: eng.stats()["pool_blocked_episodes"] == 1)
+        assert wait_for(lambda: eng.request_stats()["pool_blocked_episodes"] == 1)
         assert eng.active_slots == 1 and eng.queue_len == 1
         with pytest.raises(QueueFull):
             eng.submit([7], max_new=2)
@@ -515,7 +515,7 @@ def test_prefix_hits_are_identical_and_zero_copy(model):
     for (p, n, t, s), (out, _) in zip(reqs, outs):
         assert out == solo(model, p, n, t, s), (p, t, s)
     assert [st["prefix_tokens"] for _, st in outs] == [0, 12, 12, 12, 0]
-    st = eng.stats()
+    st = eng.request_stats()
     assert (st["prefix_hits"], st["prefill_tokens_cached"]) == (4, 48)
     eng.evict_prefix_store()
     assert eng.pool_stats()["used_pages"] == 0

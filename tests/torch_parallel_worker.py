@@ -293,7 +293,8 @@ def train(sc, inputs, rank, world, out):
                 out[f"{name}/stash_peak{step}"] = np.asarray(
                     [pipeline_1f1b.STASH_PEAK["x"], pipeline_1f1b.STASH_PEAK["dh"]])
             if cfg.rules == "pipe":
-                out[f"{name}/embed_held{step}"] = np.asarray(llama.PIPE_HELD["x"])
+                out[f"{name}/embed_held{step}"] = np.asarray(
+                    [llama.PIPE_HELD[k] for k in ("x", "d_x", "d_rows")])
             out[f"{name}/loss{step}"] = np.asarray(float(stats["loss"]))
             out[f"{name}/grad_norm{step}"] = np.asarray(float(stats["grad_norm"]))
             if "moe_drop_frac" in stats:
@@ -344,11 +345,12 @@ def pipe_toy(sc, inputs, rank, world, out):
         return h, None
 
     weights = [1.0 / m] * m
+    feed = pipeline.Feed(xs)
     if schedule == "gpipe":
-        res = pipeline.pipeline_value_and_grad(stage, head_fn, leaves, head, xs, weights, axis)
+        res = pipeline.pipeline_value_and_grad(stage, head_fn, leaves, head, feed, weights, axis)
         d_stage = res.d_stage[0]
     else:
-        res = pipeline_1f1b.pipeline_1f1b_value_and_grad(stage, head_fn, chunks, head, xs,
+        res = pipeline_1f1b.pipeline_1f1b_value_and_grad(stage, head_fn, chunks, head, feed,
                                                          weights, axis)
         d_stage = res.d_stage[0] if v == 1 else pipeline_1f1b.from_schedule_layout(
             res.d_stage, axis, n_layers)
@@ -357,7 +359,9 @@ def pipe_toy(sc, inputs, rank, world, out):
     out[f"{name}/loss"] = res.loss.numpy()
     out[f"{name}/dw"], out[f"{name}/db"] = (g.numpy() for g in d_stage)
     out[f"{name}/dwo"] = res.d_head[0].numpy()
-    out[f"{name}/dx"] = res.d_x.numpy()
+    # The inputs' cotangents, kept by the axis's first rank, on every rank.
+    stacked = torch.stack(feed.d_x) if axis.index == 0 else None
+    out[f"{name}/dx"] = pipeline.broadcast_from(stacked, axis, 0, torch.stack(xs)).numpy()
 
 
 def batchnorm(sc, inputs, rank, world, out):
