@@ -372,13 +372,45 @@ Phases, in order; any failure exits nonzero:
    the blob that the element size does not divide) and the device and
    host growth over the stage and the restore; the ``serve_daemon`` JSON
    line.
-17. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+17. KV handoff, the fleet KV tier (``phase_kv_handoff``): llama3-8b at
+   full width and depth, bf16, phase 7's weights drawn again from its seed
+   (0.1-0.4 s; held through phases 8-16 they would crowd phase 15's ranks),
+   three engines of phase 7's geometry without the host tier (KV_ENGINE):
+   ``prefill`` (``prefill_chunk`` KV_CHUNK), ``decode`` and a ``mixed``
+   reference (the same chunk), and one KV_PROMPT-token prompt (96 full
+   blocks, 201,326,592 B of K/V). The prefill engine's retirement exports
+   the chain through ``kvvolume.export_chain_to`` (the grpc-free core of
+   ``export_chain``), staged through ``CUDABackend`` as the raw uint8 file
+   volume ``chain_request`` describes (``weights_params``' spec); the decode engine adopts it through
+   ``kvvolume.ChainFetcher`` reading that volume back. It fails unless the
+   retirement exports exactly one chain (``oim_serve_prefill_handoffs_total
+   {exported}`` +1, one ``kv_chain_exported`` event), the decode engine
+   adopts it (peer-fetch hit +1, ``oim_serve_prefix_peer_tokens_total``
+   +96 x 16, one ``kv_peer_fetch`` event, 1,536 prefix tokens), its
+   adopted pages read back by ``snapshot_chain`` equal the exported ones
+   to the bit, and its KV_NEW-token greedy stream, teacher-forced over its
+   adopted chain and over the mixed engine's (``hold_stream``: a 1-token
+   prefill of the tail, a decode step, one verify), gives logits within
+   SERVE_LOGIT_REL x max|logit| of the mixed engine's at every generated
+   position (the streams' agreement reported); then two planted defects,
+   a blob cut in half and a fingerprint of page_tokens 32, must each
+   record one ``kv_fetch_fallback`` with JAX's fields, one fetch error, no
+   adoption, and a local recompute held the same way; and every engine's
+   pool must be empty after drain and eviction. It prints, each the mean
+   of KV_TRIALS: the export split into snapshot (D2H), pack, file write
+   and stage; the adoption into the volume's read-back, unpack and
+   ``stage_pages`` (its GB/s beside a pinned H2D); the decode engine's
+   first token with adoption against a local recompute of the same
+   prompt (the store evicted between trials); the device growth of each
+   stage and adoption; and the ``kv_handoff`` JSON line.
+18. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
    card's path needs neither); the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
-   15), the ``serve_daemon`` line (phase 16) and the kernels line (JSON),
+   15), the ``serve_daemon`` line (phase 16), the ``kv_handoff`` line
+   (phase 17) and the kernels line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``parallel_launches`` (phase 15's, by path and rank),
    ``parallel_max_abs_err`` (phase 15's sequence-parallel attention
@@ -5865,6 +5897,343 @@ def phase_serve_daemon(device="cuda") -> dict:
     return out
 
 
+KV_PROMPT = 1537        # 96 full 16-token blocks and one token to prefill
+KV_CHUNK = 512          # the prefill engine's and the reference's prefill_chunk
+KV_NEW = 32             # tokens each checked stream decodes
+KV_TRIALS = 3           # each reading is the mean of this many
+KV_SEED = 17
+# Phase 7's geometry without the host tier: evicting the prefix store drops
+# a chain, so the next admission adopts it again or recomputes it.
+KV_ENGINE = dict(SERVE_ENGINE, kv_host_bytes=0)
+
+
+def _chain_equal(a: list, b: list) -> bool:
+    """Whether two chains of host (k, v) blocks hold the same bytes."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.tobytes() == y.tobytes()
+        for ka, kb in zip(a, b) for x, y in zip(ka, kb))
+
+
+def forced_logits(cfg, params, blocks: list, prompt: list, stream: list, device):
+    """The logits at every generated position of ``stream`` after ``prompt``,
+    whose full blocks' K/V are ``blocks`` (host copies of a chain): the
+    blocks written into a fresh pool by ``stage_pages``, the prompt's tail
+    prefilled at its offset, a decode step on the stream's first token, then
+    one verify of the rest, through the engine's own target forwards."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.serve import engine as E
+    from oim_tpu_torch.serve import kvtier
+
+    page = KV_ENGINE["prefix_block"]
+    n_pages = -(-(len(prompt) + len(stream)) // page) + 1
+    pool = gen.init_page_pool(cfg, n_pages, page, device=device)
+    kvtier.stage_pages(pool, list(range(1, len(blocks) + 1)), [k for k, _ in blocks],
+                       [v for _, v in blocks])
+    table = torch.arange(1, n_pages, device=device)
+    decode, prefill, verify = E.target_forwards(cfg, page)
+    start, n = len(blocks) * page, len(prompt)
+    tail = prompt[start:]
+    padded = torch.zeros(1, max(8, 1 << (len(tail) - 1).bit_length()), dtype=torch.long)
+    padded[0, :len(tail)] = torch.tensor(tail)
+    with torch.inference_mode():
+        last, _ = prefill(params, padded.to(device), len(tail), pool, table, start)
+        step, _ = decode(params, torch.tensor(stream[:1], device=device), pool, table[None],
+                         torch.tensor([n], device=device))
+        rest, _ = verify(params, torch.tensor([stream[1:-1]], device=device), pool,
+                         table[None], torch.tensor([n + 1], device=device))
+    out = torch.cat([last[None], step, rest[0]]).float()
+    del pool
+    return out
+
+
+def hold_stream(cfg, params, got: list, want: list, prompt, stream, what: str,
+                device) -> dict:
+    """``stream`` teacher-forced over the chain ``got`` and over the chain
+    ``want`` (``forced_logits``): the logits at every generated position
+    must lie within SERVE_LOGIT_REL x max|logit| of ``want``'s; the share
+    of positions whose argmax agrees is reported."""
+    a = forced_logits(cfg, params, got, prompt, stream, device)
+    b = forced_logits(cfg, params, want, prompt, stream, device)
+    rel = float((a - b).abs().max() / b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    if not rel <= SERVE_LOGIT_REL:
+        fail(f"kv handoff: {what}: logits differ from the mixed engine's by {rel:.4f} x "
+             f"max|logit| (limit {SERVE_LOGIT_REL})")
+    return {"logit_rel_err": rel, "argmax_agreement": agree}
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_CHUNK,
+                     n_new=KV_NEW, trials=KV_TRIALS) -> dict:
+    """Phase 17: the fleet KV tier at phase 7's width and depth. A ``prefill``
+    engine (``prefill_chunk`` KV_CHUNK) retires a KV_PROMPT-token prompt and
+    its handoff exports the chain through the grpc-free core
+    (``export_chain_to``), staged through ``CUDABackend`` as the raw uint8
+    file volume ``chain_request`` describes; a ``decode`` engine adopts it
+    through ``ChainFetcher`` reading that volume back. Checks: one export
+    (counter and event), one adoption (hit, peer tokens, event), the adopted
+    pages equal to the exported ones to the bit, the decode stream's logits
+    within SERVE_LOGIT_REL of a ``mixed`` engine's with the same chunk (its
+    agreement reported), two planted defects (a truncated blob, a fingerprint
+    with another page_tokens) falling back to a local recompute held the
+    same way, and every pool empty after drain. Then readings, each the mean
+    of KV_TRIALS: the export's and the adoption's steps, and the decode
+    engine's first token with adoption against a local recompute."""
+    import gc
+
+    import torch
+
+    from oim_tpu_torch.common import events
+    from oim_tpu_torch.common import metrics as M
+    from oim_tpu_torch.common import prefixhash
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume
+    from oim_tpu_torch.serve import ServeEngine
+    from oim_tpu_torch.serve import engine as E
+    from oim_tpu_torch.serve import kvvolume as KV
+    from oim_tpu_torch.serve import weights as W
+
+    t_phase = time.monotonic()
+    page = KV_ENGINE["prefix_block"]
+    prompt = np.random.RandomState(KV_SEED).randint(0, cfg.vocab, prompt_len).tolist()
+    chain = prefixhash.usable_hashes(prompt, page)
+    blocks = len(chain)
+    fp = KV.config_fingerprint(cfg, page)
+    backend = CUDABackend(device=device)
+    staged: dict = {}
+    stage_growth: list = []
+
+    def publish(volume_id: str, path: str, total_bytes: int) -> int:
+        """Stage the packed file as a raw uint8 volume (an earlier volume of
+        the same id is unstaged first: a reading re-exports the chain)."""
+        if volume_id in staged:
+            backend.unstage(staged.pop(volume_id))
+        spec, fparams = W.weights_params(path, total_bytes)
+        vol = StagedVolume(volume_id, b"", spec)
+        _sync(device)
+        before = _allocated(device)
+        backend.stage(vol, "file", fparams)
+        vol.wait()
+        if vol.error or vol.array is None:
+            raise RuntimeError(f"staging {volume_id} failed: {vol.error}")
+        _sync(device)
+        stage_growth.append(_allocated(device) - before)
+        staged[volume_id] = vol
+        return int(vol.array.numel())
+
+    def read(volume_id: str):
+        vol = staged.get(volume_id)
+        return None if vol is None else KV.volume_bytes(vol.array)
+
+    exports: list = []
+
+    def handoff(eng, hashes):
+        done = KV.export_chain_to(eng, hashes, publish)
+        exports.append(done)
+        return None if done is None else done.volume_id
+
+    def since(seq: int, type_: str) -> list:
+        return [e for e in events.recorder().events(type_=type_) if e.seq > seq]
+
+    def last_seq() -> int:
+        seen = events.recorder().events()
+        return seen[-1].seq if seen else -1
+
+    def run(eng, max_new: int):
+        h = eng.submit(prompt, max_new=max_new)
+        out = h.result(timeout=RESULT_TIMEOUT)
+        if h.finish_reason != "length" or len(out) != max_new:
+            fail(f"kv handoff: a {eng.role} request ended {h.finish_reason!r} after "
+                 f"{len(out)} tokens; engine error: {eng.error}")
+        return out, h.stats
+
+    fetcher = KV.ChainFetcher(read, fp)
+    prefill = ServeEngine(params, cfg, device=device, role="prefill", prefill_chunk=chunk,
+                          **KV_ENGINE)
+    decode = ServeEngine(params, cfg, device=device, role="decode", kv_fetch=fetcher,
+                         **KV_ENGINE)
+    mixed = ServeEngine(params, cfg, device=device, role="mixed", prefill_chunk=chunk,
+                        **KV_ENGINE)
+    prefill.set_handoff_export(handoff)
+    engines = (prefill, decode, mixed)
+    try:
+        # The handoff: one export at the prefill engine's retirement.
+        seq = last_seq()
+        handoffs = M.SERVE_PREFILL_HANDOFFS.labels(outcome="exported").value
+        run(prefill, 1)
+        exported = since(seq, events.KV_CHAIN_EXPORTED)
+        n_handoffs = M.SERVE_PREFILL_HANDOFFS.labels(outcome="exported").value - handoffs
+        if len(exports) != 1 or exports[0] is None or n_handoffs != 1 or len(exported) != 1:
+            fail(f"kv handoff: the prefill retirement exported {exports}, "
+                 f"{n_handoffs} handoffs counted, {len(exported)} kv_chain_exported events")
+        volume = exports[0].volume_id
+        blob = int(staged[volume].array.numel())
+        if volume != KV.chain_volume_id(chain) or exported[0].attrs["blocks"] != blocks:
+            fail(f"kv handoff: exported {volume} of {exported[0].attrs['blocks']} blocks, "
+                 f"want {KV.chain_volume_id(chain)} of {blocks}")
+        mixed_stream, _ = run(mixed, n_new)
+        # The adoption: the decode engine never held the prefix.
+        seq = last_seq()
+        hits = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="hit").value
+        peer_tokens = M.SERVE_PREFIX_PEER_TOKENS.value
+        decode_stream, stats = run(decode, n_new)
+        n_hits = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="hit").value - hits
+        n_tokens = M.SERVE_PREFIX_PEER_TOKENS.value - peer_tokens
+        fetched = since(seq, events.KV_PEER_FETCH)
+        if (n_hits, n_tokens, len(fetched), stats["prefix_tokens"]) != (
+                1, blocks * page, 1, blocks * page):
+            fail(f"kv handoff: the decode engine counted {n_hits} hits, {n_tokens} peer "
+                 f"tokens, {len(fetched)} kv_peer_fetch events, prefix tokens "
+                 f"{stats['prefix_tokens']}; want 1, {blocks * page}, 1, {blocks * page}")
+        sent = KV.unpack_chain(read(volume), fp)[1]
+        adopted = decode.snapshot_chain(chain)
+        ref = mixed.snapshot_chain(chain)
+        if not _chain_equal(adopted, sent):
+            fail("kv handoff: the decode engine's adopted pages differ from the exported ones")
+        mixed_equal = _chain_equal(ref, sent)
+        held = hold_stream(cfg, params, adopted, ref, prompt, decode_stream, "adopted",
+                           device)
+        held["stream_equal_prefix"] = first_divergence(decode_stream, mixed_stream)
+        say(f"  export: {blob} B blob ({blocks} blocks, volume {volume}); adoption: hit 1, "
+            f"{n_tokens:.0f} peer tokens, adopted pages equal to the exported ones to the "
+            f"bit; the mixed engine's own pages equal too: {mixed_equal}")
+        say(f"  decode stream against the mixed engine's (prefill_chunk {chunk}): logits "
+            f"max|diff| / max|logit| {held['logit_rel_err']:.5f} (limit "
+            f"{SERVE_LOGIT_REL:.4f}), argmax agreement {held['argmax_agreement']:.4f}, "
+            f"tokens equal before the first divergence {held['stream_equal_prefix']} of "
+            f"{n_new}")
+
+        # Planted defects: each fetch starts and fails; the engine recomputes.
+        defects = {}
+        for name, defect in (
+                ("truncated blob", KV.ChainFetcher(
+                    lambda vid: None if (raw := read(vid)) is None else raw[:len(raw) // 2],
+                    fp)),
+                ("page_tokens 32", KV.ChainFetcher(read, dict(fp, page_tokens=2 * page)))):
+            decode.set_kv_fetch(defect)
+            decode.evict_prefix_store()
+            seq = last_seq()
+            errors = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="error").value
+            stream, stats = run(decode, n_new)
+            fell = since(seq, events.KV_FETCH_FALLBACK)
+            n_err = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="error").value - errors
+            if len(fell) != 1 or n_err != 1 or stats["prefix_tokens"] or since(
+                    seq, events.KV_PEER_FETCH):
+                fail(f"kv handoff: {name}: {len(fell)} kv_fetch_fallback events, {n_err} "
+                     f"fetch errors, prefix tokens {stats['prefix_tokens']}; want 1, 1, 0")
+            if fell[0].attrs != {"matched_blocks": 0, "chain_blocks": blocks}:
+                fail(f"kv handoff: {name}: fallback event {fell[0].attrs}")
+            recomputed = decode.snapshot_chain(chain)
+            defects[name] = hold_stream(cfg, params, recomputed, ref, prompt, stream, name,
+                                        device)
+            defects[name]["stream_equal_prefix"] = first_divergence(stream, mixed_stream)
+            defects[name]["pages_bit_equal"] = _chain_equal(recomputed, sent)
+            del recomputed
+        say("  planted defects fall back to a local recompute: " + "; ".join(
+            f"{n}: logits {d['logit_rel_err']:.5f}, argmax {d['argmax_agreement']:.4f}, "
+            f"tokens equal {d['stream_equal_prefix']}, recomputed pages equal to the exported "
+            f"ones to the bit {d['pages_bit_equal']}" for n, d in defects.items()))
+        del adopted, ref, sent
+
+        # Readings. The export's steps, through the same core and stage.
+        export_s = [KV.export_chain_to(prefill, chain, publish).seconds
+                    for _ in range(trials)]
+        # The adoption's steps and the decode engine's first token, adopting
+        # and recomputing the same prompt (the store evicted between trials).
+        stage_s: list = []
+
+        def timed(real):
+            def stage(*a):
+                _sync(device)
+                t0 = time.monotonic()
+                out = real(*a)
+                _sync(device)
+                stage_s.append(time.monotonic() - t0)
+                return out
+            return stage
+
+        decode.set_kv_fetch(fetcher)
+        adopt, first = [], {"adopt": [], "recompute": []}
+        with patched(E, "stage_pages", timed):
+            for _ in range(trials):
+                decode.evict_prefix_store()
+                _sync(device)
+                before = _allocated(device)
+                if device != "cpu":
+                    torch.cuda.reset_peak_memory_stats(device)
+                _, stats = run(decode, 1)
+                _sync(device)
+                peak = torch.cuda.max_memory_allocated(device) if device != "cpu" else 0
+                adopt.append(dict(fetcher.last, growth=_allocated(device) - before,
+                                  peak_growth=max(peak - before, 0)))
+                first["adopt"].append(stats["first_token_s"])
+        if len(stage_s) != trials:
+            fail(f"kv handoff: {len(stage_s)} stage_pages calls in {trials} adoptions")
+        decode.set_kv_fetch(None)
+        for _ in range(trials):
+            decode.evict_prefix_store()
+            _, stats = run(decode, 1)
+            if stats["prefix_tokens"]:
+                fail("kv handoff: the recompute trial found the prefix cached")
+            first["recompute"].append(stats["first_token_s"])
+        for eng in engines:
+            eng.stop(drain=True)
+            if eng.error:
+                fail(f"kv handoff: the {eng.role} engine died:\n{eng.error}")
+            eng.evict_prefix_store()
+        used = {eng.role: eng.pool_stats()["used_pages"] for eng in engines}
+        if any(used.values()):
+            fail(f"kv handoff: pages still used after drain and eviction: {used}")
+    finally:
+        for eng in engines:
+            eng.stop(drain=False)
+        for vol in staged.values():
+            backend.unstage(vol)
+    del engines, prefill, decode, mixed
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    ms = {k: 1e3 * _mean([e[k] for e in export_s])
+          for k in ("snapshot", "pack", "write", "publish")}
+    ams = {"read": 1e3 * _mean([a["read_s"] for a in adopt]),
+           "unpack": 1e3 * _mean([a["unpack_s"] for a in adopt]),
+           "stage_pages": 1e3 * _mean(stage_s)}
+    first_ms = {k: 1e3 * _mean(v) for k, v in first.items()}
+    link = h2d_gbps() if device != "cpu" else None
+    out = {
+        "model": f"llama3-8b, {cfg.n_layers} layers, bf16" if cfg.n_layers == 32 else
+        f"{cfg.n_layers} layers", "prompt_tokens": prompt_len, "blocks": blocks,
+        "prefill_chunk": chunk, "engine": KV_ENGINE, "blob_bytes": blob,
+        "kv_bytes": blocks * page * 2 * cfg.n_layers * cfg.kv_dim * cfg.dtype.itemsize,
+        "volume": volume, "exports": 1, "peer_hits": 1, "peer_tokens": blocks * page,
+        "adopted_pages_bit_equal": True, "mixed_pages_bit_equal": mixed_equal,
+        "adopted": held, "defects": defects, "trials": trials,
+        "export_ms": ms, "stage_device_growth_bytes": stage_growth,
+        "adopt_ms": ams, "adopt_device_growth_bytes": [a["growth"] for a in adopt],
+        "adopt_peak_growth_bytes": [a["peak_growth"] for a in adopt],
+        "first_token_ms": first_ms, "first_token_s_trials": first,
+        "stage_pages_gbps": 2 * blocks * page * cfg.n_layers * cfg.kv_dim
+        * cfg.dtype.itemsize / (ams["stage_pages"] * 1e-3) / 1e9,
+        "pinned_h2d_gbps": link, "pools_empty": True, "phase_s": time.monotonic() - t_phase}
+    say(f"  export, mean of {trials}: snapshot (D2H, page by page) {ms['snapshot']:.1f} ms, "
+        f"pack {ms['pack']:.1f} ms, file write {ms['write']:.1f} ms, stage through "
+        f"CUDABackend {ms['publish']:.1f} ms; each stage grew the device by "
+        f"{stage_growth} B")
+    say(f"  adoption, mean of {trials}: volume read-back {ams['read']:.1f} ms, unpack "
+        f"{ams['unpack']:.2f} ms, stage_pages {ams['stage_pages']:.1f} ms "
+        f"({out['stage_pages_gbps']:.1f} GB/s of K/V; a pinned H2D alone "
+        f"{link if link is None else round(link, 1)} GB/s); device growth "
+        f"{out['adopt_device_growth_bytes']} B, peak growth {out['adopt_peak_growth_bytes']} B")
+    say(f"  decode engine's first token, mean of {trials}: with adoption "
+        f"{first_ms['adopt']:.1f} ms, local recompute {first_ms['recompute']:.1f} ms; pools "
+        f"empty after drain; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6040,7 +6409,18 @@ def main() -> int:
         "restored, llama3-8b width, 4 layers")
     daemon = phase_serve_daemon()
 
-    say("== 17. summary")
+    say("== 17. KV handoff: a prefill engine exports a chain, a decode engine adopts it, "
+        "llama3-8b, 32 layers, bf16")
+    t0 = time.monotonic()
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    say(f"  phase 7's weights drawn again from its seed: {time.monotonic() - t0:.1f} s")
+    handoff = phase_kv_handoff(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say("== 18. summary")
     wire = sorted(m for m in sys.modules
                   if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
@@ -6069,6 +6449,7 @@ def main() -> int:
     say(json.dumps({"obs": obs, "card": card}))
     say(json.dumps({"parallel": par, "card": card}))
     say(json.dumps({"serve_daemon": daemon, "card": card}))
+    say(json.dumps({"kv_handoff": handoff, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,10 +30,13 @@ CPU:
     python -m oim_tpu_torch.cli.oim_serve --checkpoint-dir ckpt \\
         --model llama-tiny --endpoint tcp://127.0.0.1:9002 --device cpu
 
-Not ported yet, and refused naming ROADMAP A.3.7: the prefill/decode roles
-(``--role prefill|decode``) and the KV volumes (``--kv-peer-fetch``,
-``--kv-export``). This module imports grpcio only when it serves, so it
-loads on a machine without it.
+The fleet KV tier (``serve/kvvolume.py``) needs a feeder (``--backend`` or
+remote mode): ``--kv-peer-fetch`` adopts peer-exported chain volumes on a
+prefix miss, ``--kv-export`` publishes the hot chains every ``--heartbeat``
+seconds, and ``--role prefill`` exports each retired request's chain before
+its stream closes (``--role decode`` pairs with ``--kv-peer-fetch``). This
+module imports grpcio only when it serves, so it loads on a machine without
+it.
 """
 
 from __future__ import annotations
@@ -226,12 +229,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--kv-host-bytes", type=int, default=0,
                         help="host-RAM budget for demoted KV prefix pages (0 disables)")
     parser.add_argument("--kv-peer-fetch", action="store_true",
-                        help="not ported yet (ROADMAP A.3.7): refused")
+                        help="resolve prefix misses against peer-exported KV volumes "
+                             "(content-addressed kvchain-* volumes on the control plane) "
+                             "before recomputing; any failure recomputes locally. Needs a "
+                             "feeder (--backend or remote mode)")
     parser.add_argument("--kv-export", action="store_true",
-                        help="not ported yet (ROADMAP A.3.7): refused")
+                        help="publish this replica's hot prefix chains as content-addressed "
+                             "KV volumes every --heartbeat seconds. Needs a feeder")
     parser.add_argument("--role", default="mixed", choices=("prefill", "decode", "mixed"),
-                        help="disaggregation role; only mixed is ported (prefill and "
-                             "decode: ROADMAP A.3.7)")
+                        help="disaggregation role, advertised in the serve row: prefill "
+                             "exports each retired request's chain as a kvchain volume "
+                             "(needs a control plane), decode streams (pair with "
+                             "--kv-peer-fetch), mixed does both")
     parser.add_argument("--prefill-chunk", type=int, default=0,
                         help="prefill long prompts in slices of this many tokens "
                              "(0 = one full-length prefill)")
@@ -278,7 +287,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def check_args(args: argparse.Namespace) -> None:
     """SystemExit for flags that cannot run, before anything starts: the
-    JAX CLI's refusals with its messages, then what the port lacks."""
+    JAX CLI's refusals with its messages."""
     sources = bool(args.checkpoint_dir) + bool(args.weights_file) + bool(args.restore_only)
     if sources != 1:
         raise SystemExit(
@@ -318,11 +327,27 @@ def check_args(args: argparse.Namespace) -> None:
             "--role prefill exports KV chains and needs a control "
             "plane (--backend or --registry + --controller-id), not "
             "--checkpoint-dir")
-    if args.role != "mixed" or args.kv_peer_fetch or args.kv_export:
-        raise SystemExit(
-            "--role prefill|decode, --kv-peer-fetch and --kv-export move KV pages "
-            "through KV volumes, which are not ported yet (ROADMAP A.3.7, "
-            "serve/kvvolume.py): serve with --role mixed")
+
+
+def _start_exporter(engine, feeder, interval: float, stop: threading.Event) -> None:
+    """Every ``interval`` seconds until ``stop``, export each of the engine's
+    hot chains not exported yet (``export_chain``); a chain that partly
+    evicted since its admission exports nothing, a failure is logged."""
+    from oim_tpu_torch.serve.kvvolume import export_chain
+
+    def loop():
+        elog = from_context()
+        while not stop.wait(interval):
+            done = set(engine.exported_volumes())
+            for chain in engine.hot_chains():
+                if not chain or chain[-1] in done:
+                    continue
+                try:
+                    export_chain(engine, feeder, list(chain))
+                except Exception as err:  # noqa: BLE001 - keep beating
+                    elog.warning("kv chain export failed", error=repr(err))
+
+    threading.Thread(target=loop, name="oim-kv-export", daemon=True).start()
 
 
 def _advertise(args, addr: str) -> str:
@@ -352,6 +377,12 @@ def main(argv: list[str] | None = None) -> int:
     draft_params, draft_mcfg = (None, None)
     if args.spec_tokens > 0:
         draft_params, draft_mcfg = _load_draft_params(args, log, feeder=feeder)
+    kv_fetch = None
+    if args.kv_peer_fetch:
+        from oim_tpu_torch.serve.kvvolume import PeerPrefixFetcher, config_fingerprint
+
+        page_tokens = args.kv_page_tokens or args.prefix_block
+        kv_fetch = PeerPrefixFetcher(feeder, config_fingerprint(mcfg, page_tokens))
     engine = ServeEngine(
         params, mcfg,
         max_batch=args.max_batch,
@@ -363,16 +394,24 @@ def main(argv: list[str] | None = None) -> int:
         kv_page_tokens=args.kv_page_tokens,
         kv_pool_tokens=args.kv_pool_tokens,
         kv_host_bytes=args.kv_host_bytes,
+        kv_fetch=kv_fetch,
         draft_params=draft_params,
         draft_cfg=draft_mcfg,
         spec_tokens=args.spec_tokens,
         spec_pool_tokens=args.spec_pool_tokens,
         shard=args.shard,
         member_hbm_budget=args.member_hbm_budget,
+        role=args.role,
         prefill_chunk=args.prefill_chunk,
         device=args.device,
         devices=[args.device] * args.shard if args.device == "cpu" else None,
     )
+    if args.role == "prefill" and feeder is not None:
+        # The prefill tier exports at RETIREMENT: the decode pick is already
+        # waiting on the volume, so the --kv-export sweep is too late.
+        from oim_tpu_torch.serve.kvvolume import export_chain
+
+        engine.set_handoff_export(lambda eng, hashes: export_chain(eng, feeder, hashes))
     tls = load_tls_flags(args)
     server = serve_server(args.endpoint, ServeService(engine, stream_tokens=args.stream_tokens),
                           tls=tls)
@@ -408,6 +447,11 @@ def main(argv: list[str] | None = None) -> int:
         obs.stop()
         raise
 
+    export_stop = threading.Event()
+    if args.kv_export:
+        _start_exporter(engine, feeder, args.heartbeat, export_stop)
+        log.info("kv chain exporter started", interval_s=args.heartbeat)
+
     telemetry_default = args.serve_id or (
         f"{args.controller_id}.serve" if args.controller_id else "")
     start_telemetry_row(obs, args.telemetry_id or telemetry_default, "serve",
@@ -425,6 +469,7 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         pass
     log.info("draining", active=engine.active_slots, queued=engine.queue_len)
+    export_stop.set()
     if registration is not None:
         # ready: false first, so routers rotate away while the residents
         # finish on their still-open streams.

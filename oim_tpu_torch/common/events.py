@@ -33,7 +33,7 @@ from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.redact import redact_text
 
 # Canonical event types (the emit sites: serve/engine.py,
-# controller/stagecache.py and feeder/driver.py).
+# serve/kvvolume.py, controller/stagecache.py and feeder/driver.py).
 FEEDER_FAILOVER = "feeder_failover"
 VOLUME_HEALED = "volume_healed"
 # The feeder's address watch fell back to GetValues polling against a
@@ -44,6 +44,13 @@ STAGE_CACHE_EVICTION = "stage_cache_eviction"
 SLOT_EVICTED = "slot_evicted"
 PAGE_POOL_EXHAUSTED = "page_pool_exhausted"
 SPEC_FALLBACK = "spec_fallback"
+# KV tiering / fleet prefix sharing (serve/kvvolume.py): a hot chain
+# exported as a content-addressed volume; an admission adopted
+# peer-fetched KV blocks; a peer fetch that STARTED but failed (holder
+# died mid-stream, bad blob) fell back to local recompute.
+KV_CHAIN_EXPORTED = "kv_chain_exported"
+KV_PEER_FETCH = "kv_peer_fetch"
+KV_FETCH_FALLBACK = "kv_fetch_fallback"
 SHARD_MEMBER_LOST = "shard_member_lost"
 SHARD_MEMBER_HEALED = "shard_member_healed"
 

@@ -535,6 +535,22 @@ KVTIER_PROMOTIONS = DEFAULT.counter(
     "oim_kvtier_promotions_total",
     "prefix pages promoted host RAM -> HBM (H2D re-stage on a chain "
     "hit)")
+KVTIER_EXPORTS = DEFAULT.counter(
+    "oim_kvtier_exports_total",
+    "prefix chains exported as content-addressed KV-page volumes "
+    "(serve/kvvolume.py pack -> feeder publish)")
+# Fleet prefix sharing: a replica adopting finished KV pages fetched
+# from a peer's exported chain volume instead of re-prefilling.
+SERVE_PREFIX_PEER_FETCHES = DEFAULT.counter(
+    "oim_serve_prefix_peer_fetches_total",
+    "peer prefix-fetch attempts, by outcome: hit = blocks fetched and "
+    "adoptable, miss = no peer volume covers the chain, error = fetch "
+    "started but failed (the engine recomputes locally either way)",
+    labelnames=("outcome",))
+SERVE_PREFIX_PEER_TOKENS = DEFAULT.counter(
+    "oim_serve_prefix_peer_tokens_total",
+    "prompt tokens whose K/V was adopted from a peer-exported chain "
+    "volume instead of local prefill or the local prefix store")
 # Speculative decoding (serve/spec.py).
 SERVE_SPEC_PROPOSED = DEFAULT.counter(
     "oim_serve_spec_proposed_tokens_total",
@@ -575,7 +591,10 @@ SERVE_ICI_ALLREDUCE = DEFAULT.histogram(
     "linking a slow collective to the request it stalled",
     buckets=(0.00001, 0.000025, 0.00005, 0.0001, 0.00025, 0.0005,
              0.001, 0.0025, 0.005, 0.01, 0.05))
-# The replica's serving role (only "mixed" is ported) and chunked prefill.
+# Prefill/decode disaggregation: replicas specialize by phase and the
+# router splits a request across tiers — prefill runs big-batch chunked
+# prefill and ships the finished chain as a content-addressed kvchain
+# volume; the decode pick adopts the pages instead of recomputing.
 SERVE_ROLE = DEFAULT.gauge(
     "oim_serve_role",
     "info gauge: the label whose sample is 1 names this replica's "
@@ -584,6 +603,15 @@ SERVE_ROLE = DEFAULT.gauge(
     "unified legacy behavior); advertised in the heartbeat snapshot "
     "and rendered as oimctl --top's ROLE column",
     labelnames=("role",))
+SERVE_PREFILL_HANDOFFS = DEFAULT.counter(
+    "oim_serve_prefill_handoffs_total",
+    "prefill-tier handoff outcomes: split = router sent the prompt to "
+    "a prefill pick before streaming from decode, exported = the "
+    "retired chain was published as a kvchain volume, skipped = "
+    "nothing exportable (prompt shorter than one block, or the volume "
+    "already published), export_failed / fallback = the defect paths "
+    "that degrade to decode-local prefill (never a wrong resume)",
+    labelnames=("outcome",))
 SERVE_PREFILL_CHUNK_SECONDS = DEFAULT.histogram(
     "oim_serve_prefill_chunk_seconds",
     "one --prefill-chunk slice of a long prompt's prefill (device-sync "

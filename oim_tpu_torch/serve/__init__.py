@@ -6,7 +6,12 @@ continuous-batching engine over a paged KV cache.
 * ``engine``      the slot-based continuous-batching scheduler: mid-flight
   admission, lockstep decode over a paged KV pool (``pagepool``), prompt
   prefix reuse (``prefixcache``) with a host-RAM tier (``kvtier``),
-  bounded-queue backpressure and graceful drain.
+  bounded-queue backpressure and graceful drain; the prefill, decode and
+  mixed roles.
+* ``kvvolume``    the fleet tier: prefix chains as content-addressed
+  ``OIMK0001`` volumes, exported at a prefill replica's retirement and
+  adopted into a peer's page pool (``export_chain_to`` and ``ChainFetcher``
+  need neither grpc nor protobuf).
 * ``spec``        speculative decoding: acceptance math and the adaptive
   valve.
 * ``shard``       tensor-parallel serving: one replica over several
@@ -15,7 +20,6 @@ continuous-batching engine over a paged KV cache.
 The gRPC half, which needs grpcio and protobuf and is imported from its
 modules: ``service`` (``oim.v1.Serve``), ``registration`` (the
 ``serve/<id>`` row) and ``members`` (a sharded replica's member leases).
-Not ported yet: KV volumes (ROADMAP A.3.7).
 """
 
 from oim_tpu_torch.serve.engine import (  # noqa: F401

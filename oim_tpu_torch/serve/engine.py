@@ -23,6 +23,17 @@ own table and prefills only the tail. With ``kv_host_bytes`` an evicted
 store-only page is copied to a host-RAM LRU (``serve/kvtier.py``) and a
 later hit copies it back into a fresh page.
 
+The fleet tier (``serve/kvvolume.py``): with a ``kv_fetch`` callback, an
+admission whose chain the store and the host tier do not cover asks it for
+the rest, and writes the consecutive blocks it returns into fresh pages in
+one batch (``kvtier.stage_pages``); any failure recomputes locally and
+emits ``kv_fetch_fallback``. ``snapshot_chain`` reads a cached chain's
+pages for an export, through the command queue (``_call_on_engine``) when
+called from another thread. The roles: ``prefill`` advertises its block
+in ``stats()`` even while cold, and with ``set_handoff_export`` each
+retirement (not a cancel) exports the prompt's chain before the stream
+closes; ``decode`` and ``mixed`` change only what ``stats()`` advertises.
+
 Speculative decoding (``serve/spec.py``): with a draft model, a decode
 round is draft-propose (K+1 draft ``decode_step``s over the draft's own
 page pool) plus target-verify (ONE ``verify_step`` over the K proposals)
@@ -48,8 +59,9 @@ What the port keeps of the reference, and what it changes:
   request's trace_id as an exemplar), the ``serve.prefill`` and
   ``serve.draft_prefill`` spans, the ``serve.queue_wait`` and
   ``serve.decode`` phase spans recorded at retirement, the flight
-  recorder's slot_evicted, page_pool_exhausted, spec_fallback and
-  replica_drain events, and the fault points ``serve.admit``,
+  recorder's slot_evicted, page_pool_exhausted, spec_fallback,
+  kv_peer_fetch, kv_fetch_fallback and replica_drain events, and the
+  fault points ``serve.admit``,
   ``spec.propose``, ``serve.retire`` and ``serve.decode``. Every metric
   reads a value the host already holds: recording adds no device sync.
 * Tensor-parallel serving (``shard > 1``, ``serve/shard.py``): the target
@@ -60,8 +72,10 @@ What the port keeps of the reference, and what it changes:
   share does not fit, ``set_member_watch`` folds the members' liveness
   into ``stats()``' readiness, and one allreduce probe a target dispatch
   feeds ``oim_serve_ici_allreduce_seconds``.
-* Not ported: the fleet tier (``kv_fetch``) and the prefill/decode roles,
-  which the constructor refuses with ``NotImplementedError``.
+* The snapshot's and the adoption's pages of a sharded replica go
+  through ``serve/shard.py`` (``pool_page_kv``, ``stage_pool_pages``), each
+  member its KV heads, so a chain's blob holds whole pages at any shard
+  count.
 
 Invariants (``tests/test_torch_serve.py``): greedy streams equal solo
 ``generate()``; a retired slot leaks nothing into its next occupant; a
@@ -88,7 +102,7 @@ from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.models import generate as gen
 from oim_tpu_torch.models.llama import Config, check_supported
-from oim_tpu_torch.serve.kvtier import HostTier, page_kv, stage_page
+from oim_tpu_torch.serve.kvtier import HostTier, host_dtype, page_kv, stage_page, stage_pages
 from oim_tpu_torch.serve.pagepool import PagePool
 from oim_tpu_torch.serve import shard as shardlib
 from oim_tpu_torch.serve.prefixcache import PrefixStore
@@ -311,12 +325,6 @@ class ServeEngine:
         device="cuda",
         devices=None,
     ):
-        if kv_fetch is not None:
-            raise NotImplementedError(
-                "peer KV fetch (kv_fetch) is not ported yet")
-        if role != "mixed":
-            raise NotImplementedError(
-                f"role {role!r}: the prefill/decode roles are not ported yet")
         check_supported(cfg)
         if draft_cfg is not None:
             check_supported(draft_cfg)
@@ -356,7 +364,13 @@ class ServeEngine:
         if self.shard > 1:
             gen.shard_config(cfg, self.shard)  # head-divisibility check
             devices = shardlib.member_devices(self.shard, devices)
-        self.role = role
+        # Prefill/decode disaggregation: the role rides stats() so the
+        # router can split a request across tiers; on the data path it only
+        # decides whether the retire hook exports (set_handoff_export).
+        self.role = str(role)
+        if self.role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"role must be prefill, decode or mixed, got {role!r}")
         # The fault points' ``engine`` context.
         self.name = str(name)
         # Chunked prefill: long prompt tails prefill in slices of this many
@@ -407,7 +421,20 @@ class ServeEngine:
             if prefix_on else None)
         if self._host_tier is not None:
             self._pagepool.register_tier("host", self._host_tier.stats)
+        # Fleet prefix sharing (serve/kvvolume.py): called with (chain, m)
+        # when the store and the host tier matched only m blocks; None,
+        # empty or any failure recomputes locally.
+        self._kv_fetch = kv_fetch if prefix_on else None
+        # Chains this engine exported (deepest hash -> volume id), advertised
+        # in the serve row.
+        self._exported: dict[str, str] = {}
+        # The prefill tier's retire hook (set_handoff_export).
+        self._handoff_export = None
         M.SERVE_ROLE.labels(role=self.role).set(1)
+        # Full cumulative-hash chains of recent admissions (deepest hash ->
+        # ordered chain, MRU last): the order an exporter needs to rebuild
+        # a chain, which only the admitting request knew.
+        self._hot_chains: collections.OrderedDict[str, tuple] = collections.OrderedDict()
         # +1 physical page: id 0 is the reserved scratch page every
         # unmapped table entry points at.
         self._group = None
@@ -497,6 +524,10 @@ class ServeEngine:
         self._dev: tuple | None = None
         self._zero_draws: dict[int, torch.Tensor] = {}
         self._pending: collections.deque[_Request] = collections.deque()
+        # Engine-thread command queue: another thread's read of the device
+        # pool (a chain snapshot for an export) runs between steps
+        # (_call_on_engine).
+        self._cmds: collections.deque = collections.deque()
         self._admitting: _Request | None = None
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -624,6 +655,11 @@ class ServeEngine:
                 "decode_tokens": self._decode_tokens,
                 "role": self.role,
             }
+            if self.role == "prefill":
+                # A COLD prefill replica advertises its block too: the
+                # router's split gate compares the prompt against it, and
+                # the row carries the block only beside hot prefixes.
+                snap["prefix_block"] = self.prefix_block
             if self.shard > 1:
                 # One lapsed member flips the whole replica not-ready: a
                 # group missing a member cannot decode.
@@ -701,6 +737,12 @@ class ServeEngine:
             return 0
         return self._host_tier.evict_all()
 
+    def set_kv_fetch(self, fn) -> None:
+        """(Re)wire the peer-fetch callback on a running engine (None
+        disables it). No-op while the prefix cache is disabled."""
+        if self._prefix is not None:
+            self._kv_fetch = fn
+
     def request_stats(self) -> dict:
         """Request census: the running counts the reference keeps in its
         metrics only, so they stay off the serve row."""
@@ -765,7 +807,7 @@ class ServeEngine:
             with torch.inference_mode():
                 while True:
                     with self._lock:
-                        while (not self._pending
+                        while (not self._pending and not self._cmds
                                and not any(s is not None for s in self._slots)
                                and not (self._stopping or self._draining)):
                             self._work.wait()
@@ -775,10 +817,13 @@ class ServeEngine:
                         done = (self._stopping or self._draining) and not any(
                             s is not None for s in self._slots)
                     if done:
+                        self._fail_cmds()
                         return
                     if stop_now:
                         self._evict_all("drained")
+                        self._fail_cmds()
                         return
+                    self._service_cmds()
                     self._admit()
                     if any(s is not None for s in self._slots):
                         self._decode_once()
@@ -792,26 +837,123 @@ class ServeEngine:
             with self._lock:
                 self._stopping = True
                 self._fail_pending_locked("error")
+            self._fail_cmds()
 
     def _fail_pending_locked(self, reason: str) -> None:
         while self._pending:
             self._finish(self._pending.popleft(), reason)
         M.SERVE_QUEUE_DEPTH.set(0)
 
-    # -- KV tiering ----------------------------------------------------------
+    # -- engine-thread command queue ----------------------------------------
+
+    def _service_cmds(self) -> None:
+        while True:
+            with self._lock:
+                if not self._cmds:
+                    return
+                fn, box = self._cmds.popleft()
+            try:
+                box["result"] = fn()
+            except Exception as err:  # noqa: BLE001 - relayed to the caller
+                box["error"] = err
+            box["done"].set()
+
+    def _fail_cmds(self) -> None:
+        while True:
+            with self._lock:
+                if not self._cmds:
+                    return
+                _, box = self._cmds.popleft()
+            box["error"] = Draining("engine stopped before the command ran")
+            box["done"].set()
+
+    def _call_on_engine(self, fn, timeout: float = 30.0):
+        """Run ``fn`` on the engine thread between steps and return its
+        result: the only way for another thread to read the device pool,
+        which the engine's steps write in place."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        box: dict = {"done": threading.Event(), "result": None, "error": None}
+        with self._lock:
+            if self._stopping or self._draining:
+                raise Draining("engine is draining; not taking commands")
+            self._cmds.append((fn, box))
+            self._work.notify()
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"engine command did not run within {timeout}s")
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    # -- KV tiering / fleet prefix sharing ------------------------------------
+
+    def snapshot_chain(self, hashes, timeout: float = 30.0):
+        """Host copies of a cached chain's blocks, in chain order, of the
+        pool's dtype (bf16 as ``uint16`` bits): the export's read
+        (``serve/kvvolume.py`` packs them). Runs on the engine thread through
+        the command queue; the pages are ref'd for the copy, so no eviction
+        can free them mid-read. None when the chain is not fully cached
+        anymore."""
+        hashes = list(hashes)
+        if self._prefix is None or not hashes:
+            return None
+        dtype = host_dtype(self.cfg.dtype)
+
+        def snap():
+            pages = self._prefix.gather(hashes)
+            if pages is None:
+                return None
+            self._pagepool.ref(pages)
+            try:
+                return [tuple(a.view(dtype) for a in self._page_kv(p)) for p in pages]
+            finally:
+                self._pagepool.unref(pages)
+
+        return self._call_on_engine(snap, timeout=timeout)
+
+    def note_exported(self, deepest_hash: str, volume_id: str) -> None:
+        """Record a chain this replica exported (the serve row advertises
+        the map so peers can resolve holder volumes)."""
+        with self._lock:
+            self._exported[str(deepest_hash)] = str(volume_id)
+
+    def exported_volumes(self) -> dict:
+        with self._lock:
+            return dict(self._exported)
+
+    def set_handoff_export(self, fn) -> None:
+        """Arm the prefill tier's retire hook: ``fn(engine, hashes)`` runs on
+        the engine thread when a slot retires by eos or length with an
+        exportable chain, before its stream closes (oim-serve wires
+        ``kvvolume.export_chain`` here for --role prefill). None disarms."""
+        with self._lock:
+            self._handoff_export = fn
+
+    def hot_chains(self, n: int = 4) -> list[tuple]:
+        """The full cumulative-hash chains of the most recent admissions,
+        MRU first: what the background exporter walks. A chain may have
+        partly evicted since; the export re-checks through
+        ``snapshot_chain``."""
+        with self._lock:
+            chains = list(self._hot_chains.values())
+        chains.reverse()
+        return chains[:max(0, int(n))]
+
+    def _page_kv(self, page: int):
+        """One physical page's (k, v) on the host, every member's KV heads
+        assembled on a sharded replica."""
+        if self._group is None:
+            return page_kv(self._cache, page)
+        return shardlib.pool_page_kv(self._cache, page, page_kv)
 
     def _demote_page(self, key: str, page: int) -> None:
         """PrefixStore demote hook: copy the evicting store-only page into
         the host tier."""
-        if self._group is None:
-            k, v = page_kv(self._cache, page)
-        else:
-            k, v = shardlib.pool_page_kv(self._cache, page, page_kv)
-        self._host_tier.put(key, k, v)
+        self._host_tier.put(key, *self._page_kv(page))
 
     def _alloc_one(self) -> int | None:
-        """One fresh page for a promotion, shedding cold store references
-        first under pressure."""
+        """One fresh page for a promotion or an adoption, shedding cold
+        store references first under pressure."""
         pages = self._pagepool.alloc(1)
         if pages is None and self._prefix is not None:
             self._prefix.release(1)
@@ -845,6 +987,55 @@ class ServeEngine:
             self._host_tier.pop(chain[m])
             self._install_block(chain[m], page, shared)
             m += 1
+        return m
+
+    def _adopt_peer(self, chain: list[str], m: int, shared: list[int],
+                    req: _Request) -> int:
+        """Fleet tier: ask the kv_fetch callback for the unmatched chain tail
+        and write the consecutive blocks it returns into fresh pages in one
+        batch. ANY failure (the callback raising or returning None, a
+        block out of order, pool pressure mid-adoption, a block the pool
+        cannot take) leaves a valid shorter prefix, and the prefill computes
+        the rest: never a misaligned resume."""
+        try:
+            fetched = self._kv_fetch(chain, m)
+        except Exception as err:  # noqa: BLE001 - fallback is recompute
+            events.emit(events.KV_FETCH_FALLBACK, trace_id=self._trace_id(req),
+                        error=repr(err), matched_blocks=m, chain_blocks=len(chain))
+            return m
+        if fetched is None:
+            events.emit(events.KV_FETCH_FALLBACK, trace_id=self._trace_id(req),
+                        matched_blocks=m, chain_blocks=len(chain))
+            return m
+        keys, pages, ks, vs = [], [], [], []
+        for key, (k, v) in fetched:
+            if m + len(keys) >= len(chain) or key != chain[m + len(keys)]:
+                break  # only a consecutive continuation may adopt
+            page = self._alloc_one()
+            if page is None:
+                break
+            keys.append(key)
+            pages.append(page)
+            ks.append(k)
+            vs.append(v)
+        if not keys:
+            return m
+        try:
+            if self._group is None:
+                stage_pages(self._cache, pages, ks, vs)
+            else:
+                shardlib.stage_pool_pages(self._cache, pages, ks, vs, stage_pages)
+        except Exception as err:  # noqa: BLE001 - e.g. a peer's shape skew
+            self._pagepool.unref(pages)
+            events.emit(events.KV_FETCH_FALLBACK, trace_id=self._trace_id(req),
+                        error=repr(err), matched_blocks=m, chain_blocks=len(chain))
+            return m
+        for key, page in zip(keys, pages):
+            self._install_block(key, page, shared)
+        m += len(keys)
+        M.SERVE_PREFIX_PEER_TOKENS.inc(len(keys) * self.prefix_block)
+        events.emit(events.KV_PEER_FETCH, trace_id=self._trace_id(req),
+                    blocks=len(keys), tokens=len(keys) * self.prefix_block)
         return m
 
     def _evict_all(self, reason: str) -> None:
@@ -980,6 +1171,12 @@ class ServeEngine:
             m, shared = 0, []
             if self._prefix is not None:
                 chain = prefixhash.usable_hashes(req.prompt, self.prefix_block)
+                if chain:
+                    with self._lock:
+                        self._hot_chains[chain[-1]] = tuple(chain)
+                        self._hot_chains.move_to_end(chain[-1])
+                        while len(self._hot_chains) > self.ADVERTISE_PREFIXES * 4:
+                            self._hot_chains.popitem(last=False)
                 m = self._prefix.match(chain)
                 if m:
                     got = self._prefix.gather(chain[:m])
@@ -989,8 +1186,13 @@ class ServeEngine:
                         shared = got
                         # Pin the shared pages NOW, before any eviction.
                         self._pagepool.ref(shared)
+                # The tail's tiers: host-RAM blocks first, then the fleet
+                # tier's peer-exported blocks; both leave pinned pages, as a
+                # store hit does.
                 if m < len(chain):
                     m = self._promote_tail(chain, m, shared)
+                if self._kv_fetch is not None and m < len(chain):
+                    m = self._adopt_peer(chain, m, shared, req)
             if not self._map_slot(req, free, n, m, shared):
                 return  # still the queue head; retried next loop pass
             spec_row = self._map_draft_slot(req, free, n)
@@ -1238,6 +1440,12 @@ class ServeEngine:
         self._release_slot(slot, req)
         with self._lock:
             self._slots[slot] = None
+            export = self._handoff_export
+        if export is not None and reason != "cancelled":
+            # The prefill tier's handoff: the chain this retirement just
+            # donated to the store exports NOW, on the engine thread, before
+            # _finish closes the stream, so the decode pick's fetch finds it.
+            self._export_handoff(req, export)
         if reason == "cancelled":
             # eos/length retirement is the steady state; an eviction by
             # cancel is an incident for the flight recorder.
@@ -1246,6 +1454,31 @@ class ServeEngine:
         self._occupancy()
         self._finish(req, reason)
         return True
+
+    def _export_handoff(self, req: _Request, export) -> None:
+        """Export the retiring request's prompt chain: ``usable_hashes``, the
+        full-block prefix a decode admission MATCHES, so the volume id is the
+        deepest hash the decode pick's fetcher probes. Deduped on that hash:
+        re-publishing an exported volume id is a feeder error."""
+        hashes = prefixhash.usable_hashes(req.prompt, self.prefix_block)
+        if not hashes:
+            M.SERVE_PREFILL_HANDOFFS.labels(outcome="skipped").inc()
+            return
+        with self._lock:
+            done = hashes[-1] in self._exported
+        if done:
+            M.SERVE_PREFILL_HANDOFFS.labels(outcome="skipped").inc()
+            return
+        try:
+            volume_id = export(self, list(hashes))
+        except Exception:  # noqa: BLE001 - the handoff is best-effort
+            from_context().warning(
+                "prefill handoff export failed; decode falls back to local prefill",
+                trace_id=self._trace_id(req))
+            M.SERVE_PREFILL_HANDOFFS.labels(outcome="export_failed").inc()
+            return
+        M.SERVE_PREFILL_HANDOFFS.labels(
+            outcome="exported" if volume_id else "export_failed").inc()
 
     def _cancel_slot(self, slot: int, req: _Request) -> None:
         self._release_slot(slot, req)

@@ -8,6 +8,9 @@ demote instead of drop. The serving engine's tier sets the
       v
     host (numpy K/V block in this LRU, bounded by kv_host_bytes)
       |  promote: H2D copy into a freshly allocated page on a hit
+      v
+    volume (serve/kvvolume.py: a content-addressed blob on a controller;
+            an adoption writes a whole fetched run with ``stage_pages``)
 
 A block lives in exactly ONE tier: demotion captures the bytes before the
 device page frees, promotion pops the host entry after the bytes land back
@@ -15,9 +18,10 @@ on the device. Both copies are bit-exact (bf16 blocks travel as their
 ``uint16`` bits), so a promoted block holds exactly what a fresh prefill
 would recompute.
 
-Threading: ``HostTier`` is lock-protected, but ``page_kv`` and
-``stage_page`` touch the engine's device pool and run on the engine
-thread only (its admission and retirement paths). On a CUDA pool the
+Threading: ``HostTier`` is lock-protected, but ``page_kv``,
+``stage_page`` and ``stage_pages`` touch the engine's device pool and run
+on the engine thread only (its admission and retirement paths; other
+threads read the pool through the engine's command queue). On a CUDA pool the
 copies go through pinned host buffers: D2H with ``non_blocking=True`` and
 a stream synchronisation before numpy reads the buffer; H2D from a pinned
 staging buffer.
@@ -181,6 +185,14 @@ def _to_device(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return src.view(like.dtype)
 
 
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a pool's blocks read as on the host: the pool's own
+    where numpy has it, bf16 as its ``uint16`` bits."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 def page_kv(cache: dict, page: int) -> tuple[np.ndarray, np.ndarray]:
     """D2H: one physical page's (k, v) as host arrays [L, page_tokens,
     kv_heads, head_dim] of the pool's bits. Engine-thread only."""
@@ -193,4 +205,34 @@ def stage_page(cache: dict, page: int, k: np.ndarray,
     place; returns the pool. Engine-thread only."""
     for name, arr in (("k", k), ("v", v)):
         cache[name][:, page] = _to_device(arr, cache[name])
+    return cache
+
+
+def stage_pages(cache: dict, pages: list, ks: list, vs: list) -> dict:
+    """H2D: write N blocks into N pool pages at once, in place; returns the
+    pool. The ks and vs are stacked along the page axis into ONE host
+    buffer [2, L, N, page_tokens, kv_heads, hd] (pinned for a CUDA pool),
+    copied to the device in one transfer and written by one ``index_copy_``
+    a side on the pool's page axis: a peer-fetch adoption stages whole
+    chains, and per-page dispatch would eat a good slice of the prefill it
+    saves. A block whose shape or element size is not the pool's raises
+    ValueError before anything is written. Engine-thread only."""
+    if len(pages) == 1:
+        return stage_page(cache, pages[0], ks[0], vs[0])
+    pool = cache["k"]
+    as_int, np_dtype = _BITS[pool.element_size()]
+    shape = (2, pool.shape[0], len(pages)) + tuple(pool.shape[2:])
+    host = torch.empty(shape, dtype=as_int, pin_memory=pool.is_cuda)
+    bits = host.numpy().view(np_dtype)
+    for side, blocks in enumerate((ks, vs)):
+        for i, block in enumerate(blocks):
+            block = np.asarray(block)
+            if block.dtype.itemsize != bits.itemsize:
+                raise ValueError(
+                    f"a {block.dtype} block cannot stage into a {pool.dtype} pool")
+            bits[side, :, i] = block.view(np_dtype)
+    staged = host.to(pool.device, non_blocking=True).view(pool.dtype)
+    index = torch.tensor(pages, dtype=torch.long, device=pool.device)
+    cache["k"].index_copy_(1, index, staged[0])
+    cache["v"].index_copy_(1, index, staged[1])
     return cache

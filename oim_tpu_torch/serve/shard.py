@@ -314,3 +314,14 @@ def stage_pool_page(pools: list, page: int, k: np.ndarray, v: np.ndarray, write)
         write(pool, page, member_slice(k, (None, None, "tp"), n, rank),
               member_slice(v, (None, None, "tp"), n, rank))
     return pools
+
+
+def stage_pool_pages(pools: list, pages: list, ks: list, vs: list, write) -> list:
+    """Write whole pages' (k, v) blocks back in one batch a member, each
+    member its KV heads (``write`` is ``kvtier.stage_pages``)."""
+    n = len(pools)
+    spec = (None, None, "tp")
+    for rank, pool in enumerate(pools):
+        write(pool, pages, [member_slice(k, spec, n, rank) for k in ks],
+              [member_slice(v, spec, n, rank) for v in vs])
+    return pools

@@ -47,7 +47,7 @@ def _shape(family) -> tuple:
 
 
 def test_the_port_declares_the_families_of_its_slice():
-    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 52
+    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 56
     assert {getattr(tmetrics, n).name for n in PORT_FAMILIES} == set(tmetrics.DEFAULT._metrics)
 
 
@@ -162,7 +162,8 @@ def test_event_types_are_jax_types():
     assert set(port) == {"REPLICA_DRAIN", "STAGE_CACHE_EVICTION", "SLOT_EVICTED",
                          "PAGE_POOL_EXHAUSTED", "SPEC_FALLBACK", "SHARD_MEMBER_LOST",
                          "SHARD_MEMBER_HEALED", "FEEDER_FAILOVER", "VOLUME_HEALED",
-                         "WATCH_RESYNC"}
+                         "WATCH_RESYNC", "KV_CHAIN_EXPORTED", "KV_PEER_FETCH",
+                         "KV_FETCH_FALLBACK"}
     assert tevents.DEFAULT_CAPACITY == jevents.DEFAULT_CAPACITY
 
 

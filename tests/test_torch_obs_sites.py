@@ -91,18 +91,15 @@ CONTROL_PLANE_FAMILIES = {
 
 # Sites of the ported modules whose code the port does not have yet, each
 # with the queue item (ROADMAP.md) that brings it.
-DEFERRED_FAMILIES = {
-    "SERVE_PREFIX_PEER_TOKENS": "A.3.7", "SERVE_PREFILL_HANDOFFS": "A.3.7",
-}
-DEFERRED_EVENTS = {
-    "KV_PEER_FETCH": "A.3.7", "KV_FETCH_FALLBACK": "A.3.7",
-}
+DEFERRED_FAMILIES: dict[str, str] = {}
+DEFERRED_EVENTS: dict[str, str] = {}
 # JAX modules whose sites this slice ports, and their counterparts.
 PORTED_SITES = {
     "oim_tpu/serve/engine.py": "oim_tpu_torch/serve/engine.py",
     "oim_tpu/serve/pagepool.py": "oim_tpu_torch/serve/pagepool.py",
     "oim_tpu/serve/prefixcache.py": "oim_tpu_torch/serve/prefixcache.py",
     "oim_tpu/serve/kvtier.py": "oim_tpu_torch/serve/kvtier.py",
+    "oim_tpu/serve/kvvolume.py": "oim_tpu_torch/serve/kvvolume.py",
     "oim_tpu/controller/stagecache.py": "oim_tpu_torch/controller/stagecache.py",
     "oim_tpu/controller/malloc_backend.py": "oim_tpu_torch/controller/malloc_backend.py",
     "oim_tpu/controller/tpu_backend.py": "oim_tpu_torch/controller/cuda_backend.py",

@@ -722,14 +722,6 @@ def test_spec_eos_mid_round_and_cancel(model):
 # ------------------------------------------------ refusals and rules ----
 
 
-@pytest.mark.parametrize("kw", [
-    {"kv_fetch": lambda chain, m: None}, {"role": "prefill"}, {"role": "decode"}],
-    ids=lambda kw: next(iter(kw)))
-def test_unported_engine_knobs_refuse(model, kw):
-    with pytest.raises(NotImplementedError):
-        engine(model, **kw)
-
-
 def test_engine_refuses_bad_spec_configs(model):
     _, tp, _, tcfg = model
     with pytest.raises(ValueError, match="draft_params AND"):

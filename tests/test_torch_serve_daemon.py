@@ -479,7 +479,7 @@ def test_advertisement_equals_jax(tiered):
     assert teng.prefix_tiers() == jeng.prefix_tiers()
     assert set(teng.prefix_tiers().values()) == {"hbm", "host"}
     assert teng.prefix_tiers(1) == jeng.prefix_tiers(1)
-    assert not hasattr(teng, "exported_volumes")
+    assert teng.exported_volumes() == jeng.exported_volumes() == {}
 
 
 def test_serve_row_equals_jax(tiered, plane):
@@ -724,17 +724,6 @@ def test_refusals_carry_the_jax_cli_messages(argv):
         msgs.append(str(err.value))
     tlogging.set_global(tlogging.Logger(level=tlogging.ERROR))
     assert msgs[1] == msgs[0] and msgs[0]
-
-
-@pytest.mark.parametrize("argv", [
-    ["--restore-only", "--backend", "malloc", "--role", "prefill"],
-    ["--restore-only", "--backend", "malloc", "--role", "decode"],
-    ["--restore-only", "--backend", "malloc", "--kv-peer-fetch"],
-    ["--restore-only", "--backend", "malloc", "--kv-export"],
-])
-def test_kv_volume_flags_are_refused_naming_the_item(argv):
-    with pytest.raises(SystemExit, match="ROADMAP A.3.7"):
-        tcli.main(argv + ["--log-level", "error"])
 
 
 def test_weights_without_a_control_plane_and_a_wildcard_are_refused(packed, plane,
