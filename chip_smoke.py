@@ -388,14 +388,24 @@ Phases, in order; any failure exits nonzero:
    adopts it (peer-fetch hit +1, ``oim_serve_prefix_peer_tokens_total``
    +96 x 16, one ``kv_peer_fetch`` event, 1,536 prefix tokens), its
    adopted pages read back by ``snapshot_chain`` equal the exported ones
-   to the bit, and its KV_NEW-token greedy stream, teacher-forced over its
-   adopted chain and over the mixed engine's (``hold_stream``: a 1-token
-   prefill of the tail, a decode step, one verify), gives logits within
-   SERVE_LOGIT_REL x max|logit| of the mixed engine's at every generated
-   position (the streams' agreement reported); then two planted defects,
+   to the bit (and so must the mixed engine's own, the same chunked
+   prefill). Each engine's own KV_NEW-token greedy stream is then held
+   against one dense ``cached_forward`` over the prompt and that stream
+   (``reference_logits``: no page pool, table, chunk or bucket): the
+   logits the engine computed for each token (``engine_logits`` wraps
+   its prefill and decode forwards) must lie within SERVE_LOGIT_REL x
+   max|logit| of the reference's, and each token must be the reference's
+   argmax or short of its top logit by at most that much
+   (``hold_tokens``). Over pages equal to the bit and the same 1-token
+   tail prefill, the decode engine's tokens and logits must equal the
+   mixed engine's to the bit (a wrong page, slot or tail offset would
+   pass the tolerance). Two planted defects,
    a blob cut in half and a fingerprint of page_tokens 32, must each
    record one ``kv_fetch_fallback`` with JAX's fields, one fetch error, no
-   adoption, and a local recompute held the same way; and every engine's
+   adoption, and a local recompute held the same way (its stream may part
+   from the mixed one: ``parting`` reads the reference's top-2 gap where
+   it does, and ``tail_probe`` computes the prompt's last position as a
+   recompute and as the chained engines do, compared to the bit); and every engine's
    pool must be empty after drain and eviction. It prints, each the mean
    of KV_TRIALS: the export split into snapshot (D2H), pack, file write
    and stage; the adoption into the volume's read-back, unpack and
@@ -5914,62 +5924,151 @@ def _chain_equal(a: list, b: list) -> bool:
         for ka, kb in zip(a, b) for x, y in zip(ka, kb))
 
 
-def forced_logits(cfg, params, blocks: list, prompt: list, stream: list, device):
-    """The logits at every generated position of ``stream`` after ``prompt``,
-    whose full blocks' K/V are ``blocks`` (host copies of a chain): the
-    blocks written into a fresh pool by ``stage_pages``, the prompt's tail
-    prefilled at its offset, a decode step on the stream's first token, then
-    one verify of the rest, through the engine's own target forwards."""
+def reference_logits(cfg, params, prompt: list, stream: list, device):
+    """[len(stream), vocab] f32: the logits that predict each token of
+    ``stream`` after ``prompt``, from one dense ``cached_forward`` over
+    prompt + stream[:-1] (no page pool, page table, chunk or bucket), so
+    independent of every engine's pages and of how it prefilled."""
     import torch
 
     from oim_tpu_torch.models import generate as gen
-    from oim_tpu_torch.serve import engine as E
-    from oim_tpu_torch.serve import kvtier
 
-    page = KV_ENGINE["prefix_block"]
-    n_pages = -(-(len(prompt) + len(stream)) // page) + 1
-    pool = gen.init_page_pool(cfg, n_pages, page, device=device)
-    kvtier.stage_pages(pool, list(range(1, len(blocks) + 1)), [k for k, _ in blocks],
-                       [v for _, v in blocks])
-    table = torch.arange(1, n_pages, device=device)
-    decode, prefill, verify = E.target_forwards(cfg, page)
-    start, n = len(blocks) * page, len(prompt)
-    tail = prompt[start:]
-    padded = torch.zeros(1, max(8, 1 << (len(tail) - 1).bit_length()), dtype=torch.long)
-    padded[0, :len(tail)] = torch.tensor(tail)
+    toks = list(prompt) + list(stream[:-1])
+    cache = gen.init_cache(cfg, 1, len(toks), device=device)
     with torch.inference_mode():
-        last, _ = prefill(params, padded.to(device), len(tail), pool, table, start)
-        step, _ = decode(params, torch.tensor(stream[:1], device=device), pool, table[None],
-                         torch.tensor([n], device=device))
-        rest, _ = verify(params, torch.tensor([stream[1:-1]], device=device), pool,
-                         table[None], torch.tensor([n + 1], device=device))
-    out = torch.cat([last[None], step, rest[0]]).float()
-    del pool
+        logits, _ = gen.cached_forward(params, torch.tensor([toks], device=device), cache,
+                                       0, cfg)
+    out = logits[0, len(prompt) - 1:].float().clone()
+    del logits, cache
     return out
 
 
-def hold_stream(cfg, params, got: list, want: list, prompt, stream, what: str,
-                device) -> dict:
-    """``stream`` teacher-forced over the chain ``got`` and over the chain
-    ``want`` (``forced_logits``): the logits at every generated position
-    must lie within SERVE_LOGIT_REL x max|logit| of ``want``'s; the share
-    of positions whose argmax agrees is reported."""
-    a = forced_logits(cfg, params, got, prompt, stream, device)
-    b = forced_logits(cfg, params, want, prompt, stream, device)
-    rel = float((a - b).abs().max() / b.abs().max())
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    if not rel <= SERVE_LOGIT_REL:
-        fail(f"kv handoff: {what}: logits differ from the mixed engine's by {rel:.4f} x "
-             f"max|logit| (limit {SERVE_LOGIT_REL})")
-    return {"logit_rel_err": rel, "argmax_agreement": agree}
+@contextlib.contextmanager
+def engine_logits(eng, n: int, out: list):
+    """Within the block, ``out`` collects the logits ``eng`` computes for
+    the tokens it generates after one ``n``-token prompt, alone in the
+    engine: its last prefill call's (a chunked prefill's last chunk samples
+    the first token), then each decode step's row at the position that
+    predicts the next."""
+    def prefill(real):
+        def fwd(*a):
+            last, c = real(*a)
+            out[:] = [last.float().clone()]
+            return last, c
+        return fwd
+
+    def decode(real):
+        def fwd(p, t, c, tb, ps):
+            logits, c = real(p, t, c, tb, ps)
+            rows = (ps == n + len(out) - 1).nonzero()
+            if out and len(rows):
+                out.append(logits[int(rows[0, 0])].float().clone())
+            return logits, c
+        return fwd
+
+    with patched(eng, "_prefill_fwd", prefill), patched(eng, "_decode_fwd", decode):
+        yield
+
+
+def hold_tokens(ref, stream: list, what: str) -> dict:
+    """Hold an engine's own greedy ``stream`` against ``ref``
+    (``reference_logits`` of that stream): at every position the engine's
+    token must be the reference's argmax, or short of the reference's top
+    logit by at most SERVE_LOGIT_REL x max|logit| (a bf16 near-tie). A
+    wrong page, slot or position offset gives a token far down the
+    reference's ranking. Reports the argmax agreement, the largest
+    shortfall and the positions off the argmax with theirs."""
+    import torch
+
+    got = torch.tensor(stream, device=ref.device)
+    short = (ref.max(-1).values - ref.gather(1, got[:, None])[:, 0]) / ref.abs().max()
+    off = {i: float(short[i]) for i in range(len(stream)) if short[i] > 0}
+    worst = float(short.max())
+    if not worst <= SERVE_LOGIT_REL:
+        i = int(short.argmax())
+        fail(f"kv handoff: {what}: token {i} ({stream[i]}) is short of the dense "
+             f"reference's argmax ({int(ref[i].argmax())}) by {worst:.4f} x max|logit| "
+             f"(limit {SERVE_LOGIT_REL})")
+    return {"argmax_agreement": 1 - len(off) / len(stream), "max_shortfall": worst,
+            "off_argmax": off}
+
+
+def parting(ref, stream: list, other: list) -> dict | None:
+    """Where ``stream`` first parts from ``other``, read off ``ref``
+    (``reference_logits`` of ``stream``, whose context up to there is
+    ``other``'s too): the reference's top-2 gap there and each token's
+    shortfall from its top logit, all over max|logit|. None when the
+    streams do not part."""
+    p = first_divergence(stream, other)
+    if p >= min(len(stream), len(other)):
+        return None
+    row, scale = ref[p], ref.abs().max()
+    top2 = row.topk(2).values
+    return {"position": p, "top2_gap": float((top2[0] - top2[1]) / scale),
+            "shortfall": float((top2[0] - row[stream[p]]) / scale),
+            "other_shortfall": float((top2[0] - row[other[p]]) / scale)}
+
+
+def tail_probe(cfg, params, prompt: list, blocks: list, device) -> dict:
+    """The prompt's last position (the tail after its full blocks), in two
+    fresh pools through ``prefill_into_pages``: as a recompute prefills it
+    (the whole prompt in one engine bucket) and as the chunked engine and an
+    adoption do (the chain's ``blocks`` staged, then the 1-token tail in
+    the smallest bucket). Reports whether the full blocks and the tail
+    position's K/V are equal to the bit, the tail's largest K/V
+    difference, and the first token's logits' difference over max|logit|."""
+    import torch
+
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.serve import ServeEngine
+    from oim_tpu_torch.serve import kvtier
+
+    page, n = KV_ENGINE["prefix_block"], len(prompt)
+    start = len(blocks) * page
+    n_pages = -(-n // page) + 1
+    # An engine slot's table row: max_seq's blocks, the unmapped ones on
+    # scratch page 0 (its length sets the attention's shapes).
+    table = torch.zeros(KV_ENGINE["max_seq"] // page, dtype=torch.long, device=device)
+    table[:n_pages - 1] = torch.arange(1, n_pages, device=device)
+
+    def bucket(k: int) -> int:
+        b = ServeEngine.MIN_PREFILL_BUCKET
+        while b < k:
+            b *= 2
+        return min(b, KV_ENGINE["max_seq"])
+
+    def prefill(pool, toks, at):
+        padded = torch.zeros(1, bucket(len(toks)), dtype=torch.long)
+        padded[0, :len(toks)] = torch.tensor(toks)
+        with torch.inference_mode():
+            return gen.prefill_into_pages(params, padded.to(device), len(toks), pool, table,
+                                          at, cfg, page)[0].float()
+
+    whole = gen.init_page_pool(cfg, n_pages, page, device=device)
+    chained = gen.init_page_pool(cfg, n_pages, page, device=device)
+    a = prefill(whole, prompt, 0)
+    kvtier.stage_pages(chained, list(range(1, len(blocks) + 1)), [k for k, _ in blocks],
+                       [v for _, v in blocks])
+    b = prefill(chained, prompt[start:], start)
+    tail = (slice(None), len(blocks) + 1, slice(0, n - start))
+    out = {"blocks_bit_equal": all(bool(torch.equal(whole[s][:, 1:len(blocks) + 1],
+                                                    chained[s][:, 1:len(blocks) + 1]))
+                                   for s in ("k", "v")),
+           "tail_kv_bit_equal": all(bool(torch.equal(whole[s][tail], chained[s][tail]))
+                                    for s in ("k", "v")),
+           "tail_kv_max_abs_diff": max(float((whole[s][tail].float() - chained[s][tail].float())
+                                             .abs().max()) for s in ("k", "v")),
+           "first_logits_rel_diff": float((a - b).abs().max() / b.abs().max()),
+           "first_token_equal": int(a.argmax()) == int(b.argmax())}
+    del whole, chained
+    return out
 
 
 def _mean(xs) -> float:
     return sum(xs) / len(xs)
 
 
-def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_CHUNK,
-                     n_new=KV_NEW, trials=KV_TRIALS) -> dict:
+def phase_kv_handoff(cfg, params, device="cuda") -> dict:
     """Phase 17: the fleet KV tier at phase 7's width and depth. A ``prefill``
     engine (``prefill_chunk`` KV_CHUNK) retires a KV_PROMPT-token prompt and
     its handoff exports the chain through the grpc-free core
@@ -5977,13 +6076,16 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
     file volume ``chain_request`` describes; a ``decode`` engine adopts it
     through ``ChainFetcher`` reading that volume back. Checks: one export
     (counter and event), one adoption (hit, peer tokens, event), the adopted
-    pages equal to the exported ones to the bit, the decode stream's logits
-    within SERVE_LOGIT_REL of a ``mixed`` engine's with the same chunk (its
-    agreement reported), two planted defects (a truncated blob, a fingerprint
-    with another page_tokens) falling back to a local recompute held the
-    same way, and every pool empty after drain. Then readings, each the mean
-    of KV_TRIALS: the export's and the adoption's steps, and the decode
-    engine's first token with adoption against a local recompute."""
+    pages equal to the exported ones to the bit, every engine's own greedy
+    stream held against a dense reference over its own tokens
+    (``hold_tokens``), the decode stream equal to the ``mixed`` engine's
+    (same chunk) where their pages are, two planted defects (a truncated
+    blob, a fingerprint with another page_tokens) falling back to a local
+    recompute held the same way, and every pool empty after drain. Where a
+    recompute's stream parts from the mixed one, ``parting`` and
+    ``tail_probe`` say why. Then readings, each the mean of KV_TRIALS: the
+    export's and the adoption's steps (timed by wrapping them), and the
+    decode engine's first token with adoption against a local recompute."""
     import gc
 
     import torch
@@ -5999,7 +6101,7 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
 
     t_phase = time.monotonic()
     page = KV_ENGINE["prefix_block"]
-    prompt = np.random.RandomState(KV_SEED).randint(0, cfg.vocab, prompt_len).tolist()
+    prompt = np.random.RandomState(KV_SEED).randint(0, cfg.vocab, KV_PROMPT).tolist()
     chain = prefixhash.usable_hashes(prompt, page)
     blocks = len(chain)
     fp = KV.config_fingerprint(cfg, page)
@@ -6032,9 +6134,8 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
     exports: list = []
 
     def handoff(eng, hashes):
-        done = KV.export_chain_to(eng, hashes, publish)
-        exports.append(done)
-        return None if done is None else done.volume_id
+        exports.append(KV.export_chain_to(eng, hashes, publish))
+        return exports[-1]
 
     def since(seq: int, type_: str) -> list:
         return [e for e in events.recorder().events(type_=type_) if e.seq > seq]
@@ -6051,12 +6152,42 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
                  f"{len(out)} tokens; engine error: {eng.error}")
         return out, h.stats
 
+    def run_held(eng):
+        """A KV_NEW-token request on ``eng`` and the logits the engine
+        computed for each of its tokens (``engine_logits``)."""
+        got: list = []
+        with engine_logits(eng, KV_PROMPT, got):
+            stream, stats = run(eng, KV_NEW)
+        if len(got) != KV_NEW:
+            fail(f"kv handoff: recorded the {eng.role} engine's logits for {len(got)} of "
+                 f"{KV_NEW} tokens")
+        return stream, torch.stack(got), stats
+
+    refs: dict = {}
+
+    def held(stream: list, logits, what: str) -> dict:
+        """An engine's own stream and logits against the dense reference of
+        that stream (one forward for each distinct stream): its logits
+        within SERVE_LOGIT_REL x max|logit| at every generated position and
+        its tokens by ``hold_tokens``; and where it parts from the mixed
+        engine's stream."""
+        if tuple(stream) not in refs:
+            refs[tuple(stream)] = reference_logits(cfg, params, prompt, stream, device)
+        ref = refs[tuple(stream)]
+        rel = float((logits - ref).abs().max() / ref.abs().max())
+        if not rel <= SERVE_LOGIT_REL:
+            fail(f"kv handoff: {what}: the engine's logits differ from the dense reference's "
+                 f"by {rel:.4f} x max|logit| (limit {SERVE_LOGIT_REL})")
+        return dict(hold_tokens(ref, stream, what), logit_rel_err=rel,
+                    stream_equal_prefix=first_divergence(stream, mixed_stream),
+                    parting=parting(ref, stream, mixed_stream))
+
     fetcher = KV.ChainFetcher(read, fp)
-    prefill = ServeEngine(params, cfg, device=device, role="prefill", prefill_chunk=chunk,
+    prefill = ServeEngine(params, cfg, device=device, role="prefill", prefill_chunk=KV_CHUNK,
                           **KV_ENGINE)
     decode = ServeEngine(params, cfg, device=device, role="decode", kv_fetch=fetcher,
                          **KV_ENGINE)
-    mixed = ServeEngine(params, cfg, device=device, role="mixed", prefill_chunk=chunk,
+    mixed = ServeEngine(params, cfg, device=device, role="mixed", prefill_chunk=KV_CHUNK,
                         **KV_ENGINE)
     prefill.set_handoff_export(handoff)
     engines = (prefill, decode, mixed)
@@ -6070,17 +6201,17 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
         if len(exports) != 1 or exports[0] is None or n_handoffs != 1 or len(exported) != 1:
             fail(f"kv handoff: the prefill retirement exported {exports}, "
                  f"{n_handoffs} handoffs counted, {len(exported)} kv_chain_exported events")
-        volume = exports[0].volume_id
+        volume = exports[0]
         blob = int(staged[volume].array.numel())
         if volume != KV.chain_volume_id(chain) or exported[0].attrs["blocks"] != blocks:
             fail(f"kv handoff: exported {volume} of {exported[0].attrs['blocks']} blocks, "
                  f"want {KV.chain_volume_id(chain)} of {blocks}")
-        mixed_stream, _ = run(mixed, n_new)
+        mixed_stream, mixed_logits, _ = run_held(mixed)
         # The adoption: the decode engine never held the prefix.
         seq = last_seq()
         hits = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="hit").value
         peer_tokens = M.SERVE_PREFIX_PEER_TOKENS.value
-        decode_stream, stats = run(decode, n_new)
+        decode_stream, decode_logits, stats = run_held(decode)
         n_hits = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="hit").value - hits
         n_tokens = M.SERVE_PREFIX_PEER_TOKENS.value - peer_tokens
         fetched = since(seq, events.KV_PEER_FETCH)
@@ -6091,21 +6222,34 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
                  f"{stats['prefix_tokens']}; want 1, {blocks * page}, 1, {blocks * page}")
         sent = KV.unpack_chain(read(volume), fp)[1]
         adopted = decode.snapshot_chain(chain)
-        ref = mixed.snapshot_chain(chain)
+        ref_pages = mixed.snapshot_chain(chain)
         if not _chain_equal(adopted, sent):
             fail("kv handoff: the decode engine's adopted pages differ from the exported ones")
-        mixed_equal = _chain_equal(ref, sent)
-        held = hold_stream(cfg, params, adopted, ref, prompt, decode_stream, "adopted",
-                           device)
-        held["stream_equal_prefix"] = first_divergence(decode_stream, mixed_stream)
+        # The prefill and mixed engines ran the same chunked prefill.
+        if not _chain_equal(ref_pages, sent):
+            fail("kv handoff: the mixed engine's pages differ from the exported ones, which "
+                 "the same chunked prefill computed")
+        del adopted, ref_pages
+        streams = {"mixed": held(mixed_stream, mixed_logits, "the mixed engine's stream"),
+                   "adopted": held(decode_stream, decode_logits,
+                                   "the decode engine's stream after adoption")}
+        # Pages equal to the bit and the same 1-token tail prefill: the
+        # decode engine must compute the mixed engine's logits exactly (a
+        # wrong page, slot or tail offset would still pass the tolerance).
+        if decode_stream != mixed_stream or not torch.equal(decode_logits, mixed_logits):
+            fail(f"kv handoff: over pages equal to the bit, the decode engine's logits differ "
+                 f"from the mixed engine's by "
+                 f"{float((decode_logits - mixed_logits).abs().max()):.3e}; tokens equal for "
+                 f"{streams['adopted']['stream_equal_prefix']} of {KV_NEW}")
+        del mixed_logits, decode_logits
         say(f"  export: {blob} B blob ({blocks} blocks, volume {volume}); adoption: hit 1, "
             f"{n_tokens:.0f} peer tokens, adopted pages equal to the exported ones to the "
-            f"bit; the mixed engine's own pages equal too: {mixed_equal}")
-        say(f"  decode stream against the mixed engine's (prefill_chunk {chunk}): logits "
-            f"max|diff| / max|logit| {held['logit_rel_err']:.5f} (limit "
-            f"{SERVE_LOGIT_REL:.4f}), argmax agreement {held['argmax_agreement']:.4f}, "
-            f"tokens equal before the first divergence {held['stream_equal_prefix']} of "
-            f"{n_new}")
+            f"bit, and so are the mixed engine's own")
+        say(f"  each engine's own logits and tokens against a dense cached_forward over "
+            f"its stream (limit {SERVE_LOGIT_REL:.4f} x max|logit|): " + "; ".join(
+                f"{n}: logits {s['logit_rel_err']:.5f}, argmax {s['argmax_agreement']:.4f}, "
+                f"largest shortfall {s['max_shortfall']:.5f}" for n, s in streams.items())
+            + f"; the decode engine's tokens and logits equal the mixed engine's to the bit")
 
         # Planted defects: each fetch starts and fails; the engine recomputes.
         defects = {}
@@ -6118,7 +6262,7 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
             decode.evict_prefix_store()
             seq = last_seq()
             errors = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="error").value
-            stream, stats = run(decode, n_new)
+            stream, logits, stats = run_held(decode)
             fell = since(seq, events.KV_FETCH_FALLBACK)
             n_err = M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="error").value - errors
             if len(fell) != 1 or n_err != 1 or stats["prefix_tokens"] or since(
@@ -6127,39 +6271,63 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
                      f"fetch errors, prefix tokens {stats['prefix_tokens']}; want 1, 1, 0")
             if fell[0].attrs != {"matched_blocks": 0, "chain_blocks": blocks}:
                 fail(f"kv handoff: {name}: fallback event {fell[0].attrs}")
+            defects[name] = held(stream, logits, f"{name}: the recompute's stream")
+            del logits
             recomputed = decode.snapshot_chain(chain)
-            defects[name] = hold_stream(cfg, params, recomputed, ref, prompt, stream, name,
-                                        device)
-            defects[name]["stream_equal_prefix"] = first_divergence(stream, mixed_stream)
             defects[name]["pages_bit_equal"] = _chain_equal(recomputed, sent)
             del recomputed
         say("  planted defects fall back to a local recompute: " + "; ".join(
             f"{n}: logits {d['logit_rel_err']:.5f}, argmax {d['argmax_agreement']:.4f}, "
-            f"tokens equal {d['stream_equal_prefix']}, recomputed pages equal to the exported "
-            f"ones to the bit {d['pages_bit_equal']}" for n, d in defects.items()))
-        del adopted, ref, sent
+            f"largest shortfall {d['max_shortfall']:.5f}, equal to mixed for {d['stream_equal_prefix']} tokens, "
+            f"recomputed pages equal to the exported ones to the bit {d['pages_bit_equal']}"
+            for n, d in defects.items()))
+        # Why a recompute parts from the mixed stream: the reference's gap
+        # where they part, and the tail position computed both ways.
+        probe = tail_probe(cfg, params, prompt, sent, device)
+        del sent
+        for n, d in defects.items():
+            if d["parting"]:
+                say(f"  {n}: parts from mixed at token {d['parting']['position']}: dense "
+                    f"reference top-2 gap {d['parting']['top2_gap']:.5f} x max|logit|, "
+                    f"shortfall of the recompute's token {d['parting']['shortfall']:.5f}, "
+                    f"of the mixed engine's {d['parting']['other_shortfall']:.5f}")
+        say(f"  tail position {KV_PROMPT - 1}, one-shot bucket against the chain + a 1-token "
+            f"tail: full blocks equal to the bit {probe['blocks_bit_equal']}, tail K/V equal "
+            f"to the bit {probe['tail_kv_bit_equal']} (max|diff| "
+            f"{probe['tail_kv_max_abs_diff']:.6f}), first-token logits "
+            f"{probe['first_logits_rel_diff']:.6f} x max|logit|, first token equal "
+            f"{probe['first_token_equal']}")
+        refs.clear()
 
-        # Readings. The export's steps, through the same core and stage.
-        export_s = [KV.export_chain_to(prefill, chain, publish).seconds
-                    for _ in range(trials)]
+        # Readings, each step timed by wrapping it (synchronised).
+        steps: dict = {k: [] for k in ("snapshot", "pack", "publish", "export", "read",
+                                       "unpack", "stage_pages")}
+
+        def timing(name):
+            def wrap(real):
+                def timed(*a, **k):
+                    _sync(device)
+                    t0 = time.monotonic()
+                    out = real(*a, **k)
+                    _sync(device)
+                    steps[name].append(time.monotonic() - t0)
+                    return out
+                return timed
+            return wrap
+
+        # The export's steps, through the same core and stage.
+        export = timing("export")(KV.export_chain_to)
+        with patched(prefill, "snapshot_chain", timing("snapshot")), \
+                patched(KV, "pack_chain", timing("pack")):
+            for _ in range(KV_TRIALS):
+                export(prefill, chain, timing("publish")(publish))
         # The adoption's steps and the decode engine's first token, adopting
         # and recomputing the same prompt (the store evicted between trials).
-        stage_s: list = []
-
-        def timed(real):
-            def stage(*a):
-                _sync(device)
-                t0 = time.monotonic()
-                out = real(*a)
-                _sync(device)
-                stage_s.append(time.monotonic() - t0)
-                return out
-            return stage
-
-        decode.set_kv_fetch(fetcher)
-        adopt, first = [], {"adopt": [], "recompute": []}
-        with patched(E, "stage_pages", timed):
-            for _ in range(trials):
+        decode.set_kv_fetch(KV.ChainFetcher(timing("read")(read), fp))
+        growth, peaks, first = [], [], {"adopt": [], "recompute": []}
+        with patched(KV, "unpack_chain", timing("unpack")), \
+                patched(E, "stage_pages", timing("stage_pages")):
+            for _ in range(KV_TRIALS):
                 decode.evict_prefix_store()
                 _sync(device)
                 before = _allocated(device)
@@ -6168,13 +6336,15 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
                 _, stats = run(decode, 1)
                 _sync(device)
                 peak = torch.cuda.max_memory_allocated(device) if device != "cpu" else 0
-                adopt.append(dict(fetcher.last, growth=_allocated(device) - before,
-                                  peak_growth=max(peak - before, 0)))
+                growth.append(_allocated(device) - before)
+                peaks.append(max(peak - before, 0))
                 first["adopt"].append(stats["first_token_s"])
-        if len(stage_s) != trials:
-            fail(f"kv handoff: {len(stage_s)} stage_pages calls in {trials} adoptions")
+        if any(len(steps[k]) != KV_TRIALS for k in ("read", "unpack", "stage_pages")):
+            fail(f"kv handoff: {KV_TRIALS} adoptions made "
+                 f"{ {k: len(steps[k]) for k in ('read', 'unpack', 'stage_pages')} } reads, "
+                 f"unpacks and stage_pages calls")
         decode.set_kv_fetch(None)
-        for _ in range(trials):
+        for _ in range(KV_TRIALS):
             decode.evict_prefix_store()
             _, stats = run(decode, 1)
             if stats["prefix_tokens"]:
@@ -6197,38 +6367,37 @@ def phase_kv_handoff(cfg, params, device="cuda", prompt_len=KV_PROMPT, chunk=KV_
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
-    ms = {k: 1e3 * _mean([e[k] for e in export_s])
-          for k in ("snapshot", "pack", "write", "publish")}
-    ams = {"read": 1e3 * _mean([a["read_s"] for a in adopt]),
-           "unpack": 1e3 * _mean([a["unpack_s"] for a in adopt]),
-           "stage_pages": 1e3 * _mean(stage_s)}
+    ms = {k: 1e3 * _mean(v) for k, v in steps.items()}
+    ms["write"] = ms["export"] - ms["snapshot"] - ms["pack"] - ms["publish"]
     first_ms = {k: 1e3 * _mean(v) for k, v in first.items()}
     link = h2d_gbps() if device != "cpu" else None
     out = {
         "model": f"llama3-8b, {cfg.n_layers} layers, bf16" if cfg.n_layers == 32 else
-        f"{cfg.n_layers} layers", "prompt_tokens": prompt_len, "blocks": blocks,
-        "prefill_chunk": chunk, "engine": KV_ENGINE, "blob_bytes": blob,
+        f"{cfg.n_layers} layers", "prompt_tokens": KV_PROMPT, "blocks": blocks,
+        "prefill_chunk": KV_CHUNK, "engine": KV_ENGINE, "blob_bytes": blob,
         "kv_bytes": blocks * page * 2 * cfg.n_layers * cfg.kv_dim * cfg.dtype.itemsize,
         "volume": volume, "exports": 1, "peer_hits": 1, "peer_tokens": blocks * page,
-        "adopted_pages_bit_equal": True, "mixed_pages_bit_equal": mixed_equal,
-        "adopted": held, "defects": defects, "trials": trials,
-        "export_ms": ms, "stage_device_growth_bytes": stage_growth,
-        "adopt_ms": ams, "adopt_device_growth_bytes": [a["growth"] for a in adopt],
-        "adopt_peak_growth_bytes": [a["peak_growth"] for a in adopt],
+        "adopted_pages_bit_equal": True, "mixed_pages_bit_equal": True,
+        "adopted_logits_bit_equal_to_mixed": True,
+        "streams": streams, "defects": defects, "tail_probe": probe, "trials": KV_TRIALS,
+        "export_ms": {k: ms[k] for k in ("snapshot", "pack", "write", "publish", "export")},
+        "stage_device_growth_bytes": stage_growth,
+        "adopt_ms": {k: ms[k] for k in ("read", "unpack", "stage_pages")},
+        "adopt_device_growth_bytes": growth, "adopt_peak_growth_bytes": peaks,
         "first_token_ms": first_ms, "first_token_s_trials": first,
         "stage_pages_gbps": 2 * blocks * page * cfg.n_layers * cfg.kv_dim
-        * cfg.dtype.itemsize / (ams["stage_pages"] * 1e-3) / 1e9,
+        * cfg.dtype.itemsize / (ms["stage_pages"] * 1e-3) / 1e9,
         "pinned_h2d_gbps": link, "pools_empty": True, "phase_s": time.monotonic() - t_phase}
-    say(f"  export, mean of {trials}: snapshot (D2H, page by page) {ms['snapshot']:.1f} ms, "
-        f"pack {ms['pack']:.1f} ms, file write {ms['write']:.1f} ms, stage through "
-        f"CUDABackend {ms['publish']:.1f} ms; each stage grew the device by "
-        f"{stage_growth} B")
-    say(f"  adoption, mean of {trials}: volume read-back {ams['read']:.1f} ms, unpack "
-        f"{ams['unpack']:.2f} ms, stage_pages {ams['stage_pages']:.1f} ms "
+    say(f"  export, mean of {KV_TRIALS}: snapshot (D2H, page by page) {ms['snapshot']:.1f} "
+        f"ms, pack {ms['pack']:.1f} ms, file write and the rest {ms['write']:.1f} ms, stage "
+        f"through CUDABackend {ms['publish']:.1f} ms (all {ms['export']:.1f} ms); each stage "
+        f"grew the device by {stage_growth} B")
+    say(f"  adoption, mean of {KV_TRIALS}: volume read-back {ms['read']:.1f} ms, unpack "
+        f"{ms['unpack']:.2f} ms, stage_pages {ms['stage_pages']:.1f} ms "
         f"({out['stage_pages_gbps']:.1f} GB/s of K/V; a pinned H2D alone "
-        f"{link if link is None else round(link, 1)} GB/s); device growth "
-        f"{out['adopt_device_growth_bytes']} B, peak growth {out['adopt_peak_growth_bytes']} B")
-    say(f"  decode engine's first token, mean of {trials}: with adoption "
+        f"{link if link is None else round(link, 1)} GB/s); device growth {growth} B, peak "
+        f"growth {peaks} B")
+    say(f"  decode engine's first token, mean of {KV_TRIALS}: with adoption "
         f"{first_ms['adopt']:.1f} ms, local recompute {first_ms['recompute']:.1f} ms; pools "
         f"empty after drain; phase {out['phase_s']:.1f} s")
     return out

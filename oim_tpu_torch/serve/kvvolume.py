@@ -26,18 +26,16 @@ the packed file to a ``publish(volume_id, path, total_bytes)`` callable, and
 ``ChainFetcher`` reads volumes through a ``read(volume_id)`` callable.
 ``export_chain`` and ``PeerPrefixFetcher`` are those cores over a
 ``Feeder``. bf16 blocks travel as their ``uint16`` bits in the port
-(``serve/kvtier.py``); the manifest names them "bfloat16", the pool's dtype,
-as JAX's does.
+(``serve/kvtier.py``); the export names them "bfloat16", the pool's dtype,
+in the manifest, as JAX's does.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import struct
 import tempfile
-import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -59,12 +57,11 @@ VOLUME_PREFIX = "kvchain"
 
 
 def _dtype_name(dtype) -> str:
-    """The manifest's name of a numpy or torch dtype: "bfloat16" for torch's
-    bf16 and for numpy's raw 2-byte void view of it, as JAX names them."""
+    """The manifest's name of a numpy or torch dtype ("bfloat16" for
+    torch's bf16, as JAX names it)."""
     if isinstance(dtype, torch.dtype):
         return dtype_name(dtype)
-    name = np.dtype(dtype).name
-    return "bfloat16" if name == "void16" else name
+    return np.dtype(dtype).name
 
 
 def _bits_dtype(name: str) -> np.dtype:
@@ -180,46 +177,29 @@ def chain_request(volume_id: str, path: str, total_bytes: int):
     return weights_request(volume_id, path, total_bytes)
 
 
-@dataclasses.dataclass
-class ChainExport:
-    """One published chain: its volume id, blocks, the bytes the publish
-    reported, and the seconds of each step (snapshot, pack, write,
-    publish)."""
-
-    volume_id: str
-    blocks: int
-    bytes: int
-    seconds: dict
-
-
 def export_chain_to(engine, hashes: Sequence[str],
                     publish: Callable[[str, str, int], int],
-                    timeout: float = 60.0) -> ChainExport | None:
+                    timeout: float = 60.0) -> str | None:
     """Export one cached chain from ``engine``: snapshot (on the engine
     thread, through its command queue), pack, write a temporary file and
     ``publish(volume_id, path, total_bytes)``, which returns the bytes
-    published. The grpc-free core of ``export_chain``. None when the chain
-    is no longer fully cached (a best-effort export never races retirement
-    into a partial blob)."""
+    published. The grpc-free core of ``export_chain``. Returns the volume
+    id, or None when the chain is no longer fully cached (a best-effort
+    export never races retirement into a partial blob)."""
     hashes = list(hashes)
-    t0 = time.monotonic()
     blocks = engine.snapshot_chain(hashes, timeout=timeout)
     if not blocks:
         return None
-    t1 = time.monotonic()
     fingerprint = config_fingerprint(engine.cfg, engine.page_tokens)
     blob = pack_chain(hashes, blocks, engine.prefix_block, fingerprint,
                       dtype=fingerprint["dtype"])
     del blocks
     volume_id = chain_volume_id(hashes)
-    t2 = time.monotonic()
     fd, path = tempfile.mkstemp(prefix="oim-kvchain-", suffix=".bin")
     try:
         with os.fdopen(fd, "wb") as f:
             f.write(blob)
-        t3 = time.monotonic()
         published = int(publish(volume_id, path, len(blob)))
-        t4 = time.monotonic()
     finally:
         try:
             os.unlink(path)
@@ -231,8 +211,7 @@ def export_chain_to(engine, hashes: Sequence[str],
                 bytes=published)
     from_context().info("exported KV chain volume", volume=volume_id,
                         blocks=len(hashes), bytes=published)
-    return ChainExport(volume_id, len(hashes), published, {
-        "snapshot": t1 - t0, "pack": t2 - t1, "write": t3 - t2, "publish": t4 - t3})
+    return volume_id
 
 
 def export_chain(engine, feeder, hashes: Sequence[str],
@@ -245,8 +224,7 @@ def export_chain(engine, feeder, hashes: Sequence[str],
         return feeder.publish(chain_request(volume_id, path, total_bytes),
                               timeout=timeout).bytes
 
-    done = export_chain_to(engine, hashes, publish, timeout=timeout)
-    return None if done is None else done.volume_id
+    return export_chain_to(engine, hashes, publish, timeout=timeout)
 
 
 def volume_bytes(array) -> np.ndarray:
@@ -275,8 +253,7 @@ class ChainFetcher:
     Contract with the engine: return the consecutive blocks extending the
     local match (possibly []), or None after a fetch that STARTED and
     failed; the engine emits the fallback event for None and recomputes
-    either way. ``last`` holds the seconds of the latest hit's read and
-    unpack and its bytes."""
+    either way."""
 
     def __init__(self, read: Callable[[str], np.ndarray | None], fingerprint: dict,
                  known=None, scan: bool = True):
@@ -284,7 +261,6 @@ class ChainFetcher:
         self.fingerprint = fingerprint
         self.known = known
         self.scan = scan
-        self.last: dict = {}
 
     def _candidate_depths(self, chain: list[str], m: int) -> list[int]:
         depths = list(range(len(chain), m, -1))
@@ -301,18 +277,14 @@ class ChainFetcher:
         try:
             for j in self._candidate_depths(chain, m):
                 volume_id = chain_volume_id(chain[:j])
-                t0 = time.monotonic()
                 raw = self.read(volume_id)
                 if raw is None:
                     continue
-                t1 = time.monotonic()
                 hashes, blocks, _ = unpack_chain(raw, self.fingerprint)
                 if hashes != chain[:j]:
                     raise ValueError(
                         f"volume {volume_id} does not hold the chain it is "
                         f"addressed by")
-                self.last = {"read_s": t1 - t0, "unpack_s": time.monotonic() - t1,
-                             "bytes": int(np.asarray(raw).nbytes)}
                 M.SERVE_PREFIX_PEER_FETCHES.labels(outcome="hit").inc()
                 return [(chain[i], blocks[i]) for i in range(m, j)]
         except Exception as err:  # noqa: BLE001 - any defect => recompute

@@ -279,7 +279,7 @@ def test_a_sharded_replica_exports_and_adopts_whole_pages(model):
     blobs = []
     whole.set_handoff_export(lambda eng, hashes: tkv.export_chain(eng, feeder, hashes))
     sharded.set_handoff_export(lambda eng, hashes: tkv.export_chain_to(
-        eng, hashes, lambda vid, path, n: blobs.append(open(path, "rb").read()) or n).volume_id)
+        eng, hashes, lambda vid, path, n: blobs.append(open(path, "rb").read()) or n))
     try:
         for eng in (whole, sharded):
             eng.submit(PROMPT, max_new=1).result(timeout=120)
@@ -332,7 +332,7 @@ def test_a_port_export_is_adopted_by_a_jax_decode_engine(model):
 
     prefill = port_engine(model, role="prefill", prefill_chunk=16)
     prefill.set_handoff_export(lambda eng, hashes: tkv.export_chain_to(
-        eng, hashes, publish).volume_id)
+        eng, hashes, publish))
     decode = jax_engine(model, role="decode", kv_fetch=jkv.PeerPrefixFetcher(
         jfeeder, jkv.config_fingerprint(model[2], BLOCK)))
     try:

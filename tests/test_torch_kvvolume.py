@@ -90,7 +90,6 @@ def test_pack_chain_bytes_equal_jax(dtype):
         "bfloat16"
     # The port's own bf16 blocks are uint16 bits, named by the pool's dtype.
     assert tkv.pack_chain(hashes, _bits(blocks), 4, fp, dtype="bfloat16") == want
-    assert tkv.pack_chain(hashes, raw, 4, fp) == want
     assert tkv.pack_chain(hashes, blocks, 4, fp) == want
 
 

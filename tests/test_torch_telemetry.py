@@ -191,10 +191,7 @@ def test_metrics_snapshot_equals_jax_for_the_same_workload():
             out[key] = (tuple(sb["le"]), counts[-1])
         req = b.get("counters", {}).get("requests_total", {})
         prev = a.get("counters", {}).get("requests_total", {})
-        # The outcomes this workload moved: a label an earlier test in this
-        # process created in one package only reads a delta of 0.
-        out["requests"] = {k: v - prev.get(k, 0) for k, v in req.items()
-                           if v != prev.get(k, 0)}
+        out["requests"] = {k: v - prev.get(k, 0) for k, v in req.items()}
         return out
 
     jgrow, tgrow = grown(before[0], after[0]), grown(before[1], after[1])
