@@ -413,16 +413,43 @@ Phases, in order; any failure exits nonzero:
    first token with adoption against a local recompute of the same
    prompt (the store evicted between trials); the device growth of each
    stage and adoption; and the ``kv_handoff`` JSON line.
-18. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+18. ranks assembled from the registry, fed by the token stream. (b) A
+   webdataset volume of REG_SHARDS tars (~64 MiB each) of ``.bin``
+   members of SEQ + 1 seeded int32 tokens in llama3-8b's vocabulary, the
+   last shard one row short (an odd row count, so a batch straddles the
+   wrap) and ending in a REG_TAIL-token member, staged through
+   ``CUDABackend``: its batches streamed a shard at a time
+   (``feeds.wds_token_stream`` over ``read_window``, the grpc-free core
+   of the feeder's streaming feed) must equal the whole volume's
+   ``_cycle_token_batches`` to the bit for one epoch and REG_PAST_WRAP
+   batches past the wrap, and a shard grown since staging must stop the
+   stream with JAX's "shards changed since staging?" error. (a) Two
+   spawned processes share the card, one a controller's trainer each:
+   from one registry snapshot (REG_ENTRIES, a dict as GetValues returns
+   it: host-1 at 0,0,0 and host-0 at 1,0,0) each derives its rank with
+   ``bootstrap.derive_process_layout`` and joins through
+   ``join_process_group`` at tcp://127.0.0.1:<free port> (gloo), then
+   takes REG_STEPS dp steps at phase 5's width, one row a rank, on the
+   stream's first batches. Both must agree on the coordinator and world,
+   host-1 must be rank 0, each rank must train its row of each batch,
+   and the two processes spawned again with a layout sorted by id alone
+   (planted) must fail that row check after one step; the
+   losses and grad norms must lie within PAR_LOSS_REL / PAR_NORM_REL of
+   one rank's steps on the whole batches, and K1-K3 must launch LAYERS x
+   REG_STEPS times a rank on wgmma. It prints the join time, the stage
+   and stream rates and step_s, and the ``registry_stream`` JSON line.
+19. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
    card's path needs neither); the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
    15), the ``serve_daemon`` line (phase 16), the ``kv_handoff`` line
-   (phase 17) and the kernels line (JSON),
+   (phase 17), the ``registry_stream`` line (phase 18) and the kernels
+   line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``parallel_launches`` (phase 15's, by path and rank),
+   ``registry_launches`` (phase 18's, by rank),
    ``parallel_max_abs_err`` (phase 15's sequence-parallel attention
    against the plain versions on one rank: K1 its output, K2 dk and dv,
    K3 dq),
@@ -3958,49 +3985,62 @@ def _rank_entry(fn, rank: int, world: int, backend: str, store: str, device, que
         queue.put(("error", rank, traceback.format_exc()))
 
 
-def run_ranks(fn, world: int, backend: str, timeout: float, device) -> list:
-    """``fn`` on ``world`` spawned ranks of one group, every rank on
-    ``device`` (None: rank r on ``cuda:r``); each rank's result, in rank
-    order. A rank that fails or outlives ``timeout`` fails the run, every
-    rank stopped first."""
+def spawn_collect(target, arg_tuples: list, timeout: float, what: str) -> list:
+    """``target(*args, queue)`` in a spawned process for each of
+    ``arg_tuples``; each puts ("ok", i, result) or ("error", i, traceback)
+    on the queue, i its index. The results in order. A process that fails,
+    exits without a result or outlives ``timeout`` fails the run, every
+    process stopped first."""
     import multiprocessing as mp
     import queue as queue_mod
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    store = os.path.join(tempfile.mkdtemp(prefix="oim-ranks-"), "store")
-    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, backend, store, device, queue))
-             for r in range(world)]
+    procs = [ctx.Process(target=target, args=(*args, queue)) for args in arg_tuples]
     for p in procs:
         p.start()
+    n = len(procs)
     results, deadline, err = {}, time.monotonic() + timeout, None
-    while len(results) < world and err is None:
+    while len(results) < n and err is None:
         try:
-            status, rank, value = queue.get(timeout=1.0)
+            status, i, value = queue.get(timeout=1.0)
         except queue_mod.Empty:
-            waiting = sorted(set(range(world)) - set(results))
-            dead = [r for r in waiting if procs[r].exitcode is not None]
+            waiting = sorted(set(range(n)) - set(results))
+            dead = [i for i in waiting if procs[i].exitcode is not None]
             if dead:
-                err = f"ranks {dead} exited {[procs[r].exitcode for r in dead]} with no result"
+                err = f"{dead} exited {[procs[i].exitcode for i in dead]} with no result"
             elif time.monotonic() > deadline:
-                err = f"ranks {waiting} still running after {timeout} s"
+                err = f"{waiting} still running after {timeout} s"
             continue
         if status == "error":
-            err = f"rank {rank} failed:\n{value}"
+            err = f"{i} failed:\n{value}"
         else:
-            results[rank] = value
+            results[i] = value
     for p in procs:
         p.join(timeout=30 if err is None else 1)
         if p.is_alive():
             p.kill()
             p.join()
-    shutil.rmtree(os.path.dirname(store), ignore_errors=True)
     if err is not None:
-        fail(f"multi-rank ({backend}, world {world}): {err}")
+        fail(f"{what}: {err}")
     bad = [p.exitcode for p in procs if p.exitcode != 0]
     if bad:
-        fail(f"multi-rank ({backend}, world {world}): ranks exited {bad}")
-    return [results[r] for r in range(world)]
+        fail(f"{what}: processes exited {bad}")
+    return [results[i] for i in range(n)]
+
+
+def run_ranks(fn, world: int, backend: str, timeout: float, device) -> list:
+    """``fn`` on ``world`` spawned ranks of one group, every rank on
+    ``device`` (None: rank r on ``cuda:r``); each rank's result, in rank
+    order. A rank that fails or outlives ``timeout`` fails the run, every
+    rank stopped first."""
+    store = os.path.join(tempfile.mkdtemp(prefix="oim-ranks-"), "store")
+    try:
+        return spawn_collect(_rank_entry, [(fn, r, world, backend, store, device)
+                                           for r in range(world)],
+                             timeout, f"multi-rank ({backend}, world {world}), ranks")
+    finally:
+        shutil.rmtree(os.path.dirname(store), ignore_errors=True)
 
 
 def check_collectives(rank: int, world: int, device: str) -> dict:
@@ -6403,6 +6443,338 @@ def phase_kv_handoff(cfg, params, device="cuda") -> dict:
     return out
 
 
+# Phase 18: ranks assembled from the registry, fed by the token stream.
+# (b) REG_SHARDS webdataset tars of ~REG_SHARD_BYTES of ``.bin`` members,
+# SEQ + 1 seeded int32 tokens each in llama3-8b's vocabulary, the last
+# shard one row short (an odd row count: a batch of BATCH straddles the
+# epoch's end) and ending in a REG_TAIL-token member (a partial row the
+# wrap drops), staged through CUDABackend and streamed a shard at a time
+# (``feeds.wds_token_stream`` over ``backend.read_window``) against the
+# whole volume's ``_cycle_token_batches``, to the bit, one epoch and
+# REG_PAST_WRAP batches more. (a) Two processes share the card, each a
+# controller's trainer: they derive their ranks from one registry
+# snapshot whose coordinate order is the reverse of its id order
+# (REG_ENTRIES; no registry runs on the card, so the rows are a dict as
+# GetValues returns them), join over gloo at tcp://127.0.0.1:<free port>
+# and take REG_STEPS dp steps at phase 5's width, one row a rank, on the
+# stream's first batches.
+REG_SHARDS = 4
+REG_SHARD_BYTES = 64 << 20
+REG_TAIL = 100
+REG_PAST_WRAP = 3
+REG_STEPS = 2
+REG_ENTRIES = {"host-0/address": "127.0.0.1:7000", "host-0/mesh": "1,0,0",
+               "host-1/address": "127.0.0.1:7001", "host-1/mesh": "0,0,0",
+               "telemetry/host-0.trainer": "127.0.0.1:9000|trainer"}
+# Written down from REG_ENTRIES' coordinates, not derived: host-1 sits at
+# 0,0,0 and is rank 0.
+REG_ORDER = {"host-1": 0, "host-0": 1}
+
+
+def write_wds_token_shards(tmp: str, vocab: int, seed: int = 18) -> list[str]:
+    """REG_SHARDS webdataset tars of SEQ + 1-token ``.bin`` members (the
+    last shard one row short and ending in a REG_TAIL-token member),
+    synced to the disk."""
+    rng = np.random.default_rng(seed)
+    member = 512 + -(-(SEQ + 1) * 4 // 512) * 512
+    per_shard = REG_SHARD_BYTES // member
+    paths = []
+    for i in range(REG_SHARDS):
+        last = i == REG_SHARDS - 1
+        toks = rng.integers(0, vocab, (per_shard - last, SEQ + 1), dtype=np.int32)
+        rows = [r.tobytes() for r in toks]
+        if last:
+            rows.append(rng.integers(0, vocab, REG_TAIL, dtype=np.int32).tobytes())
+        path = os.path.join(tmp, f"stream-{i:06d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for j, payload in enumerate(rows):
+                info = tarfile.TarInfo(f"{i:06d}/{j:08d}.bin")
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+        fsync_file(path)
+        paths.append(path)
+    return paths
+
+
+def planted_layout(entries: dict, controller_id: str, port: int) -> tuple[str, int, int]:
+    """The planted fault of (a): hosts ranked by id alone, coordinates
+    ignored."""
+    hosts = sorted(p.split("/")[0] for p in entries if p.endswith("/address"))
+    return f"127.0.0.1:{port}", len(hosts), hosts.index(controller_id)
+
+
+def row_errors(rows_by_id: dict, batches: np.ndarray) -> list[str]:
+    """The rows each controller's rank trained, against the rows of each
+    global batch its place in REG_ORDER gives it (dp over 2: row r)."""
+    errs = []
+    for cid, rows in rows_by_id.items():
+        want = batches[:, REG_ORDER[cid]]
+        if np.asarray(rows).shape != want.shape or not np.array_equal(rows, want):
+            errs.append(f"{cid} trained rows other than row {REG_ORDER[cid]} of each batch")
+    return errs
+
+
+def _registry_rank(i: int, controller_id: str, port: int, batches_path: str, device: str,
+                   planted: bool, queue) -> None:
+    """A spawned process of phase 18 (a): its rank from REG_ENTRIES (from
+    ``planted_layout`` when ``planted``), the process group joined
+    through ``bootstrap.join_process_group`` (two ranks on one card:
+    gloo), a dp step on each saved batch; ("ok", i, result) or ("error",
+    i, traceback) on the queue."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from oim_tpu_torch import kernels
+        from oim_tpu_torch.cli import oim_trainer
+        from oim_tpu_torch.parallel.bootstrap import derive_process_layout, join_process_group
+        from oim_tpu_torch.train.trainer import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        layout = (planted_layout if planted else derive_process_layout)(
+            REG_ENTRIES, controller_id, port)
+        coordinator, n, pid = layout
+        t0 = time.monotonic()
+        join_process_group(coordinator, n, pid, device, local_ranks=2)
+        join_s = time.monotonic() - t0
+        try:
+            batches = np.load(batches_path)
+            args = oim_trainer.parse_args(run_argv(["--rules", "dp", "--mesh", f"data={n}"],
+                                                   BATCH, SEQ, device, len(batches)))
+            trainer = Trainer(oim_trainer.config_from_args(args), device=device,
+                              axes=oim_trainer.parse_mesh(args.mesh))
+            rows = []
+            place = trainer.place_batch
+
+            def seen(batch):
+                got = place(batch)
+                rows.append(got["tokens"].cpu().numpy())
+                return got
+
+            trainer.place_batch = seen
+            kernels.reset_launches()
+            trainer.run(steps=len(batches), data=iter({"tokens": b} for b in batches))
+            _sync(device)
+            result = {"layout": list(layout), "join_s": join_s, "history": trainer.history,
+                      "rows": np.concatenate(rows), "launches": dict(kernels.LAUNCHES),
+                      "routes": {k: dict(r) for k, r in kernels.ROUTES.items()},
+                      "backend": trainer.mesh.axis("data").backend,
+                      "world": dist.get_world_size(), "rank": dist.get_rank()}
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        queue.put(("ok", i, result))
+    except BaseException:
+        queue.put(("error", i, traceback.format_exc()))
+
+
+def run_registry_ranks(port: int, batches_path: str, device: str, timeout: float,
+                       planted: bool = False) -> dict:
+    """(a)'s two processes, host-0 and host-1, spawned in that order;
+    their results by controller id."""
+    ids = sorted(REG_ORDER)
+    got = spawn_collect(_registry_rank, [(i, cid, port, batches_path, device, planted)
+                                         for i, cid in enumerate(ids)],
+                        timeout, "registry-assembled ranks, processes"
+                        + (" (planted id-order layout)" if planted else ""))
+    return dict(zip(ids, got))
+
+
+def phase_registry_stream(device: str = "cuda:0") -> dict:
+    """Phase 18: (b) the shard-granular token stream over a staged
+    webdataset volume, then (a) two ranks assembled from a registry
+    snapshot, trained on the stream's batches."""
+    import gc
+    import socket
+
+    import torch
+
+    from oim_tpu_torch.cli import oim_trainer
+    from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
+    from oim_tpu_torch.controller.backend import read_window
+    from oim_tpu_torch.data import webdataset
+    from oim_tpu_torch.data.feeds import _cycle_token_batches, _wds_tokens, wds_token_stream
+    from oim_tpu_torch.parallel.bootstrap import derive_process_layout
+    from oim_tpu_torch.spec import ArraySpec, WebDatasetParams
+    from oim_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="oim-registry-stream-")
+    try:
+        # (b) the token stream on the card
+        cfg = oim_trainer.config_from_args(oim_trainer.parse_args(main_path_argv()))
+        t0 = time.monotonic()
+        paths = write_wds_token_shards(tmp, cfg.model_config().vocab)
+        write_s = time.monotonic() - t0
+        sizes = webdataset.shard_sizes(paths)
+        backend = CUDABackend(device=device, chunk_bytes=FED_CHUNK)
+        vol = StagedVolume("wds-stream", b"", ArraySpec())
+        t1 = time.monotonic()
+        backend.stage(vol, "webdataset", WebDatasetParams(tuple(paths)))
+        vol.wait()
+        stage_s = time.monotonic() - t1
+        if vol.state != StageState.READY:
+            fail(f"registry stream: the webdataset stage ended {vol.state}: {vol.error}")
+        arr = vol.array
+        total = sum(sizes)
+        t1 = time.monotonic()
+        whole = _wds_tokens(read_window(arr, 0, 0)[0])
+        whole_s = time.monotonic() - t1
+        rows = whole.size // (SEQ + 1)
+        n_cmp = -(-rows // BATCH) + REG_PAST_WRAP
+        if rows % BATCH == 0 or whole.size % (SEQ + 1) != REG_TAIL:
+            fail(f"registry stream: {rows} rows and a tail of {whole.size % (SEQ + 1)} tokens: "
+                 f"the volume must straddle its wrap and drop a {REG_TAIL}-token tail")
+        cycled = _cycle_token_batches(whole, cfg, "wds-stream")
+        fetched = {"bytes": 0, "s": 0.0}
+
+        def fetch(offset, length):
+            t = time.monotonic()
+            got = read_window(arr, offset, length)
+            fetched["s"] += time.monotonic() - t
+            fetched["bytes"] += got[0].size
+            return got
+
+        stream = wds_token_stream(fetch, sizes, SEQ + 1, BATCH, "bin", "wds-stream")
+        first, mismatch = [], None
+        t1 = time.monotonic()
+        for i in range(n_cmp):
+            a, b = next(stream), next(cycled)["tokens"]
+            if a.dtype != np.int32 or not np.array_equal(a, b):
+                mismatch = i
+                break
+            if i < REG_STEPS:
+                first.append(a.copy())
+        stream_s = time.monotonic() - t1
+        if mismatch is not None:
+            fail(f"registry stream: streamed batch {mismatch} differs from the whole volume's")
+        # a shard that grew since staging stops the feed
+        with open(paths[1], "ab") as f:
+            f.write(b"\0" * 512)
+        try:
+            next(wds_token_stream(lambda o, n: read_window(arr, o, n),
+                                  webdataset.shard_sizes(paths), SEQ + 1, BATCH, "bin",
+                                  "wds-stream"))
+            fail("registry stream: a shard changed since staging did not stop the feed")
+        except SystemExit as e:
+            changed = str(e)
+        if "shards changed since staging?" not in changed:
+            fail(f"registry stream: a changed shard gave {changed!r}")
+        out["stream"] = {
+            "shards": REG_SHARDS, "volume_bytes": total, "rows": rows,
+            "write_s": write_s,
+            "stage_s": stage_s, "stage_gbps": total / stage_s / 1e9,
+            "whole_parse_s": whole_s, "batches_compared": n_cmp,
+            "stream_s": stream_s, "stream_gbps": fetched["bytes"] / stream_s / 1e9,
+            "fetch_gbps": fetched["bytes"] / fetched["s"] / 1e9,
+            "bytes_streamed": fetched["bytes"], "changed_shard_error": changed}
+        say(f"  (b) {REG_SHARDS} shards, {total} B, {rows} rows + a {REG_TAIL}-token tail; "
+            f"staged in {stage_s:.3f} s ({total / stage_s / 1e9:.2f} GB/s); {n_cmp} streamed "
+            f"batches equal to the whole volume's to the bit across the wrap; the stream "
+            f"{fetched['bytes'] / stream_s / 1e9:.3f} GB/s with parsing, read_window "
+            f"{fetched['bytes'] / fetched['s'] / 1e9:.3f} GB/s; a grown shard stops it")
+        backend.unstage(vol)
+        del arr, vol, backend
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        batches = np.stack(first)
+        batches_path = os.path.join(tmp, "batches.npy")
+        np.save(batches_path, batches)
+        # (a) the one-rank reference on the whole batches
+        t1 = time.monotonic()
+        args = oim_trainer.parse_args(run_argv([], BATCH, SEQ, device, REG_STEPS))
+        ref = Trainer(oim_trainer.config_from_args(args), device=device)
+        ref.run(steps=REG_STEPS, data=iter({"tokens": b} for b in batches))
+        ref_hist = ref.history
+        ref_s = time.monotonic() - t1
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a) the two ranks
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        layouts = {cid: derive_process_layout(REG_ENTRIES, cid, port) for cid in REG_ORDER}
+        t1 = time.monotonic()
+        ranks = run_registry_ranks(port, batches_path, device, timeout=300)
+        ranks_s = time.monotonic() - t1
+        # the planted fault: the same ranks laid out by id alone, one step
+        np.save(batches_path, batches[:1])
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            planted_port = s.getsockname()[1]
+        t1 = time.monotonic()
+        planted_ranks = run_registry_ranks(planted_port, batches_path, device, timeout=300,
+                                     planted=True)
+        planted_s = time.monotonic() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    coordinator = f"127.0.0.1:{port}"
+    for cid, res in ranks.items():
+        want = [coordinator, 2, REG_ORDER[cid]]
+        if res["layout"] != want or list(layouts[cid]) != want:
+            fail(f"registry ranks: {cid} derived {res['layout']} (here {layouts[cid]}), "
+                 f"want {want}")
+        if (res["rank"], res["world"]) != (REG_ORDER[cid], 2) or res["backend"] != "gloo":
+            fail(f"registry ranks: {cid} joined as rank {res['rank']} of {res['world']} "
+                 f"over {res['backend']}")
+    errs = row_errors({cid: r["rows"] for cid, r in ranks.items()}, batches)
+    if errs:
+        fail(f"registry ranks: {errs}")
+    for cid, res in planted_ranks.items():
+        if (res["rank"], list(res["layout"])) != (
+                1 - REG_ORDER[cid], list(planted_layout(REG_ENTRIES, cid, planted_port))):
+            fail(f"registry ranks: the planted run's {cid} joined as rank {res['rank']} "
+                 f"from {res['layout']}")
+    caught = row_errors({cid: r["rows"] for cid, r in planted_ranks.items()},
+                        batches[:1])
+    if not caught:
+        fail("registry ranks: a run laid out by id alone passed the row check")
+    hists = [ranks[cid]["history"] for cid in sorted(ranks, key=REG_ORDER.get)]
+    losses = [[h["loss"] for h in hist] for hist in hists]
+    loss_rel, norm_rel = deviation(hists, ref_hist)
+    if any(len(ls) != REG_STEPS or not all(math.isfinite(x) for x in ls) for ls in losses):
+        fail(f"registry ranks: losses not finite or missing: {losses}")
+    if loss_rel > PAR_LOSS_REL or norm_rel > PAR_NORM_REL:
+        fail(f"registry ranks: differ from one rank: loss rel {loss_rel}, "
+             f"grad_norm rel {norm_rel}")
+    want_launch = LAYERS * REG_STEPS
+    for cid, res in ranks.items():
+        for n, _ in KERNELS:
+            if res["launches"][n] != want_launch or res["routes"][n]["wgmma"] != want_launch:
+                fail(f"registry ranks, {cid}: {n} launched {res['launches'][n]} "
+                     f"({res['routes'][n]}), want {want_launch} on wgmma")
+    step_s = {cid: sum(h["step_s"] for h in r["history"][1:]) / max(1, len(r["history"]) - 1)
+              for cid, r in ranks.items()}
+    join_s = {cid: r["join_s"] for cid, r in ranks.items()}
+    say(f"  (a) ranks from the registry rows: host-1 (0,0,0) rank 0, host-0 (1,0,0) rank 1, "
+        f"coordinator {coordinator}, gloo; join {join_s} s; each rank trained its row of "
+        f"each batch; a run of the ranks laid out by id alone fails the row check "
+        f"({caught[0]})")
+    say(f"    losses {losses[0]}; one rank {[h['loss'] for h in ref_hist]}; loss rel "
+        f"{loss_rel:.3e} (tol {PAR_LOSS_REL}), grad_norm rel {norm_rel:.3e} (tol "
+        f"{PAR_NORM_REL}); step_s (step 2) {step_s}; K1-K3 launches by rank "
+        f"{ {cid: r['launches'] for cid, r in ranks.items()} }")
+    out["ranks"] = {
+        "coordinator_port": port, "layouts": {cid: r["layout"] for cid, r in ranks.items()},
+        "join_s": join_s, "step_s": step_s, "losses": losses,
+        "reference_losses": [h["loss"] for h in ref_hist], "loss_rel": loss_rel,
+        "grad_norm_rel": norm_rel, "planted_caught": caught,
+        "launches_by_rank": [ranks[cid]["launches"] for cid in sorted(ranks, key=REG_ORDER.get)],
+        "reference_s": ref_s, "ranks_s": ranks_s, "planted_s": planted_s}
+    out["phase_s"] = time.monotonic() - t_phase
+    say(f"  phase 18: {out['phase_s']:.1f} s (reference {ref_s:.1f} s, ranks {ranks_s:.1f} s, "
+        f"planted run {planted_s:.1f} s)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6453,7 +6825,8 @@ def main() -> int:
         "MoE flagship (phase 11)": (BATCH, SEQ, SEQ, moe_cfg.n_heads, moe_cfg.n_kv_heads,
                                     moe_cfg.head_dim, True, bf16, 2),
         # Phase 15: a ring's or a zigzag's blocks carry the lse cotangent.
-        "phase 15 ring and zigzag diagonal; dp, fsdp a rank; a pipe microbatch":
+        "phase 15 ring and zigzag diagonal; dp, fsdp a rank; a pipe microbatch; "
+        "phase 18's dp row a rank":
             (1, t_rank, t_rank, h, hkv, d, True, bf16, 10, True),
         "phase 15 ring, a full block": (1, t_rank, t_rank, h, hkv, d, False, bf16, 11, True),
         "phase 15 zigzag, q against the held low half":
@@ -6589,7 +6962,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    say("== 18. summary")
+    say("== 18. ranks assembled from the registry, fed by the shard-granular token "
+        "stream of a staged webdataset volume")
+    registry = phase_registry_stream()
+    for rec in records:
+        rec["registry_launches"] = [lr[rec["name"]]
+                                    for lr in registry["ranks"]["launches_by_rank"]]
+
+    say("== 19. summary")
     wire = sorted(m for m in sys.modules
                   if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
@@ -6619,6 +6999,7 @@ def main() -> int:
     say(json.dumps({"parallel": par, "card": card}))
     say(json.dumps({"serve_daemon": daemon, "card": card}))
     say(json.dumps({"kv_handoff": handoff, "card": card}))
+    say(json.dumps({"registry_stream": registry, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,14 +33,20 @@ not orbax's: the JAX trainer cannot resume from them, nor this one from
 the JAX trainer's.
 
 Fed through the control plane: ``--registry`` with ``--controller-id``
-publishes ``--volume`` (``--volume-file``, or the controller's malloc
-buffer of that name) through the feeder, MapVolume through the registry's
-proxy to the controller, and trains on it: in windows of
-``--feed-window-bytes`` (64 MiB by default; ``--shuffle`` then runs the
-records through a reservoir of ``--shuffle-buffer-records``), or read
-whole with ``--feed-window-bytes 0`` (``--shuffle`` permutes each epoch,
-and ``--checkpoint-dir`` resumes by seeking the feed). A file volume is
-staged by the controller, so its path is the controller's:
+publishes ``--volume`` through the feeder, MapVolume through the
+registry's proxy to the controller, and trains on it: a file
+(``--volume-file``), webdataset shards (``--volume-webdataset``: int32
+tokens under ``--wds-ext`` for a llama model, jpg/cls samples for
+ResNet), labeled TFRecords (``--volume-tfrecord``, ResNet; ``--label-offset
+-1`` for 1-based labels), or the controller's malloc buffer of that name.
+It trains in windows of ``--feed-window-bytes`` (64 MiB by default; a
+shard at a time for webdataset; ``--shuffle`` then runs the records
+through a reservoir of ``--shuffle-buffer-records``), or on the volume
+read whole with ``--feed-window-bytes 0`` (``--shuffle`` permutes each
+epoch, and ``--checkpoint-dir`` resumes by seeking the feed).
+``--eval-volume-file``, ``--eval-volume-tfrecord`` and
+``--eval-volume-webdataset`` name the held-out volume of ``--eval-every``.
+A volume is staged by the controller, so its paths are the controller's:
 
     python -m oim_tpu_torch.cli.oim_trainer --registry 127.0.0.1:9421 \
         --controller-id host-0 --volume-file /data/tokens.npy \
@@ -53,10 +59,14 @@ most 5 steps of batch 2 and 32 tokens, logged every step, on ``data=`` the
 smaller of the batch and the ranks; ``--synthetic`` names the default
 source.
 
-Not ported yet, and refused: TFRecord and webdataset volumes through the
-feeder (``--volume-tfrecord``, ``--volume-webdataset``: ROADMAP
-A.3.3-A.3.4) and ``--registry`` under several ranks (the registry
-bootstrap, A.3.8).
+Ranks assembled from the registry: with ``--registry`` and
+``--expected-hosts N`` (N > 1) each process waits until N controllers
+are registered, takes its rank from their mesh coordinates (ties by id:
+``parallel/bootstrap.py``) and joins the process group with rank 0's
+host at ``--coordinator-port``. Under torchrun (one process a card) the
+host's ``LOCAL_WORLD_SIZE`` processes take consecutive ranks after their
+host's, each on ``cuda:LOCAL_RANK``; alone, a process is its host's one
+rank, on ``cuda:0``.
 
 Several ranks: under ``torchrun`` (``WORLD_SIZE`` set) each process joins
 the process group from torchrun's environment (``RANK``, ``WORLD_SIZE``,
@@ -95,7 +105,7 @@ from oim_tpu_torch.data.feeds import (
     SeekableFeed,
     eval_feed_args,
     feeder_batches,
-    refuse_unported,
+    refuse_tfrecord_for_llama,
 )
 from oim_tpu_torch.data.prefetch import prefetch_batches
 from oim_tpu_torch.data.shuffle import shuffle_batches
@@ -164,6 +174,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--num-classes", type=int, default=1000)
+    p.add_argument("--label-offset", type=int, default=0,
+                   help="added to every fed label before the range check "
+                        "(-1 for 1-based ImageNet-convention records)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation microbatches per update")
     p.add_argument("--lr", type=float, default=3e-4)
@@ -188,12 +201,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--volume-file", default="",
                    help="stage this file (on the controller's host) as the training volume")
     p.add_argument("--volume-tfrecord", default="",
-                   help="not ported yet (ROADMAP A.3.4): refused")
+                   help="comma-separated TFRecord paths (serialized tf.Examples: "
+                        "image/encoded + image/class/label) staged as a labeled "
+                        "image volume")
     p.add_argument("--volume-webdataset", default="",
-                   help="not ported yet (ROADMAP A.3.3-A.3.4): refused")
+                   help="comma-separated webdataset shard URLs (local paths or "
+                        "http(s)) to stage and train on")
+    p.add_argument("--wds-ext", default="bin",
+                   help="sample extension holding int32 tokens")
     p.add_argument("--eval-volume-file", default="",
                    help="held-out volume staged as '<volume>-eval' and used for "
                         "--eval-every in feeder mode")
+    p.add_argument("--eval-volume-tfrecord", default="",
+                   help="held-out labeled TFRecord volume (tf.Examples) for "
+                        "--eval-every in feeder mode")
+    p.add_argument("--eval-volume-webdataset", default="",
+                   help="held-out webdataset shard list staged as '<volume>-eval' "
+                        "for --eval-every: token shards for llama models "
+                        "(--wds-ext), jpg/cls shards for vision")
     p.add_argument("--shuffle", action="store_true",
                    help="shuffle records: whole-volume feeds permute per epoch; "
                         "windowed feeds run through a bounded reservoir "
@@ -215,6 +240,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--ca", default="", help="CA certificate file (mTLS)")
     p.add_argument("--key", default="",
                    help="path prefix for <prefix>.key/.crt (mTLS)")
+    p.add_argument("--expected-hosts", type=int, default=1,
+                   help="several hosts: wait for this many controllers in the registry, "
+                        "take this process's rank from their coordinates and join the "
+                        "process group")
+    p.add_argument("--coordinator-port", type=int, default=8476,
+                   help="port of the process group's rendezvous on the rank-0 host "
+                        "(whose address the registry gives)")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace of the train loop into "
                         "this directory")
@@ -256,7 +288,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         virtual_stages=args.virtual_stages,
         remat=args.remat, remat_policy=args.remat_policy,
         accum_steps=args.accum_steps, batch_size=args.batch_size, seq_len=args.seq_len,
-        image_size=args.image_size, num_classes=args.num_classes, lr=args.lr,
+        image_size=args.image_size, num_classes=args.num_classes,
+        label_offset=args.label_offset, lr=args.lr,
         warmup_steps=args.warmup_steps, total_steps=args.steps, log_every=args.log_every,
         checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
         eval_every=args.eval_every, eval_steps=args.eval_steps, seed=args.seed,
@@ -281,6 +314,27 @@ def init_distributed(device: str) -> tuple[str, bool]:
     return device, True
 
 
+def join(args: argparse.Namespace) -> tuple[str, bool]:
+    """Join the process group the run asks for: assembled from the
+    registry under ``--expected-hosts > 1`` (torchrun's ``LOCAL_RANK`` of
+    ``LOCAL_WORLD_SIZE`` processes on each host; ``cuda`` becomes
+    ``cuda:LOCAL_RANK``), else torchrun's (``init_distributed``).
+    Returns (this rank's device, whether this call made the group)."""
+    if not (args.registry and args.expected_hosts > 1):
+        return init_distributed(args.device)
+    from oim_tpu_torch.parallel.bootstrap import initialize_from_registry
+
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    device = f"cuda:{local_rank}" if args.device == "cuda" else args.device
+    made = not dist.is_initialized()
+    rank, world = initialize_from_registry(
+        args.registry, args.controller_id, args.expected_hosts, load_tls_flags(args),
+        coordinator_port=args.coordinator_port, device=device, local_rank=local_rank,
+        local_ranks=int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
+    oimlog.from_context().info("distributed", process_id=rank, num_processes=world)
+    return device, made and dist.is_initialized()
+
+
 def run(argv: list[str] | None = None) -> Trainer:
     """Parse flags, build the Trainer, run it; returns the Trainer (its
     ``history`` holds every logged step and eval pass)."""
@@ -290,7 +344,8 @@ def run(argv: list[str] | None = None) -> Trainer:
     axes = parse_mesh(args.mesh)
     if args.registry:
         check_fed_args(args)
-    device, made_group = init_distributed(args.device)
+        refuse_tfrecord_for_llama(args, config_from_args(args))
+    device, made_group = join(args)
     obs = start_observability(args, "oim-trainer")
     if args.registry:
         start_telemetry_row(
@@ -329,17 +384,16 @@ def run(argv: list[str] | None = None) -> Trainer:
 
 
 def check_fed_args(args: argparse.Namespace) -> None:
-    """SystemExit for a --registry run the port cannot serve yet, before
+    """SystemExit for a --registry run the flags do not make whole, before
     any process group or server starts."""
     if not args.controller_id:
         raise SystemExit("--registry needs --controller-id (the controller that stages "
                          "the volume)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and args.expected_hosts <= 1:
         raise SystemExit(
-            "--registry under several ranks needs the registry bootstrap, which is not "
-            "ported yet (ROADMAP A.3.8, bootstrap.initialize_from_registry): run one "
-            "process, or train the ranks on synthetic batches")
-    refuse_unported(args)
+            "--registry under several ranks needs --expected-hosts: the ranks are "
+            "assembled from the registry (parallel/bootstrap.py), one controller a "
+            "host; or train the ranks on synthetic batches")
 
 
 def fed_data(args: argparse.Namespace, cfg: TrainConfig):

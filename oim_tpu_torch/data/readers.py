@@ -5,9 +5,9 @@ The TFRecord framing (uint64 length, uint32 masked CRC of the length,
 payload, uint32 masked CRC of the payload) is parsed directly, and
 serialized tf.Examples at the protobuf wire level, so the hot path needs
 neither TensorFlow nor a generated binding. A staged TFRecord volume keeps
-its framing: consumers find the records in the staged bytes. The Pillow
-image helpers (``decode_image``, ``encode_jpeg``, ``resize_image``) come
-with the image feeds (ROADMAP A.4.4).
+its framing: consumers find the records in the staged bytes. The image
+helpers (``decode_image``, ``encode_jpeg``, ``resize_image``) use Pillow,
+imported inside each, so the module loads where Pillow is missing.
 """
 
 from __future__ import annotations
@@ -234,3 +234,36 @@ def encode_example(features: dict[str, object]) -> bytes:
                 feat = _ld(2, _ld(1, arr.astype("<f4").tobytes()))
         entries += _ld(1, _ld(1, key.encode()) + _ld(2, feat))
     return _ld(1, entries)
+
+
+# ------------------------------------------------------------ image decode --
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """JPEG/PNG bytes -> [H, W, 3] uint8 RGB (Pillow)."""
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def encode_jpeg(arr: np.ndarray, quality: int = 90) -> bytes:
+    """[H, W, 3] uint8 -> JPEG bytes (Pillow)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(arr, np.uint8)).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def resize_image(arr: np.ndarray, size: int) -> np.ndarray:
+    """[H, W, 3] uint8 -> [size, size, 3] uint8 (bilinear)."""
+    if arr.shape[0] == size and arr.shape[1] == size:
+        return arr
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(arr).resize((size, size)))

@@ -28,8 +28,11 @@ Page-locked buffers stay torch's (``alloc_pinned``). ``oim_pinned_alloc``
 is ``malloc`` + ``mlock``, which CUDA does not know as pinned: a
 ``non_blocking`` copy from it would be staged and synchronous. The native
 engine reads into torch's buffers through their addresses.
-The JPEG batch decoder and ``stage_file_to_device`` come with the image
-feeds (ROADMAP A.4.4).
+
+``decode_jpeg_batch`` binds the engine's JPEG batch decoder, which only a
+build that found ``<jpeglib.h>`` holds; without it the image feeds decode
+with Pillow. ``stage_file_to_device`` stages a file onto one device
+through ``data/plane.py``.
 """
 
 from __future__ import annotations
@@ -100,6 +103,13 @@ def _bind(lib) -> None:
     lib.oim_stream_file_size.restype = ctypes.c_int64
     lib.oim_stream_file_size.argtypes = [ctypes.c_void_p]
     lib.oim_stream_close.argtypes = [ctypes.c_void_p]
+    if hasattr(lib, "oim_decode_jpeg_batch"):  # only in a -jpeg build
+        lib.oim_decode_jpeg_batch.restype = ctypes.c_int64
+        lib.oim_decode_jpeg_batch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+        ]
 
 
 def compiler() -> str:
@@ -544,3 +554,58 @@ def stream(path: str | os.PathLike, chunk_bytes: int = 64 << 20, n_buffers: int 
     finally:
         M.STAGE_GBPS.set(lib.oim_stream_gbps(handle))
         lib.oim_stream_close(handle)
+
+
+# -- JPEG decode and single-device staging -----------------------------------
+
+
+def decode_jpeg_batch(payloads: list[bytes], size: int, n_threads: int = 8):
+    """Batch JPEG decode and bilinear resize in the C++ engine: [n, size,
+    size, 3] uint8, or None where the engine cannot serve the batch (not
+    built, built without the decoder, or a payload that is not JPEG:
+    callers fall back to Pillow). A corrupt image raises StagingError
+    naming its index."""
+    lib = native_lib()
+    if lib is None or not hasattr(lib, "oim_decode_jpeg_batch") or not payloads:
+        return None
+    if any(not p.startswith(b"\xff\xd8") for p in payloads):
+        return None
+    blob = b"".join(payloads)
+    offsets = (ctypes.c_int64 * len(payloads))()
+    lengths = (ctypes.c_int64 * len(payloads))()
+    pos = 0
+    for i, p in enumerate(payloads):
+        offsets[i] = pos
+        lengths[i] = len(p)
+        pos += len(p)
+    out = np.empty((len(payloads), size, size, 3), np.uint8)
+    got = lib.oim_decode_jpeg_batch(blob, offsets, lengths, len(payloads), size,
+                                    out.ctypes.data_as(ctypes.c_void_p), n_threads)
+    if got != len(payloads):
+        _raise_last(lib, f"jpeg decode batch of {len(payloads)}")
+    return out
+
+
+def stage_file_to_device(path: str | os.PathLike, device="cuda", dtype: str = "uint8",
+                         shape: tuple[int, ...] | None = None,
+                         chunk_bytes: int = 64 << 20, progress=None):
+    """A file onto one device through the data plane (``plane.stage_source``):
+    disk reads overlapped with host-to-device copies, each chunk landing
+    in one buffer allocated up front, so the device holds the volume and
+    no second copy. ``shape`` may hold one -1; None is flat.
+
+    ``progress(bytes_landed)``, called after each chunk lands, returning
+    False aborts the stage: the buffer is freed and the function returns
+    None."""
+    from oim_tpu_torch.controller.backend import torch_dtype
+    from oim_tpu_torch.data import plane
+
+    path = str(path)
+    src = plane.ExtentSource([plane.Extent("file", path, 0, os.path.getsize(path))])
+    tdtype = torch_dtype(dtype)
+    if src.total_bytes % tdtype.itemsize:
+        raise StagingError(f"{path}: {src.total_bytes} bytes not a multiple of "
+                           f"{dtype} itemsize")
+    shape = plane.resolve_shape(shape, src.total_bytes // tdtype.itemsize)
+    return plane.stage_source(src, dtype=tdtype, shape=shape, device=device,
+                              chunk_bytes=chunk_bytes, progress=progress)

@@ -177,6 +177,9 @@ class TrainConfig:
     seq_len: int = 128
     image_size: int = 224
     num_classes: int = 1000
+    # Added to every label an image feed reads (ImageNet-convention
+    # records are 1-based: -1), before the check against num_classes.
+    label_offset: int = 0
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000

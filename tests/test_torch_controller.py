@@ -559,7 +559,10 @@ GRPC_SURFACE = {
     "controller/controller.py", "feeder/__init__.py", "feeder/driver.py",
     "feeder/emulation.py", "feeder/watch.py", "cli/oim_controller.py",
     "common/telemetry.py", "serve/registration.py", "serve/service.py", "serve/members.py",
-    "cli/oim_serve.py"}
+    "cli/oim_serve.py", "feeder/service.py", "parallel/bootstrap.py"}
+# Pillow is not on the card machine either: only the image helpers import
+# it, inside the functions the CPU's image feeds call.
+PILLOW_USERS = {"data/readers.py"}
 
 
 def test_data_plane_modules_import_only_stdlib_numpy_torch_and_the_port():
@@ -579,7 +582,8 @@ def test_data_plane_modules_import_only_stdlib_numpy_torch_and_the_port():
     bad = []
     for path in files:
         rel = str(path.relative_to(port)) if path.is_relative_to(port) else path.name
-        ok = allowed | ({"grpc", "google"} if rel in GRPC_SURFACE else set())
+        ok = allowed | ({"grpc", "google"} if rel in GRPC_SURFACE else set()) \
+            | ({"PIL"} if rel in PILLOW_USERS else set())
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                      [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0

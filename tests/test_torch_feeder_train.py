@@ -10,8 +10,9 @@ package's: registry (JAX's, in process), controller and feeder.
 * ``oim_trainer.main([... "--registry", ..., "--volume-file", ...])``
   trains llama-tiny at fp32 for 3 steps, whole-volume and windowed, to the
   JAX ``Trainer``'s losses on the JAX feed's batches within 2e-5.
-* The refusals: TFRecord and webdataset volumes through the feeder,
-  ``--registry`` under several ranks.
+* The refusals that fire before any RPC: a TFRecord volume for a llama
+  model (JAX's message), ``--registry`` under several ranks without
+  ``--expected-hosts``, and no ``--controller-id``.
 """
 
 from __future__ import annotations
@@ -315,9 +316,8 @@ def test_trainer_cli_fed_through_the_control_plane_matches_jax(tokens, monkeypat
 
 
 @pytest.mark.parametrize("argv,env,match", [
-    (["--volume-tfrecord", "/x.tfrecord"], {}, "A.3.4"),
-    (["--volume-webdataset", "/x.tar"], {}, "A.3.3"),
-    ([], {"WORLD_SIZE": "2"}, "A.3.8"),
+    (["--volume-tfrecord", "/x.tfrecord"], {}, "llama-family models take --volume-file"),
+    ([], {"WORLD_SIZE": "2"}, "--expected-hosts"),
     (["--controller-id", ""], {}, "--controller-id"),
 ])
 def test_refusals_name_the_roadmap_item(tokens, monkeypatch, argv, env, match):

@@ -191,7 +191,11 @@ def test_metrics_snapshot_equals_jax_for_the_same_workload():
             out[key] = (tuple(sb["le"]), counts[-1])
         req = b.get("counters", {}).get("requests_total", {})
         prev = a.get("counters", {}).get("requests_total", {})
-        out["requests"] = {k: v - prev.get(k, 0) for k, v in req.items()}
+        # A label missing from a snapshot counts as 0 and a zero delta is
+        # dropped: an earlier test in this process may have created a
+        # label (e.g. "cancelled") in one package only.
+        out["requests"] = {k: d for k in set(req) | set(prev)
+                           if (d := req.get(k, 0) - prev.get(k, 0))}
         return out
 
     jgrow, tgrow = grown(before[0], after[0]), grown(before[1], after[1])
