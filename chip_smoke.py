@@ -438,15 +438,29 @@ Phases, in order; any failure exits nonzero:
    one rank's steps on the whole batches, and K1-K3 must launch LAYERS x
    REG_STEPS times a rank on wgmma. It prints the join time, the stage
    and stream rates and step_s, and the ``registry_stream`` JSON line.
-19. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+19. the chaos ladder's engine rungs (``chaos.ladder.run_engine_rungs``,
+   the grpc-free core of the ladder): ``pool_exhaustion`` and
+   ``draft_collapse``, each in a fresh ``EngineSim`` on the card at the
+   ladder's own model (llama.tiny, vocab 64, dim 32, 2 layers, f32; the
+   rungs' page budgets and request streams), must each heal with its
+   declared signature read over HTTP from the sim's metrics server
+   (``page_pool_exhausted``; ``spec_fallback``), every stream equal to the
+   port's ``solo_tokens`` on the card (a stream that differs fails with
+   ``parting``'s position and top-2 gap), the pools empty and in budget,
+   the valve closed and the census passing. ``fault_overhead`` runs at
+   that model and at llama3-8b width, LAYERS layers, bf16; each
+   ``fault_overhead_ratio`` must reach CHAOS_OVERHEAD_FLOOR (0.90). It
+   prints each rung's wall time and details, both ratios with their pair
+   spread, and the ``chaos`` JSON line.
+20. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
    card's path needs neither); the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
    15), the ``serve_daemon`` line (phase 16), the ``kv_handoff`` line
-   (phase 17), the ``registry_stream`` line (phase 18) and the kernels
-   line (JSON),
+   (phase 17), the ``registry_stream`` line (phase 18), the ``chaos``
+   line (phase 19) and the kernels line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``parallel_launches`` (phase 15's, by path and rank),
    ``registry_launches`` (phase 18's, by rank),
@@ -6775,6 +6789,73 @@ def phase_registry_stream(device: str = "cuda:0") -> dict:
     return out
 
 
+# Phase 19: the chaos ladder's engine rungs. The ladder's own model and
+# streams (chaos/sim.py: llama.tiny(vocab=64, dim=32, n_layers=2), f32,
+# kv_pool_tokens=128) define the rungs, so they are not widened; the fault
+# overhead is read at that model (the shortest steps, so an unarmed fire
+# costs the largest share) and at phase 5's width and cut.
+CHAOS_OVERHEAD_FLOOR = 0.90   # bench.py's gate on fault_overhead_ratio
+CHAOS_OVERHEAD_SEED = 19
+
+
+def phase_chaos(device="cuda") -> dict:
+    """Phase 19: ``chaos.ladder.run_engine_rungs`` on the card, each rung in a
+    fresh ``EngineSim``: its heal signature read over HTTP from the sim's
+    metrics server equals its ``expect``, every stream equals the port's
+    ``solo_tokens`` on the card (a stream that differs fails the phase with
+    the position where it parts and the reference's top-2 gap there), the
+    pool and draft pool are empty and in budget, the valve closed, and the
+    census passes. Then ``fault_overhead`` at the ladder's model and at
+    llama3-8b width, LAYERS layers, bf16: each ratio must reach
+    CHAOS_OVERHEAD_FLOOR."""
+    import dataclasses
+
+    import torch
+
+    from oim_tpu_torch.chaos import ladder, sim
+    from oim_tpu_torch.models import llama
+
+    t_phase = time.monotonic()
+    try:
+        report = ladder.run_engine_rungs(device=device)
+    except sim.StreamDiverged as err:
+        params, cfg = sim.model(device)
+        ref = reference_logits(cfg, params, err.prompt, err.expect, device)
+        fail(f"chaos: {err}; {parting(ref, err.expect, err.got)}")
+    want = [[r.name, *r.expect] for r in ladder.RUNGS if r.name in ladder.ENGINE_RUNGS]
+    if report["event_signature"] != want:
+        fail(f"chaos: heal signatures {report['event_signature']}, want {want}")
+    rungs = {r["name"]: r for r in report["rungs"]}
+    for name, rung in rungs.items():
+        [row] = rung["census"]["replicas"].values()
+        if row["used_pages"] or row["draft_used_pages"] or row["active_slots"] or row["queued"]:
+            fail(f"chaos: {name}: the census left work or pages: {row}")
+        say(f"  {name}: healed {rung['healed']} in {rung['wall_s']:.3f} s, "
+            f"details {json.dumps(rung['details'])}, census {json.dumps(row)}")
+    pool = rungs["pool_exhaustion"]["details"]
+    if not pool["peak_used_pages"] <= pool["total_pages"]:
+        fail(f"chaos: the page pool ran over its budget: {pool}")
+
+    overhead = {"tiny": ladder.fault_overhead(device=device)}
+    cfg8 = dataclasses.replace(llama.LLAMA3_8B, n_layers=LAYERS)
+    params8 = llama.init(torch.Generator(device=device).manual_seed(CHAOS_OVERHEAD_SEED), cfg8,
+                         device=device)
+    overhead["llama3_8b_2l_bf16"] = ladder.fault_overhead(device=device, model=(params8, cfg8))
+    del params8
+    torch.cuda.empty_cache()
+    for what, o in overhead.items():
+        say(f"  fault_overhead_ratio at {what}: {o['fault_overhead_ratio']} "
+            f"(pair spread {o['fault_overhead_pair_spread']}, {o['fault_overhead_rounds']} "
+            f"rounds)")
+        if o["fault_overhead_ratio"] < CHAOS_OVERHEAD_FLOOR:
+            fail(f"chaos: unarmed fault points are not free at {what}: {o}")
+    out = {"rungs": report["rungs"], "event_signature": report["event_signature"],
+           "seed": report["seed"], "fault_overhead": overhead,
+           "phase_s": time.monotonic() - t_phase}
+    say(f"  phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6969,7 +7050,11 @@ def main() -> int:
         rec["registry_launches"] = [lr[rec["name"]]
                                     for lr in registry["ranks"]["launches_by_rank"]]
 
-    say("== 19. summary")
+    say("== 19. the chaos ladder's engine rungs: page-pool exhaustion and the draft "
+        "collapse in fresh sims on the card; the unarmed fault points' overhead")
+    chaos = phase_chaos()
+
+    say("== 20. summary")
     wire = sorted(m for m in sys.modules
                   if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
@@ -7000,6 +7085,7 @@ def main() -> int:
     say(json.dumps({"serve_daemon": daemon, "card": card}))
     say(json.dumps({"kv_handoff": handoff, "card": card}))
     say(json.dumps({"registry_stream": registry, "card": card}))
+    say(json.dumps({"chaos": chaos, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,8 +15,8 @@ Event attribute values pass through ``redact_text`` at EMIT time, so no
 exit can leak a credential. ``oim_events_total{type}`` counts emissions,
 so rates survive the ring's wrap.
 
-The port declares the event types its own modules emit; the router's,
-the registry's and the fleet tier's wait for the code that emits them.
+The port declares the event types its own modules emit; the SLO plane's
+and the autoscaler's wait for the code that emits them.
 """
 
 from __future__ import annotations
@@ -33,12 +33,33 @@ from oim_tpu_torch.common import metrics as M
 from oim_tpu_torch.common.redact import redact_text
 
 # Canonical event types (the emit sites: serve/engine.py,
-# serve/kvvolume.py, controller/stagecache.py and feeder/driver.py).
+# serve/kvvolume.py, controller/stagecache.py, feeder/driver.py,
+# registry/ and router/).
+LEASE_EXPIRED = "lease_expired"
 FEEDER_FAILOVER = "feeder_failover"
 VOLUME_HEALED = "volume_healed"
-# The feeder's address watch fell back to GetValues polling against a
-# registry without the Watch RPC.
+REGISTRY_PROMOTION = "registry_promotion"
+REGISTRY_DEMOTION = "registry_demotion"
+# Quorum mode (registry/quorum.py): a follower opened an election
+# (term++ campaign); a leader that lost majority contact stepped down
+# WITHOUT a successor having claimed a higher term yet. The winner of
+# an election emits REGISTRY_PROMOTION (the pair-mode event), a member
+# adopting a higher term emits REGISTRY_DEMOTION.
+REGISTRY_ELECTION = "registry_election"
+REGISTRY_STEPDOWN = "registry_stepdown"
+# A watch consumer lost its stream/token and fell back to a full
+# snapshot resync (or to GetValues polling against a registry without
+# the Watch RPC).
 WATCH_RESYNC = "watch_resync"
+# The hub closed a Watch stream because the consumer overflowed its
+# bounded queue (registry/watch.py slow-consumer shed).
+WATCH_STREAM_SHED = "watch_stream_shed"
+ROUTER_RETRY = "router_retry"
+ROUTER_MARK_FAILED = "router_mark_failed"
+# The replica table aged past --max-stale: the router is REFUSING picks.
+# The recovery twin fires on the first successful refresh after that.
+ROUTER_TABLE_STALE = "router_table_stale"
+ROUTER_TABLE_RECOVERED = "router_table_recovered"
 REPLICA_DRAIN = "replica_drain"
 STAGE_CACHE_EVICTION = "stage_cache_eviction"
 SLOT_EVICTED = "slot_evicted"

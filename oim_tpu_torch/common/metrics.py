@@ -13,9 +13,12 @@ The port declares only the families its own modules record: staging and
 the stage cache (``controller/``, ``data/staging.py``,
 ``data/objectstore.py``), the trainer's gauges (``train/trainer.py``),
 the serving engine, page pool, prefix store and host tier (``serve/``),
-and the flight recorder's counter. Each equals its JAX namesake in name,
-type, help, label names and buckets. The gRPC, registry, router, feeder,
-sharded-serving and fleet families wait for the code that records them.
+the control plane (the controller, the feeder, the channel pool and the
+RPC interceptors), the registry and its replication (``registry/``), the
+request router (``router/``) and the flight recorder's counter. Each
+equals its JAX namesake in name, type, help, label names and buckets.
+The SLO, autoscaler and telemetry-merge families wait for the code that
+records them.
 """
 
 from __future__ import annotations
@@ -653,6 +656,125 @@ RPC_TOTAL = DEFAULT.counter(
     "oim_rpc_total",
     "gRPC calls completed, by method and final status code",
     labelnames=("method", "code"))
+# The registry (registry/: leases, the replicated pair, the quorum and
+# its Watch streams) and the request router (router/).
+LEASE_EXPIRIES = DEFAULT.counter(
+    "oim_lease_expiries_total",
+    "registry entries that crossed from live to expired (counted once per "
+    "expiry, when a read first observes the entry stale)")
+PROXY_FASTFAILS = DEFAULT.counter(
+    "oim_proxy_fastfail_total",
+    "proxied calls refused without dialing because the target controller's "
+    "lease had expired")
+REPL_LAG_RECORDS = DEFAULT.gauge(
+    "oim_replication_lag_records",
+    "journal records the standby has not yet applied (primary next offset "
+    "minus standby applied offset)")
+REPL_LAG_SECONDS = DEFAULT.gauge(
+    "oim_replication_lag_seconds",
+    "seconds since the standby last received a record (data or primary "
+    "self-heartbeat) over the replication stream")
+REPL_RECORDS_APPLIED = DEFAULT.counter(
+    "oim_replication_records_applied_total",
+    "replication records (KV mutations, lease renewals, snapshot entries) "
+    "applied by this registry as a standby")
+REGISTRY_PROMOTIONS = DEFAULT.counter(
+    "oim_registry_promotions_total",
+    "standby-to-primary promotions performed by this registry process "
+    "(admin --promote or primary self-lease expiry)")
+REGISTRY_ROLE = DEFAULT.gauge(
+    "oim_registry_role",
+    "replication role of this registry: 1 = PRIMARY/LEADER, "
+    "0 = STANDBY/FOLLOWER/CANDIDATE")
+REGISTRY_TERM = DEFAULT.gauge(
+    "oim_registry_term",
+    "current raft-style election term of this quorum registry member "
+    "(the promotion-epoch analog; 0 on an unreplicated or pair-mode "
+    "registry)")
+REGISTRY_COMMIT_INDEX = DEFAULT.gauge(
+    "oim_registry_commit_index",
+    "journal offset below which records are quorum-acknowledged on this "
+    "member (writes are client-visible only once committed)")
+REGISTRY_GETVALUES = DEFAULT.counter(
+    "oim_registry_getvalues_total",
+    "GetValues reads served by this registry — the poll load Watch "
+    "streams exist to remove (bench.py --control-plane measures the "
+    "drop at 1k publishers)")
+WATCH_STREAMS = DEFAULT.gauge(
+    "oim_watch_streams",
+    "Watch streams currently attached to this registry")
+WATCH_EVENTS = DEFAULT.counter(
+    "oim_watch_events_total",
+    "Watch events delivered to consumers, by kind "
+    "(put/delete/expired/sync)",
+    labelnames=("kind",))
+WATCH_FANOUT_SECONDS = DEFAULT.histogram(
+    "oim_watch_fanout_seconds",
+    "wall seconds one committed delta took to serialize (once) and "
+    "enqueue onto every attached Watch stream — the write path's "
+    "fan-out tax; bucket exemplars carry the mutation's trace id",
+    buckets=(0.000001, 0.0000025, 0.000005, 0.00001, 0.000025, 0.00005,
+             0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05,
+             0.25))
+WATCH_QUEUE_DEPTH = DEFAULT.gauge(
+    "oim_watch_queue_depth_peak",
+    "deepest per-stream Watch queue observed at the most recent "
+    "fan-out (0 = every consumer keeping up; approaching queue_max = "
+    "a shed is imminent)")
+WATCH_SHED_STREAMS = DEFAULT.counter(
+    "oim_watch_shed_streams_total",
+    "Watch streams closed because a slow consumer overflowed its "
+    "bounded queue (each shed also lands a watch_stream_shed flight-"
+    "recorder event with the prefix and queue high-water mark)")
+REGISTRY_COMMIT_SECONDS = DEFAULT.histogram(
+    "oim_registry_commit_seconds",
+    "quorum write pipeline on the leader, by phase: ack = append until "
+    "a majority holds the record, apply = majority-ack until the DB "
+    "mutation (and its Watch fan-out) lands, total = append until "
+    "client-visible; exemplars carry the proposing RPC's trace id",
+    labelnames=("phase",),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5))
+REGISTRY_ELECTION_SECONDS = DEFAULT.histogram(
+    "oim_registry_election_seconds",
+    "campaign start to leadership on this member (won elections only) "
+    "— the convergence half of leader-kill recovery; the other half is "
+    "the election timeout that started the campaign",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+REGISTRY_READ_LAG = DEFAULT.gauge(
+    "oim_registry_read_lag_records",
+    "committed records this follower has not yet applied (received-"
+    "but-unflushed + known-committed-but-unreceived): the raft read-"
+    "index gap — a follower GetValues can trail the leader's commit "
+    "by one ack round-trip (doc/architecture.md, Control plane at "
+    "scale); 0 on leaders")
+ROUTER_PICK_SECONDS = DEFAULT.histogram(
+    "oim_router_pick_seconds",
+    "wall seconds one router pick spent scoring the replica table "
+    "(affinity hash + least-loaded scan) — linear in table rows, the "
+    "per-request control-plane tax bench.py --control-plane curves at "
+    "10/100/1000 rows",
+    buckets=(0.000001, 0.0000025, 0.000005, 0.00001, 0.000025, 0.00005,
+             0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.01))
+ROUTER_REQUESTS_TOTAL = DEFAULT.counter(
+    "oim_router_requests_total",
+    "routed Generate attempts, by replica and outcome: a finish_reason "
+    "(eos/length/...) for completed streams, retried = failed before the "
+    "first token and moved to the next replica, error = surfaced to the "
+    "client, cancelled = client went away, unroutable = empty table",
+    labelnames=("replica", "outcome"))
+ROUTER_RETRIES_TOTAL = DEFAULT.counter(
+    "oim_router_retries_total",
+    "pre-first-token failovers to the next replica "
+    "(RESOURCE_EXHAUSTED/UNAVAILABLE from the first pick)")
+ROUTER_REPLICAS = DEFAULT.gauge(
+    "oim_router_replicas",
+    "ready serve replicas in the router's lease-filtered routing table")
+ROUTER_AFFINITY_PICKS = DEFAULT.counter(
+    "oim_router_affinity_picks_total",
+    "picks herded to a replica advertising the request's prompt-prefix "
+    "hash instead of the plain least-loaded choice (only taken when the "
+    "holder's backlog is within the affinity load guard)")
 # Flight recorder (common/events.py): the counter survives ring wrap.
 EVENTS_TOTAL = DEFAULT.counter(
     "oim_events_total",

@@ -559,7 +559,10 @@ GRPC_SURFACE = {
     "controller/controller.py", "feeder/__init__.py", "feeder/driver.py",
     "feeder/emulation.py", "feeder/watch.py", "cli/oim_controller.py",
     "common/telemetry.py", "serve/registration.py", "serve/service.py", "serve/members.py",
-    "cli/oim_serve.py", "feeder/service.py", "parallel/bootstrap.py"}
+    "cli/oim_serve.py", "feeder/service.py", "parallel/bootstrap.py",
+    "registry/registry.py", "registry/replication.py", "registry/quorum.py",
+    "registry/watch.py", "router/table.py", "router/router.py",
+    "chaos/sim.py", "chaos/ladder.py"}
 # Pillow is not on the card machine either: only the image helpers import
 # it, inside the functions the CPU's image feeds call.
 PILLOW_USERS = {"data/readers.py"}

@@ -47,7 +47,7 @@ def _shape(family) -> tuple:
 
 
 def test_the_port_declares_the_families_of_its_slice():
-    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 56
+    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 79
     assert {getattr(tmetrics, n).name for n in PORT_FAMILIES} == set(tmetrics.DEFAULT._metrics)
 
 
@@ -163,7 +163,10 @@ def test_event_types_are_jax_types():
                          "PAGE_POOL_EXHAUSTED", "SPEC_FALLBACK", "SHARD_MEMBER_LOST",
                          "SHARD_MEMBER_HEALED", "FEEDER_FAILOVER", "VOLUME_HEALED",
                          "WATCH_RESYNC", "KV_CHAIN_EXPORTED", "KV_PEER_FETCH",
-                         "KV_FETCH_FALLBACK"}
+                         "KV_FETCH_FALLBACK", "LEASE_EXPIRED", "REGISTRY_PROMOTION",
+                         "REGISTRY_DEMOTION", "REGISTRY_ELECTION", "REGISTRY_STEPDOWN",
+                         "WATCH_STREAM_SHED", "ROUTER_RETRY", "ROUTER_MARK_FAILED",
+                         "ROUTER_TABLE_STALE", "ROUTER_TABLE_RECOVERED"}
     assert tevents.DEFAULT_CAPACITY == jevents.DEFAULT_CAPACITY
 
 

@@ -16,8 +16,9 @@ values, event types (in order), span names and fault-point outcomes.
 * Drift and list checks: every family the port declares is recorded by a
   module of the port, and every family, event type, span name and fault
   point the JAX package records at the ported sites (the control plane's
-  among them: the controller, the feeder driver, the channel pool and the
-  RPC interceptors) is the port's, except the deferred ones, named below.
+  among them: the controller, the feeder driver, the channel pool, the
+  RPC interceptors, the registry and the router) is the port's, except
+  the deferred ones, named below.
   The control plane's sites are driven in ``test_torch_feeder.py`` and
   ``test_torch_controller_service.py``.
 
@@ -113,6 +114,13 @@ PORTED_SITES = {
     "oim_tpu/common/tracing.py": "oim_tpu_torch/common/rpctelemetry.py",
     "oim_tpu/serve/service.py": "oim_tpu_torch/serve/service.py",
     "oim_tpu/common/telemetry.py": "oim_tpu_torch/common/telemetry.py",
+    "oim_tpu/registry/leases.py": "oim_tpu_torch/registry/leases.py",
+    "oim_tpu/registry/registry.py": "oim_tpu_torch/registry/registry.py",
+    "oim_tpu/registry/replication.py": "oim_tpu_torch/registry/replication.py",
+    "oim_tpu/registry/quorum.py": "oim_tpu_torch/registry/quorum.py",
+    "oim_tpu/registry/watch.py": "oim_tpu_torch/registry/watch.py",
+    "oim_tpu/router/table.py": "oim_tpu_torch/router/table.py",
+    "oim_tpu/router/router.py": "oim_tpu_torch/router/router.py",
 }
 
 
@@ -693,7 +701,10 @@ def test_span_names_and_fault_points_are_jax_ones():
     port_files = [str(p.relative_to(_ROOT)) for p in (_ROOT / "oim_tpu_torch").rglob("*.py")]
     assert _names(spans, port_files) == _names(spans, PORTED_SITES) == {
         "serve.prefill", "serve.draft_prefill", "serve.queue_wait", "serve.decode",
-        "stage", "train.step", "feeder.publish", "feeder.window", "serve.generate"}
+        "stage", "train.step", "feeder.publish", "feeder.window", "serve.generate",
+        "router.generate"}
     assert _names(faults, port_files) == _names(faults, PORTED_SITES) == {
         "serve.admit", "spec.propose", "serve.retire", "serve.decode",
-        "controller.register", "controller.heartbeat", "feeder.rpc", "prestage.fanout"}
+        "controller.register", "controller.heartbeat", "feeder.rpc", "prestage.fanout",
+        "proxy.dial", "registry.promote", "replication.apply", "quorum.campaign",
+        "router.pick", "router.stream"}
