@@ -452,7 +452,27 @@ Phases, in order; any failure exits nonzero:
    ``fault_overhead_ratio`` must reach CHAOS_OVERHEAD_FLOOR (0.90). It
    prints each rung's wall time and details, both ratios with their pair
    spread, and the ``chaos`` JSON line.
-20. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
+20. the fleet SLO plane's decision (``obs/slo.py``, ``obs/merge.py``,
+   ``autoscale/reconcile.py``, the grpc-free core of ``oim-monitor`` and
+   ``oim-autoscaler``) fed by the card engines' own first-token
+   histograms: max_batch=1 engines at llama3-8b width, LAYERS layers,
+   bf16, each in a process of its own (r0, then r1 when the plan asks
+   for it) publishing its ``metrics_snapshot`` row. A paced run sets the
+   first-token SLO's ``threshold_s`` (the first bucket bound above 3x its
+   p99) and moves nothing; a burst of 12 at once into r0's one slot must
+   lie above it (p50) and fire the SLO once (``slo_alert_fired`` in the
+   port's ring, ``oim_slo_burn_rate`` over the threshold); ``plan`` must
+   answer one spawn ``alert:first_token_p99``, the phase's own
+   ``ReplicaLauncher`` starts r1, and the burst split over r0 and r1 must
+   give every stream of r0 alone to the bit and a lower p50; paced
+   traffic past the resolve hold must resolve, and ``plan`` past the
+   scale-down hold must drain r1, whose resident request finishes and
+   whose queued one, closed "drained", r0 serves with the same stream.
+   The SLO's windows and holds run on explicit clocks. It prints the
+   paced p99, ``threshold_s``, the burn rates at the fire, both bursts'
+   p50 and p99, spawn-to-ready and drain times, the phase's wall time,
+   and the ``fleet_slo`` JSON line.
+21. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
    card's path needs neither); the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
@@ -460,7 +480,8 @@ Phases, in order; any failure exits nonzero:
    7's and 12's decode step ms beside them), the ``parallel`` line (phase
    15), the ``serve_daemon`` line (phase 16), the ``kv_handoff`` line
    (phase 17), the ``registry_stream`` line (phase 18), the ``chaos``
-   line (phase 19) and the kernels line (JSON),
+   line (phase 19), the ``fleet_slo`` line (phase 20) and the kernels
+   line (JSON),
    the card line, and the last line ``{"ok": true, "device": {...}}``. Beside the contract's keys each kernel record has
    ``parallel_launches`` (phase 15's, by path and rank),
    ``registry_launches`` (phase 18's, by rank),
@@ -492,6 +513,7 @@ import collections
 import contextlib
 import http.server
 import io
+import itertools
 import json
 import math
 import os
@@ -501,6 +523,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -6856,6 +6879,438 @@ def phase_chaos(device="cuda") -> dict:
     return out
 
 
+# Phase 20: the fleet SLO plane's decision on the card. Each replica is a
+# max_batch=1 engine at phase 19's second model in a process of its own;
+# the SLO engine's clocks are explicit (FLEET_CLOCKS), so its windows and
+# holds are read at set points and not waited out.
+FLEET_SEED = 20
+FLEET_ENGINE = dict(max_batch=1, max_seq=512, queue_depth=16, prefix_cache_bytes=0)
+FLEET_PACED, FLEET_BURST, FLEET_NEW = 8, 12, 32
+FLEET_PROMPT = (48, 160)                 # prompt lengths drawn from this range
+FLEET_WARM = (33, 100, 160)              # one warm request per prefill bucket (64, 128, 256)
+FLEET_OBJECTIVE = 0.99
+FLEET_WINDOWS = dict(fast_window_s=10.0, slow_window_s=30.0, resolve_hold_s=5.0)
+FLEET_CLOCKS = dict(base=0.0, paced=10.0, burst=20.0, two=25.0, quiet=36.0, hold=42.0)
+FLEET_THRESHOLD_X = 3.0                  # threshold_s: the first bucket bound above 3x paced p99
+FLEET_BOOT_TIMEOUT = 300.0
+
+
+def fleet_requests(vocab: int, n: int, seed: int) -> list[tuple]:
+    """``n`` requests (prompt, max_new, temperature, seed) drawn from
+    ``seed``: every other one sampled."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, vocab, rs.randint(*FLEET_PROMPT)).tolist(), FLEET_NEW,
+             0.0 if i % 2 == 0 else 0.8, 300 + i) for i in range(n)]
+
+
+def _fleet_replica(name: str, cfg, device: str, inbox, outbox) -> None:
+    """A replica process: the phase's weights drawn from FLEET_SEED on
+    ``device``, one max_batch=1 engine warmed on each prefill bucket, then
+    commands from ``inbox`` until a drain. Each request's stream, finish
+    reason and first-token seconds go back on ``outbox`` when it ends."""
+    import torch
+
+    from oim_tpu_torch.common.snapshot import metrics_snapshot
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    t0 = time.monotonic()
+    params = llama.init(torch.Generator(device=device).manual_seed(FLEET_SEED), cfg,
+                        device=device)
+    eng = ServeEngine(params, cfg, **FLEET_ENGINE, name=name, device=device)
+    for n in FLEET_WARM:
+        eng.submit(list(range(1, n + 1)), max_new=2).result(timeout=RESULT_TIMEOUT)
+    lock, waiters = threading.Lock(), []
+
+    def send(*msg) -> None:
+        with lock:
+            outbox.send(msg)
+
+    def finish(i: int, handle) -> None:
+        toks = handle.result(timeout=RESULT_TIMEOUT)
+        send("done", i, toks, handle.finish_reason, handle.stats["first_token_s"])
+
+    send("ready", time.monotonic() - t0)
+    while True:
+        msg = inbox.recv()
+        if msg[0] == "submit":
+            _, i, prompt, n, temp, seed = msg
+            w = threading.Thread(target=finish, daemon=True,
+                                 args=(i, eng.submit(prompt, max_new=n, temperature=temp,
+                                                     seed=seed)))
+            waiters.append(w)
+            w.start()
+        elif msg[0] == "stats":
+            send("stats", eng.stats())
+        elif msg[0] == "row":
+            send("row", {"hist": metrics_snapshot()["hist"]})
+        else:  # "drain": residents finish, queued requests close "drained"
+            t1 = time.monotonic()
+            eng.stop(drain=msg[0] == "drain", timeout=RESULT_TIMEOUT)
+            for w in waiters:
+                w.join(timeout=RESULT_TIMEOUT)
+            send("stopped", time.monotonic() - t1)
+            return
+
+
+class FleetReplica:
+    """The phase's handle on one replica process: ``submit`` returns a
+    future of (stream, finish reason, first-token s); ``call`` asks the
+    process for its stats or its telemetry row."""
+
+    def __init__(self, name: str, cfg, device: str):
+        import multiprocessing as mp
+        import queue
+
+        self.name, self._futures, self._replies = name, {}, queue.Queue()
+        ctx = mp.get_context("spawn")
+        inbox, self._to = ctx.Pipe(duplex=False)
+        self._from, outbox = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_fleet_replica, args=(name, cfg, device, inbox, outbox),
+                                daemon=True, name=f"oim-fleet-{name}")
+        self.proc.start()
+        inbox.close()
+        outbox.close()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        while True:
+            try:
+                msg = self._from.recv()
+            except (EOFError, OSError):
+                self._replies.put(("gone",))
+                for f in self._futures.values():
+                    if not f.done():
+                        f.set_exception(RuntimeError(f"replica {self.name} exited"))
+                return
+            if msg[0] == "done":
+                self._futures[msg[1]].set_result(msg[2:])
+            else:
+                self._replies.put(msg)
+
+    def reply(self, want: str, timeout: float = RESULT_TIMEOUT):
+        from queue import Empty
+
+        try:
+            msg = self._replies.get(timeout=timeout)
+        except Empty:
+            fail(f"fleet SLO: replica {self.name} sent no {want!r} within {timeout:.0f} s")
+        if msg[0] != want:
+            fail(f"fleet SLO: replica {self.name} sent {msg[0]!r}, want {want!r} "
+                 f"(exit code {self.proc.exitcode})")
+        return msg[1]
+
+    def call(self, what: str):
+        self._to.send((what,))
+        return self.reply(what)
+
+    def submit(self, i: int, req: tuple):
+        import concurrent.futures
+
+        f = self._futures[i] = concurrent.futures.Future()
+        self._to.send(("submit", i, *req))
+        return f
+
+    def outstanding(self) -> int:
+        return sum(not f.done() for f in self._futures.values())
+
+    def stop(self, drain: bool) -> float:
+        """Drain (residents finish) or stop; the process's seconds to do it."""
+        self._to.send(("drain" if drain else "stop",))
+        took = self.reply("stopped")
+        self.proc.join(timeout=60)
+        if self.proc.exitcode != 0:
+            fail(f"fleet SLO: replica {self.name} exited {self.proc.exitcode} after its "
+                 f"{'drain' if drain else 'stop'}")
+        return took
+
+
+def hist_delta(after: dict, before: dict) -> dict:
+    """The observations between two cumulative snapshots of one grid."""
+    if after["le"] != before["le"]:
+        fail(f"fleet SLO: the histogram grid changed: {before['le']} -> {after['le']}")
+    return {"le": after["le"], "counts": [a - b for a, b in zip(after["counts"], before["counts"])],
+            "sum": after["sum"] - before["sum"]}
+
+
+def finish_all(futures: list, reqs: list, what: str) -> tuple[list, list]:
+    """Each request's stream and first-token seconds (the replica's host
+    clock); fails on anything but a full-length finish."""
+    outs, firsts = [], []
+    for (p, n, _, _), f in zip(reqs, futures):
+        toks, reason, first_s = f.result(timeout=RESULT_TIMEOUT)
+        if reason != "length" or len(toks) != n:
+            fail(f"fleet SLO, {what}: a request of {len(p)} tokens ended {reason!r} after "
+                 f"{len(toks)} of {n} tokens")
+        outs.append(toks)
+        firsts.append(first_s)
+    return outs, firsts
+
+
+def phase_fleet_slo(device="cuda") -> dict:
+    """Phase 20: the SLO plane's alert-to-spawn decision, fed by the card
+    engines' own first-token histograms. Each replica is a max_batch=1
+    engine (llama3-8b width, LAYERS layers, bf16, the prefix cache off)
+    in a process of its own, as a fleet's replicas are: two engines in one
+    process would share one interpreter lock, and at batch 1 the engine is
+    bound by its host, so a second one there adds no capacity. Each
+    replica publishes its own row, ``{"hist": metrics_snapshot()["hist"]}``
+    from its process, and the SLO engine merges the rows.
+
+    (a) FLEET_PACED requests one at a time on r0; their first-token p99
+    (``merge.quantile`` of the histogram's delta) sets the latency SLO's
+    ``threshold_s``, the first bucket bound above FLEET_THRESHOLD_X times
+    it; ``evaluate`` at the paced clock gives no transition. (b) A burst of
+    FLEET_BURST requests submitted at once into r0's one slot: its p50 must
+    lie above ``threshold_s``, and ``evaluate`` must fire the SLO once
+    (``slo_alert_fired`` in the port's ring, ``oim_slo_burn_rate`` at or
+    over the threshold). (c) ``reconcile.plan`` on the firing status must
+    return one spawn, ``alert:<slo>``; the phase's own ``ReplicaLauncher``
+    starts r1 with the same weights and the burst runs again, split over
+    r0 and r1 by outstanding requests: every stream equals r0's in (b) to
+    the bit, and the p50 falls. (d) Paced traffic, then ``evaluate`` past
+    the resolve hold must resolve, and ``plan`` past the scale-down hold
+    must drain one replica, r1 with a request resident and one queued: the
+    resident finishes its stream, one the drain closed "drained" is served
+    by r0 with the same stream, and r1's process exits 0."""
+    import dataclasses
+
+    from oim_tpu_torch.autoscale.launcher import ReplicaLauncher
+    from oim_tpu_torch.autoscale.reconcile import FleetSpec, ObservedReplica, ReconcileState, plan
+    from oim_tpu_torch.common import events
+    from oim_tpu_torch.common import metrics as M
+    from oim_tpu_torch.models import llama
+    from oim_tpu_torch.obs import merge
+    from oim_tpu_torch.obs.slo import SLO, SloEngine
+
+    t_phase = time.monotonic()
+    clocks = FLEET_CLOCKS
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=LAYERS)
+    fleet: dict = {}
+
+    class ProcessLauncher(ReplicaLauncher):
+        """Spawn starts a replica process and returns once it is ready
+        (weights drawn, engine built, one warm request per prefill
+        bucket); drain is the engine's graceful stop in that process."""
+
+        def __init__(self):
+            self.spawned, self.drained, self.ready_s, self.drain_s = [], [], {}, {}
+
+        def prestage(self, version: str) -> None:
+            pass
+
+        def spawn(self, version: str) -> str:
+            rid = f"r{len(self.spawned)}"
+            t0 = time.monotonic()
+            fleet[rid] = FleetReplica(rid, cfg, device)
+            self.spawned.append(rid)
+            boot = fleet[rid].reply("ready", FLEET_BOOT_TIMEOUT)
+            self.ready_s[rid] = {"spawn_to_ready_s": time.monotonic() - t0, "boot_s": boot}
+            return rid
+
+        def drain(self, replica_id: str) -> None:
+            self.drain_s[replica_id] = fleet[replica_id].stop(drain=True)
+            self.drained.append(replica_id)
+
+    launcher = ProcessLauncher()
+    slo_name = "first_token_p99"
+    seq0 = max((e.seq for e in events.recorder().events()), default=0)
+    seq = itertools.count()
+
+    def new_events(type_: str) -> list:
+        return [e for e in events.recorder().events(type_=type_) if e.seq > seq0]
+
+    def ingest(slos) -> None:
+        for rid, rep in fleet.items():
+            if rid not in launcher.drained:
+                slos.ingest(rid, rep.call("row"))
+
+    def run_paced(rep, reqs: list, what: str) -> None:
+        for r in reqs:
+            finish_all([rep.submit(next(seq), r)], [r], what)
+
+    paced = fleet_requests(cfg.vocab, FLEET_PACED, FLEET_SEED)
+    burst = fleet_requests(cfg.vocab, FLEET_BURST, FLEET_SEED + 1)
+    out: dict = {"engine": FLEET_ENGINE, "new_tokens": FLEET_NEW, "windows": FLEET_WINDOWS,
+                 "clocks": clocks, "objective": FLEET_OBJECTIVE}
+    try:
+        launcher.spawn("")
+        r0 = fleet["r0"]
+
+        # (a) The paced baseline and the threshold it sets.
+        before = r0.call("row")
+        run_paced(r0, paced, "paced")
+        paced_p99 = merge.quantile(hist_delta(r0.call("row")["hist"]["first_token"],
+                                              before["hist"]["first_token"]), 0.99)
+        bounds = M.SERVE_TOKEN_LATENCY.buckets
+        above = [b for b in bounds if b > FLEET_THRESHOLD_X * paced_p99]
+        if not math.isfinite(paced_p99) or not above:
+            fail(f"fleet SLO: paced first-token p99 {paced_p99} s leaves no bucket bound above "
+                 f"{FLEET_THRESHOLD_X}x it in {bounds}")
+        threshold_s = above[0]
+        slos = SloEngine([SLO(name=slo_name, kind="latency", objective=FLEET_OBJECTIVE,
+                              metric="first_token", threshold_s=threshold_s)], **FLEET_WINDOWS)
+        # The baseline row predates the paced run: the engine's first
+        # sample is r0's cumulative before it.
+        slos.ingest("r0", before)
+        if slos.evaluate(now=clocks["base"]):
+            fail("fleet SLO: a transition at the baseline sample")
+        ingest(slos)
+        moved = slos.evaluate(now=clocks["paced"])
+        if moved:
+            fail(f"fleet SLO: the paced run moved the SLO: {moved}")
+        out["paced"] = {"p99_s": paced_p99, "threshold_s": threshold_s,
+                        "burn": slos.status(slo_name)["burn_fast"]}
+        say(f"  r0 ready {launcher.ready_s['r0']['spawn_to_ready_s']:.3f} s after its spawn; "
+            f"(a) paced: {FLEET_PACED} requests one at a time on r0, first-token p99 "
+            f"{paced_p99:.4f} s; threshold_s {threshold_s} (first bucket bound above "
+            f"{FLEET_THRESHOLD_X}x); no transition")
+
+        # (b) The saturating burst on one replica.
+        t0 = time.monotonic()
+        solo, ft_one = finish_all([r0.submit(next(seq), r) for r in burst], burst, "burst on r0")
+        one_s = time.monotonic() - t0
+        p50_one, p99_one = pct(ft_one, 0.5), pct(ft_one, 0.99)
+        if not p50_one > threshold_s:
+            fail(f"fleet SLO: the burst's first-token p50 {p50_one:.4f} s is not above "
+                 f"threshold_s {threshold_s}: {FLEET_BURST} requests did not saturate one "
+                 f"slot (first tokens {ft_one})")
+        ingest(slos)
+        fired = slos.evaluate(now=clocks["burst"])
+        if [(t["slo"], t["transition"]) for t in fired] != [(slo_name, "fired")]:
+            fail(f"fleet SLO: the burst gave transitions {fired}, want one fired")
+        burn_gauge = M.SLO_BURN_RATE.labels(slo=slo_name).value
+        if len(new_events(events.SLO_ALERT_FIRED)) != 1 or burn_gauge < slos.burn_threshold:
+            fail(f"fleet SLO: slo_alert_fired {len(new_events(events.SLO_ALERT_FIRED))} times "
+                 f"in the port's ring, oim_slo_burn_rate {burn_gauge} (threshold "
+                 f"{slos.burn_threshold})")
+        out["burst_one"] = {"p50_s": p50_one, "p99_s": p99_one, "wall_s": one_s,
+                            "first_token_s": ft_one}
+        out["fired"] = {"burn_fast": fired[0]["burn_fast"], "burn_slow": fired[0]["burn_slow"],
+                        "burn_gauge": burn_gauge, "threshold": slos.burn_threshold,
+                        "status": slos.status(slo_name)}
+        say(f"  (b) burst: {FLEET_BURST} requests at once on r0 in {one_s:.3f} s, first-token "
+            f"p50 {p50_one:.4f} s p99 {p99_one:.4f} s; fired at burn fast "
+            f"{fired[0]['burn_fast']:.2f} slow {fired[0]['burn_slow']:.2f} (threshold "
+            f"{slos.burn_threshold}), oim_slo_burn_rate {burn_gauge:.2f}")
+
+        # (c) The scale-up decision, executed, and the burst on two replicas.
+        spec = FleetSpec(min_replicas=1, max_replicas=2, cooldown_s=5.0, scale_down_hold_s=10.0)
+        alerts = {n: slos.status(n) for n in slos.firing()}
+        actions, state = plan(spec, [ObservedReplica("r0")], alerts, clocks["burst"],
+                              ReconcileState())
+        if [(a.kind, a.reason) for a in actions] != [("spawn", f"alert:{slo_name}")]:
+            fail(f"fleet SLO: plan on the firing alert gave {actions}, want one spawn "
+                 f"alert:{slo_name}")
+        rid = launcher.spawn(actions[0].version)
+        t0 = time.monotonic()
+        futures, picks = [], []
+        for r in burst:
+            picks.append(min(fleet, key=lambda k: (fleet[k].outstanding(), k)))
+            futures.append(fleet[picks[-1]].submit(next(seq), r))
+        two, ft_two = finish_all(futures, burst, "burst on r0 and r1")
+        two_s = time.monotonic() - t0
+        diverged = [i for i, (a, b) in enumerate(zip(solo, two)) if a != b]
+        if diverged:
+            i = diverged[0]
+            fail(f"fleet SLO: {len(diverged)} of {FLEET_BURST} streams on two replicas differ "
+                 f"from r0's alone, the first (request {i}, on {picks[i]}) at token "
+                 f"{first_divergence(solo[i], two[i])}")
+        per = {k: picks.count(k) for k in fleet}
+        p50_two, p99_two = pct(ft_two, 0.5), pct(ft_two, 0.99)
+        if not p50_two < p50_one:
+            fail(f"fleet SLO: the burst's first-token p50 on two replicas {p50_two:.4f} s did "
+                 f"not fall below one replica's {p50_one:.4f} s")
+        ingest(slos)
+        moved = slos.evaluate(now=clocks["two"])
+        again, state = plan(spec, [ObservedReplica(k) for k in fleet],
+                            {n: slos.status(n) for n in slos.firing()}, clocks["two"], state)
+        if moved or again:
+            fail(f"fleet SLO: the episode moved on two replicas: transitions {moved}, "
+                 f"actions {again}")
+        out["spawn"] = {"action": dataclasses.asdict(actions[0]), "replica": rid,
+                        **launcher.ready_s[rid], "r0": launcher.ready_s["r0"],
+                        "target": state.target}
+        out["burst_two"] = {"p50_s": p50_two, "p99_s": p99_two, "wall_s": two_s,
+                            "first_token_s": ft_two, "requests": per,
+                            "streams_equal": FLEET_BURST}
+        say(f"  (c) plan: spawn {rid} ({actions[0].reason}), ready "
+            f"{launcher.ready_s[rid]['spawn_to_ready_s']:.3f} s after the spawn (boot "
+            f"{launcher.ready_s[rid]['boot_s']:.3f} s); the burst on r0+r1 in {two_s:.3f} s, "
+            f"first-token p50 {p50_two:.4f} s p99 {p99_two:.4f} s; {FLEET_BURST} streams "
+            f"equal r0's alone to the bit; requests by replica {per}")
+
+        # (d) Resolve, then one drain that loses no admitted request.
+        run_paced(r0, paced, "paced again")
+        ingest(slos)
+        quiet = slos.evaluate(now=clocks["quiet"]) + slos.evaluate(now=clocks["hold"])
+        if [(t["slo"], t["transition"]) for t in quiet] != [(slo_name, "resolved")] \
+                or slos.firing() or len(new_events(events.SLO_ALERT_RESOLVED)) != 1:
+            fail(f"fleet SLO: past the resolve hold the transitions were {quiet}, firing "
+                 f"{slos.firing()}")
+        held, state = plan(spec, [ObservedReplica(k) for k in fleet], {}, clocks["hold"], state)
+        if held:
+            fail(f"fleet SLO: plan drained before the scale-down hold: {held}")
+        # r1 holds a resident request and one queued behind it when the
+        # decision lands.
+        r1 = fleet[rid]
+        inflight = [r1.submit(next(seq), r) for r in burst[:2]]
+        deadline = time.monotonic() + RESULT_TIMEOUT
+        while True:
+            stats = {k: rep.call("stats") for k, rep in fleet.items()}
+            if stats[rid]["active_slots"] + stats[rid]["queue_depth"] == 2:
+                break
+            if time.monotonic() > deadline:
+                fail(f"fleet SLO: {rid} never held both requests: {stats[rid]}")
+            time.sleep(0.001)
+        observed = [ObservedReplica(k, score=st["queue_depth"] - st["free_slots"])
+                    for k, st in stats.items()]
+        t_down = clocks["hold"] + spec.scale_down_hold_s
+        drains, state = plan(spec, observed, {}, t_down, state)
+        if [(a.kind, a.replica_id, a.reason) for a in drains] != [("drain", rid, "idle")]:
+            fail(f"fleet SLO: plan past the scale-down hold gave {drains}, want one drain "
+                 f"of {rid}")
+        launcher.drain(drains[0].replica_id)
+        # Every admitted request finishes its stream; one the drain closed
+        # in the queue (no token emitted) is served again by r0.
+        ends = []
+        for i, f in enumerate(inflight):
+            got, reason, _ = f.result(timeout=RESULT_TIMEOUT)
+            ends.append(reason)
+            if reason == "drained" and not got:
+                [got], _ = finish_all([r0.submit(next(seq), burst[i])], [burst[i]],
+                                      "a request drained off r1, on r0")
+            elif reason != "length":
+                fail(f"fleet SLO: request {i} on the drained replica ended {reason!r} after "
+                     f"{len(got)} tokens")
+            if got != solo[i]:
+                fail(f"fleet SLO: request {i} of the drain ({reason}) gave another stream "
+                     f"than r0's alone, from token {first_divergence(solo[i], got)}")
+        if ends[0] != "length":
+            fail(f"fleet SLO: the drain's outcomes {ends}: the resident did not finish")
+        out["resolved"] = {"transitions": quiet, "status": slos.status(slo_name)}
+        out["drain"] = {"action": dataclasses.asdict(drains[0]), "drain_s": launcher.drain_s[rid],
+                        "outcomes": ends, "exit_code": r1.proc.exitcode, "target": state.target,
+                        "spawned": launcher.spawned, "drained": launcher.drained}
+        say(f"  (d) resolved by clock {clocks['hold']}; plan at {t_down}: drain {rid} (idle) "
+            f"in {launcher.drain_s[rid]:.3f} s, exit code {r1.proc.exitcode}; its requests "
+            f"ended {ends}, each stream equal to r0's alone (a 'drained' one served again "
+            f"by r0)")
+        r0.stop(drain=False)
+    finally:
+        for rep in fleet.values():
+            if rep.proc.is_alive():
+                rep.proc.kill()
+                rep.proc.join(timeout=30)
+    out["phase_s"] = time.monotonic() - t_phase
+    say(f"  phase 20: {out['phase_s']:.1f} s")
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -7054,7 +7509,11 @@ def main() -> int:
         "collapse in fresh sims on the card; the unarmed fault points' overhead")
     chaos = phase_chaos()
 
-    say("== 20. summary")
+    say("== 20. the fleet SLO plane on the card: a burst fires the first-token SLO, plan "
+        "spawns a second engine, resolve and drain")
+    fleet_slo = phase_fleet_slo()
+
+    say("== 21. summary")
     wire = sorted(m for m in sys.modules
                   if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
@@ -7086,6 +7545,7 @@ def main() -> int:
     say(json.dumps({"kv_handoff": handoff, "card": card}))
     say(json.dumps({"registry_stream": registry, "card": card}))
     say(json.dumps({"chaos": chaos, "card": card}))
+    say(json.dumps({"fleet_slo": fleet_slo, "card": card}))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

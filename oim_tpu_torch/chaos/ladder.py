@@ -65,13 +65,13 @@ shard_member_kill   SIGKILL a non-rank-0 member of     lease lapse flips
                                                        rotates to the
                                                        survivor; restage
                                                        = cache hit
+autoscale           latency SLO fires under load;      alert -> scale-up;
+                    leader autoscaler killed           standby takeover
+                    mid-episode                        by lease; resolve
+                                                       -> scale-down
 compound [slow]     promotion + drain + prefix-holder  all of the above,
                                                        overlapped
 ==================  =================================  =================
-
-The JAX ladder's ``autoscale`` rung (the SLO monitor and the autoscaler
-closing the loop) waits for the port of those two packages; selecting it
-raises ``ValueError``.
 
 The rungs that drive the engine alone (``ENGINE_RUNGS``: page-pool
 exhaustion and the draft collapse) run through ``run_engine_rungs`` over
@@ -704,6 +704,178 @@ def _run_rolling_restart_lite(sim: ClusterSim, rng: random.Random) -> dict:
     return report
 
 
+def _run_autoscale(sim: ClusterSim, rng: random.Random) -> dict:
+    """The thesis rung, the full closed loop: routed load saturates a
+    one-slot fleet, the monitor's burn-rate alert fires, the LEADER
+    autoscaler scales up through the sim's ReplicaLauncher seam — then
+    dies mid-episode, and the STANDBY claims the fleet row once the
+    leader's beat freezes, finishes the scale-up it inherited, and
+    rides the resolve into an idle scale-down. Zero client-visible
+    errors and byte-identical outputs across every wave; the alert, the
+    actuation, the takeover, the resolve and the decay all land in
+    declared order on /debug/events."""
+    from oim_tpu_torch.autoscale import Autoscaler, FleetSpec
+    from oim_tpu_torch.chaos.sim import SimReplicaLauncher, solo_tokens
+    from oim_tpu_torch.common.metrics import Registry
+    from oim_tpu_torch.common.telemetry import TelemetryRegistration
+    from oim_tpu_torch.obs.monitor import FleetMonitor
+    from oim_tpu_torch.obs.slo import SLO, SloEngine
+
+    sim.warm()
+    probe_rng = random.Random(rng.randrange(1 << 31))
+    # A small pool of UNIQUE requests cycled for the episode's whole
+    # duration: the identity sweep replays each unique request through
+    # solo generate() exactly once (a solo run costs ~a second on CPU,
+    # and each distinct shape a jit compile), then holds every routed
+    # occurrence to that reference.
+    pool = _reqs(rng, 12, prompt_len=(3, 4), max_new=(4, 5))
+    waves = [pool[:6], pool[6:]]
+
+    # The sensing half (obs/): a probe telemetry row whose first-token
+    # histogram is derived from the REAL fleet backlog — saturated
+    # one-slot engines queue, queued requests wait, waiting is slow
+    # first tokens. Deterministic, but honest: the alert can only
+    # resolve because added capacity actually drained the queues.
+    probe_hist = Registry().histogram(
+        "ft_seconds", buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                               0.1, 0.25, 0.5, 1.0, 2.5))
+
+    def collect() -> dict:
+        backlog = sum(r.engine.queue_len for r in sim.replicas if r.alive)
+        for _ in range(4):
+            v = probe_rng.uniform(0.3, 0.9) if backlog \
+                else probe_rng.uniform(0.002, 0.04)
+            probe_hist.observe(v)
+        return {"hist": {"first_token": probe_hist.merged_snapshot()}}
+
+    probe = TelemetryRegistration(
+        "probe", "serve", "127.0.0.1:0", sim.registry_address,
+        interval=5.0, pool=sim.pool, collect=collect)
+    monitor = FleetMonitor(
+        sim.registry_address,
+        SloEngine([SLO(name="first_token_p99", kind="latency",
+                       objective=0.99, metric="first_token",
+                       threshold_s=0.1)],
+                  fast_window_s=0.8, slow_window_s=2.4,
+                  burn_threshold=10.0, resolve_hold_s=0.3),
+        interval=0.15, pool=sim.pool)
+
+    # The acting half (autoscale/): a leader and a hot standby sharing
+    # ONE launcher (replica ids stay unique across the failover).
+    launcher = SimReplicaLauncher(sim)
+    spec = FleetSpec(min_replicas=1, max_replicas=3,
+                     cooldown_s=0.5, scale_down_hold_s=1.5)
+    scaler_a = Autoscaler(sim.registry_address, spec, launcher,
+                          autoscaler_id="as-a", interval=0.5,
+                          pool=sim.pool)
+    scaler_b = Autoscaler(sim.registry_address, spec, launcher,
+                          autoscaler_id="as-b", interval=0.5,
+                          pool=sim.pool)
+    stop_load = threading.Event()
+    load_done: list = []
+    load_errors: list = []
+
+    def load_loop() -> None:
+        i = 0
+        while not stop_load.is_set():
+            reqs = waves[i % len(waves)]
+            i += 1
+            results, errors = sim.routed_load(reqs, concurrency=6,
+                                              timeout=60)
+            load_done.append((reqs, results))
+            load_errors.extend(errors)
+
+    loader = threading.Thread(target=load_loop, daemon=True)
+    try:
+        monitor.start()
+        scaler_a.start()
+        assert wait_for(lambda: scaler_a.is_leader, timeout=15), \
+            "first autoscaler never took leadership of an empty fleet row"
+        scaler_b.start()
+        time.sleep(3 * scaler_b.interval)
+        assert not scaler_b.is_leader, \
+            "standby stole leadership from a live leader"
+        for _ in range(5):
+            probe.beat_once()  # healthy baseline observations
+        mark = sim.mark_faults()
+
+        def feed_until(event_type: str, timeout: float = 30.0) -> None:
+            """Beat the probe (real-backlog sensing) until the event
+            lands — the rung's clock is the probe's beat."""
+            deadline = time.monotonic() + timeout
+            while not any(e["seq"] > mark
+                          for e in sim.debug_events(event_type)):
+                assert time.monotonic() < deadline, \
+                    f"timed out waiting for {event_type}"
+                probe.beat_once()
+                time.sleep(0.05)
+
+        loader.start()
+        feed_until(events.SLO_ALERT_FIRED)
+        feed_until(events.AUTOSCALE_SCALE_UP)
+        # The leader dies mid-incident: crash semantics — its fleet row
+        # is abandoned frozen, never deleted. The standby must claim it
+        # via lease expiry / beat freeze, ADOPT the raised target, and
+        # finish the scale-up.
+        scaler_a.stop(deregister=False)
+        feed_until(events.AUTOSCALE_TAKEOVER)
+        assert wait_for(lambda: scaler_b.is_leader, timeout=10), \
+            "standby observed a frozen leader but never claimed the row"
+        # Capacity lands: every spawned replica registers ready. Load
+        # keeps running — the alert may not resolve while queues back up.
+        assert wait_for(
+            lambda: sum(1 for r in sim.table.replicas() if r.ready) >= 2,
+            timeout=30), "scale-up never produced a second ready replica"
+        stop_load.set()
+        loader.join(timeout=90)
+        assert not loader.is_alive(), "load loop never drained"
+        feed_until(events.SLO_ALERT_RESOLVED)
+        feed_until(events.AUTOSCALE_SCALE_DOWN, timeout=45.0)
+    finally:
+        stop_load.set()
+        scaler_a.stop(deregister=False)
+        scaler_b.stop(deregister=True)
+        monitor.stop()
+        probe.stop(deregister=True)
+        launcher.join()
+
+    assert not load_errors, \
+        f"client saw errors across the scaling episode: {load_errors[0]!r}"
+    # Waves repeat cyclically: compute each unique request's solo
+    # reference once, then hold every occurrence to it.
+    expected: dict = {}
+    checked = 0
+    for reqs, results in load_done:
+        for (prompt, n_new, temp, seed), toks in zip(reqs, results):
+            if toks is None:
+                continue
+            key = (tuple(prompt), n_new, temp, seed)
+            if key not in expected:
+                expected[key] = solo_tokens(prompt, n_new,
+                                            temperature=temp, seed=seed,
+                                            device=sim.device)
+            if toks != expected[key]:
+                raise AssertionError(
+                    f"routed output diverged from solo generate() for "
+                    f"prompt={prompt} temp={temp} seed={seed}: "
+                    f"{toks} != {expected[key]}")
+            checked += 1
+    ups = [e for e in sim.debug_events(events.AUTOSCALE_SCALE_UP)
+           if e["seq"] > mark]
+    takeovers = [e for e in sim.debug_events(events.AUTOSCALE_TAKEOVER)
+                 if e["seq"] > mark]
+    assert takeovers and takeovers[0]["attrs"]["autoscaler"] == "as-b", \
+        f"takeover not by the standby: {takeovers}"
+    # The standby inherited the incident's raised target, not min.
+    assert takeovers[0]["attrs"]["adopted_target"] >= 2, \
+        f"takeover drained the inherited capacity: {takeovers[0]}"
+    return {"waves": len(load_done),
+            "requests": sum(len(r) for r, _ in load_done),
+            "byte_identical": checked,
+            "scale_ups": len(ups),
+            "takeover_by": takeovers[0]["attrs"]["autoscaler"]}
+
+
 def _run_shard_member_kill(sim: ClusterSim, rng: random.Random) -> dict:
     """SIGKILL one non-rank-0 member of the 2-way sharded replica r0
     mid-stream: its ``serve/r0.member.1`` lease outlives the corpse, and
@@ -850,6 +1022,11 @@ RUNGS: tuple[Rung, ...] = (
          _run_shard_member_kill,
          dict(replicas=2, controllers=1,
               engine_kwargs=[dict(shard=2), dict()])),
+    Rung("autoscale",
+         (events.SLO_ALERT_FIRED, events.AUTOSCALE_SCALE_UP,
+          events.AUTOSCALE_TAKEOVER, events.SLO_ALERT_RESOLVED,
+          events.AUTOSCALE_SCALE_DOWN),
+         _run_autoscale, dict(replicas=1, max_batch=1)),
     Rung("compound",
          (events.REGISTRY_PROMOTION, events.REPLICA_DRAIN,
           events.ROUTER_MARK_FAILED, events.ROUTER_RETRY),
@@ -870,10 +1047,6 @@ SMOKE_RUNGS = ("replica_kill", "channel_blackhole", "pool_exhaustion",
                "registry_rolling_restart")
 
 
-# The JAX ladder's rung that waits for the port of the SLO monitor
-# (obs/monitor.py, obs/slo.py) and the autoscaler (autoscale/).
-DEFERRED_RUNGS = ("autoscale",)
-
 # The rungs that drive the engine alone: they run over an EngineSim
 # (no grpcio, no protobuf) through run_engine_rungs, on the card too.
 ENGINE_RUNGS = ("pool_exhaustion", "draft_collapse")
@@ -881,12 +1054,6 @@ ENGINE_RUNGS = ("pool_exhaustion", "draft_collapse")
 
 def _select(names, include_slow: bool) -> list[Rung]:
     if names is not None:
-        deferred = set(names) & set(DEFERRED_RUNGS)
-        if deferred:
-            raise ValueError(
-                f"rung(s) {sorted(deferred)} wait for the port of the SLO "
-                f"monitor and the autoscaler (obs/, autoscale/); the port's "
-                f"rungs: {[r.name for r in RUNGS]}")
         unknown = set(names) - {r.name for r in RUNGS}
         if unknown:
             raise ValueError(f"unknown rung name(s) {sorted(unknown)}; "

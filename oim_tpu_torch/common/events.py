@@ -15,8 +15,7 @@ Event attribute values pass through ``redact_text`` at EMIT time, so no
 exit can leak a credential. ``oim_events_total{type}`` counts emissions,
 so rates survive the ring's wrap.
 
-The port declares the event types its own modules emit; the SLO plane's
-and the autoscaler's wait for the code that emits them.
+The port declares the event types its own modules emit.
 """
 
 from __future__ import annotations
@@ -72,6 +71,19 @@ SPEC_FALLBACK = "spec_fallback"
 KV_CHAIN_EXPORTED = "kv_chain_exported"
 KV_PEER_FETCH = "kv_peer_fetch"
 KV_FETCH_FALLBACK = "kv_fetch_fallback"
+# Fleet SLO plane (obs/slo.py): a declared SLO's multi-window burn rate
+# crossed the alert threshold / stayed back under it for the resolve
+# hold. One fired per episode, so fired and resolved arrive in pairs.
+SLO_ALERT_FIRED = "slo_alert_fired"
+SLO_ALERT_RESOLVED = "slo_alert_resolved"
+# Fleet actuator (autoscale/daemon.py): a spawn toward a higher target,
+# a drain toward a lower one (reason="upgrade" for the stale half of an
+# upgrade flip), one replica's version rollover, and an autoscaler
+# claiming the fleet/ leadership row.
+AUTOSCALE_SCALE_UP = "autoscale_scale_up"
+AUTOSCALE_SCALE_DOWN = "autoscale_scale_down"
+AUTOSCALE_UPGRADE_FLIP = "autoscale_upgrade_flip"
+AUTOSCALE_TAKEOVER = "autoscale_takeover"
 SHARD_MEMBER_LOST = "shard_member_lost"
 SHARD_MEMBER_HEALED = "shard_member_healed"
 

@@ -15,10 +15,11 @@ the stage cache (``controller/``, ``data/staging.py``,
 the serving engine, page pool, prefix store and host tier (``serve/``),
 the control plane (the controller, the feeder, the channel pool and the
 RPC interceptors), the registry and its replication (``registry/``), the
-request router (``router/``) and the flight recorder's counter. Each
-equals its JAX namesake in name, type, help, label names and buckets.
-The SLO, autoscaler and telemetry-merge families wait for the code that
-records them.
+request router (``router/``), the flight recorder's counter, the fleet
+histogram merge (``obs/merge.py``), the SLO engine (``obs/slo.py``) and
+the autoscaler (``autoscale/daemon.py``).
+Each equals its JAX namesake in name, type, help, label names and
+buckets.
 """
 
 from __future__ import annotations
@@ -782,6 +783,55 @@ EVENTS_TOTAL = DEFAULT.counter(
     "feeder_failover, registry_promotion, router_retry, replica_drain, "
     "stage_cache_eviction, slot_evicted, ...)",
     labelnames=("type",))
+# Fleet histogram merge (obs/merge.py): one fold, timed by mode.
+TOP_MERGE_SECONDS = DEFAULT.histogram(
+    "oim_top_merge_seconds",
+    "one fleet-histogram fold (obs/merge.py) by mode: scratch = "
+    "re-merge every contributor snapshot, incremental = apply only "
+    "changed rows to the running per-grid aggregate (what --top "
+    "--watch re-renders cost)",
+    labelnames=("mode",),
+    buckets=(0.00001, 0.000025, 0.00005, 0.0001, 0.00025, 0.0005,
+             0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25))
+# Fleet SLO plane (obs/slo.py: burn rates over fleet-merged telemetry
+# snapshots; the oim-monitor daemon records these).
+SLO_BURN_RATE = DEFAULT.gauge(
+    "oim_slo_burn_rate",
+    "fast-window error-budget burn rate per declared SLO (bad_fraction "
+    "/ error_budget over the fast window; the alert condition ANDs this "
+    "with the slow window — Google-SRE multi-window burn)",
+    labelnames=("slo",))
+SLO_ALERTS_FIRING = DEFAULT.gauge(
+    "oim_slo_alerts_firing",
+    "SLO alerts currently in a firing episode on this monitor (each is "
+    "mirrored as a TTL-leased alert/<name> registry row)")
+# Fleet actuator (autoscale/daemon.py: the SLO-driven reconcile loop; the
+# oim-autoscaler daemon records these while it holds leadership).
+AUTOSCALE_REPLICAS_DESIRED = DEFAULT.gauge(
+    "oim_autoscale_replicas_desired",
+    "the reconciler's current replica target: the declared minimum, "
+    "stepped up one per cooldown while an alert/ row fires and decayed "
+    "back after the alert-free hold (mirrored in the fleet/ desired-"
+    "state row `oimctl --top` banners)")
+AUTOSCALE_REPLICAS_READY = DEFAULT.gauge(
+    "oim_autoscale_replicas_ready",
+    "serve/ rows the autoscaler observes ready:true — desired minus "
+    "ready is the fleet's actuation lag, the gap bench.py --autoscale "
+    "times end to end")
+AUTOSCALE_ACTIONS_TOTAL = DEFAULT.counter(
+    "oim_autoscale_actions_total",
+    "reconcile actions executed through the ReplicaLauncher, by action "
+    "(spawn = boot a replica toward the target, drain = SIGTERM-contract "
+    "drain of the worst-scoring replica; upgrade flips are a spawn + a "
+    "drain with reason=upgrade)",
+    labelnames=("action",))
+AUTOSCALE_ALERT_TO_READY = DEFAULT.histogram(
+    "oim_autoscale_alert_to_ready_seconds",
+    "seconds from an alert/ row first observed to every replica of the "
+    "raised target heartbeating ready:true — THE number the prestaged "
+    "O(1) boot path exists to minimize (spawn/prestage/first-ready "
+    "breakdown in bench.py --autoscale)",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0))
 
 
 class MetricsServer:

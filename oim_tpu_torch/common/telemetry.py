@@ -25,6 +25,10 @@ extends the ``serve/`` reservation pattern to this namespace
 (registry.py ``_may_set``): an identity may write only its OWN
 ``telemetry/<own-id>`` row (or a dot-suffixed variant for co-located
 processes), and no controller may claim the bare id ``telemetry``.
+
+The row's metrics body, ``metrics_snapshot``, lives in
+``common/snapshot.py``, which loads without grpcio (the SLO plane's
+decision core runs where grpcio is not installed); this module publishes it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from oim_tpu_torch.common.backoff import ExponentialBackoff
 from oim_tpu_torch.common.endpoints import FAILOVER_CODES, RegistryEndpoints
 from oim_tpu_torch.common.logging import from_context
 from oim_tpu_torch.common.pathutil import REGISTRY_TELEMETRY
+from oim_tpu_torch.common.snapshot import metrics_snapshot
 from oim_tpu_torch.common.tlsutil import TLSConfig
 from oim_tpu_torch.spec import oim_pb2 as pb
 from oim_tpu_torch.spec.services import RegistryStub
@@ -50,53 +55,6 @@ def telemetry_key(telemetry_id: str) -> str:
         raise ValueError(f"telemetry id must be a single path component, "
                          f"got {telemetry_id!r}")
     return f"{REGISTRY_TELEMETRY}/{telemetry_id}"
-
-
-def metrics_snapshot() -> dict:
-    """The fleet-mergeable metrics payload a telemetry row carries each
-    beat (oim_tpu/obs/merge.py snapshot format): cumulative bucket
-    snapshots of the latency histograms the SLO plane merges, plus the
-    ``requests_total{outcome}`` counters the availability SLO needs.
-
-    Every daemon publishes ``rpc`` (the interceptors record it on every
-    process); the serve-side series ride only when they have
-    observations (a router's zero first-token histogram is dead weight
-    in every heartbeat, and absence is what keeps non-serving roles'
-    rows small). A pre-upgrade daemon simply publishes no ``hist`` at
-    all — consumers dash-degrade (the mixed-version stance).
-
-    The ``rpc`` series EXCLUDES the registry row-renewal methods
-    (SetValue / Heartbeat): the publisher's own beat records an RPC
-    latency sample, so including them would make every snapshot differ
-    from the last and silently demote every value-stable row from
-    batched Heartbeat renewal back to publish-every-beat — the
-    instrument observing itself. The data-path methods the RPC SLO
-    cares about (Generate, ReadVolume, Watch, MapVolume, ...) all
-    ride."""
-    from oim_tpu_torch.common import metrics as M
-
-    renewal = {"oim.v1.Registry/SetValue", "oim.v1.Registry/Heartbeat"}
-    hist = {
-        "rpc": M.RPC_LATENCY.merged_snapshot(
-            skip=lambda labels: labels.get("method") in renewal),
-    }
-    for key, family, labels in (
-            ("first_token", M.SERVE_TOKEN_LATENCY, {"kind": "first"}),
-            ("inter_token", M.SERVE_TOKEN_LATENCY, {"kind": "next"}),
-            ("queue_wait", M.SERVE_QUEUE_WAIT, None),
-    ):
-        snap = family.merged_snapshot(labels)
-        if snap["counts"][-1] > 0:
-            hist[key] = snap
-    payload: dict = {"hist": hist}
-    requests = {
-        key[0]: value
-        for key, value in M.SERVE_REQUESTS_TOTAL.labeled_values().items()
-        if value > 0
-    }
-    if requests:
-        payload["counters"] = {"requests_total": requests}
-    return payload
 
 
 class RegistryRowPublisher:

@@ -2,8 +2,9 @@
 ``oim_tpu``'s on the CPU.
 
 * The port's rung table equals JAX's (name, ``expect``, ``sim_kwargs``,
-  ``slow``) but for the ``autoscale`` rung, which waits for the port of
-  the SLO monitor and the autoscaler; ``SMOKE_RUNGS`` equals JAX's.
+  ``slow``), the ``autoscale`` rung included; ``SMOKE_RUNGS`` equals
+  JAX's. The ``autoscale`` rung itself converges in
+  tests/test_torch_autoscale_rung.py.
 * Each smoke rung converges over the port's engines, registry and router
   on the CPU: together their signatures are tests/test_chaos_smoke.py's
   list, each census ran, and the unarmed fault points are free
@@ -82,12 +83,10 @@ def _shape(rung) -> tuple:
 # --------------------------------------------------------------- tables ----
 
 
-def test_rungs_equal_jax_but_the_deferred_autoscale():
-    port = [_shape(r) for r in ladder.RUNGS]
-    ref = [_shape(r) for r in jladder.RUNGS if r.name != "autoscale"]
-    assert port == ref
-    assert [r.name for r in jladder.RUNGS if r.name not in {n for n, *_ in port}] == \
-        ["autoscale"] == list(ladder.DEFERRED_RUNGS)
+def test_rungs_equal_jax():
+    assert [_shape(r) for r in ladder.RUNGS] == [_shape(r) for r in jladder.RUNGS]
+    assert "autoscale" in {r.name for r in ladder.RUNGS}
+    assert not hasattr(ladder, "DEFERRED_RUNGS")
     assert ladder.DEFAULT_SEED == jladder.DEFAULT_SEED
 
 
@@ -103,9 +102,6 @@ def test_selection_errors_match_jax():
             mod.run_ladder(names=["no_such_rung"])
         with pytest.raises(ValueError, match="no rungs selected"):
             mod.run_ladder(names=["compound"], include_slow=False)
-    with pytest.raises(ValueError, match="wait for the port") as err:
-        ladder.run_ladder(names=["autoscale"])
-    assert "unknown" not in str(err.value)
     with pytest.raises(ValueError, match="need the gRPC cluster"):
         ladder.run_engine_rungs(names=["pool_exhaustion", "replica_kill"], device="cpu")
 

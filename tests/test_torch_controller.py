@@ -562,7 +562,7 @@ GRPC_SURFACE = {
     "cli/oim_serve.py", "feeder/service.py", "parallel/bootstrap.py",
     "registry/registry.py", "registry/replication.py", "registry/quorum.py",
     "registry/watch.py", "router/table.py", "router/router.py",
-    "chaos/sim.py", "chaos/ladder.py"}
+    "chaos/sim.py", "chaos/ladder.py", "obs/monitor.py", "autoscale/daemon.py"}
 # Pillow is not on the card machine either: only the image helpers import
 # it, inside the functions the CPU's image feeds call.
 PILLOW_USERS = {"data/readers.py"}

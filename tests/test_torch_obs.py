@@ -47,7 +47,7 @@ def _shape(family) -> tuple:
 
 
 def test_the_port_declares_the_families_of_its_slice():
-    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 79
+    assert len(PORT_FAMILIES) == len(tmetrics.DEFAULT._metrics) == 86
     assert {getattr(tmetrics, n).name for n in PORT_FAMILIES} == set(tmetrics.DEFAULT._metrics)
 
 
@@ -166,7 +166,9 @@ def test_event_types_are_jax_types():
                          "KV_FETCH_FALLBACK", "LEASE_EXPIRED", "REGISTRY_PROMOTION",
                          "REGISTRY_DEMOTION", "REGISTRY_ELECTION", "REGISTRY_STEPDOWN",
                          "WATCH_STREAM_SHED", "ROUTER_RETRY", "ROUTER_MARK_FAILED",
-                         "ROUTER_TABLE_STALE", "ROUTER_TABLE_RECOVERED"}
+                         "ROUTER_TABLE_STALE", "ROUTER_TABLE_RECOVERED", "SLO_ALERT_FIRED",
+                         "SLO_ALERT_RESOLVED", "AUTOSCALE_SCALE_UP", "AUTOSCALE_SCALE_DOWN",
+                         "AUTOSCALE_UPGRADE_FLIP", "AUTOSCALE_TAKEOVER"}
     assert tevents.DEFAULT_CAPACITY == jevents.DEFAULT_CAPACITY
 
 

@@ -11,8 +11,8 @@ values, event types (in order), span names and fault-point outcomes.
 * ``read_into``, ``stream``, ``read_object`` and ``read_range`` against a
   local file and an in-test HTTP server.
 * The trainer's gauges and ``train.step`` spans on llama-tiny and
-  llama-tiny-moe, and JAX's autopsy reading a request from the port's
-  ``/debug`` endpoints.
+  llama-tiny-moe, and JAX's autopsy and the port's (``obs/autopsy.py``)
+  reading a request from either package's ``/debug`` endpoints.
 * Drift and list checks: every family the port declares is recorded by a
   module of the port, and every family, event type, span name and fault
   point the JAX package records at the ported sites (the control plane's
@@ -67,6 +67,7 @@ from oim_tpu_torch.controller import CUDABackend, MallocBackend, StagedVolume
 from oim_tpu_torch.data import objectstore as tobjectstore
 from oim_tpu_torch.data import staging as tstaging
 from oim_tpu_torch.models import llama as tllama
+from oim_tpu_torch.obs import autopsy as tautopsy
 from oim_tpu_torch.serve import engine as tengine
 from oim_tpu_torch.train import trainer as ttrainer
 
@@ -82,13 +83,19 @@ PKGS = (JAX, PORT)
 
 PORT_FAMILIES = set(tmetrics.DEFAULT._metrics)
 # The control plane's families (RPCs, the feeder's windows, channel pools,
-# heartbeats) are compared in test_torch_feeder.py. This file's workloads
-# make no RPC, and a stream another test file left in this process may
-# still end (and count) during one of them, so its reads leave them out.
+# heartbeats) are compared in test_torch_feeder.py; the registry's, the
+# router's, the SLO plane's and the autoscaler's in test_torch_registry.py,
+# test_torch_chaos.py, test_torch_fleet_slo.py and test_torch_autoscale.py.
+# This file's workloads make no RPC, and a stream another test file left in
+# this process may still end (or resync, and count) during one of them, so
+# its reads leave them out.
 CONTROL_PLANE_FAMILIES = {
     "oim_rpc_latency_seconds", "oim_rpc_total", "oim_window_path_total",
     "oim_window_gbps", "oim_channel_pool_size", "oim_heartbeat_rtt_seconds",
-    "oim_feeder_failovers_total", "oim_stage_wait_seconds"}
+    "oim_feeder_failovers_total", "oim_stage_wait_seconds"} | {
+    n for n in PORT_FAMILIES if n.startswith((
+        "oim_registry_", "oim_replication_", "oim_watch_", "oim_lease_", "oim_proxy_",
+        "oim_router_", "oim_slo_", "oim_autoscale_", "oim_top_merge_"))}
 
 # Sites of the ported modules whose code the port does not have yet, each
 # with the queue item (ROADMAP.md) that brings it.
@@ -121,6 +128,9 @@ PORTED_SITES = {
     "oim_tpu/registry/watch.py": "oim_tpu_torch/registry/watch.py",
     "oim_tpu/router/table.py": "oim_tpu_torch/router/table.py",
     "oim_tpu/router/router.py": "oim_tpu_torch/router/router.py",
+    "oim_tpu/obs/merge.py": "oim_tpu_torch/obs/merge.py",
+    "oim_tpu/obs/slo.py": "oim_tpu_torch/obs/slo.py",
+    "oim_tpu/autoscale/daemon.py": "oim_tpu_torch/autoscale/daemon.py",
 }
 
 
@@ -469,10 +479,14 @@ def test_autopsy_reads_the_ports_spans_as_it_reads_jax(model):
             eng.stop(quiet=True)
             rendered = pkg.M.DEFAULT.render(exemplars=True)
             collected = autopsy.collect(root.trace_id, [f"127.0.0.1:{srv.port}"])
+            tcollected = tautopsy.collect(root.trace_id, [f"127.0.0.1:{srv.port}"])
         finally:
             srv.stop()
         assert f'trace_id="{root.trace_id}"' in rendered
+        assert tcollected == collected
         reports[pkg.name] = autopsy.analyze(collected)
+        assert tautopsy.analyze(tcollected) == reports[pkg.name]
+        assert tautopsy.render(reports[pkg.name]) == autopsy.render(reports[pkg.name])
     jrep, trep = reports["jax"], reports["port"]
     assert trep["root"] == jrep["root"] == "serve.generate"
     shape = [(p["name"], p["detail"].split(",")[0]) for p in trep["phases"]]
