@@ -85,6 +85,18 @@ Phases, in order; any failure exits nonzero:
    must equal ``host_stats()``, the pages-used gauge read 0 after drain
    and eviction, and the span file hold one ``serve.queue_wait``, one
    ``serve.prefill`` and one ``serve.decode`` span for each request.
+   While that server is up, the port's ``oimctl`` reads it back
+   (``check_oimctl``; the cancelled request is submitted under a root span
+   of its own, as ``oim-serve``'s handler opens one): ``--metrics`` must
+   exit 0; ``parse_prometheus_text`` must give every sample of one scrape
+   the value ``parse_metrics`` gives; the first-token histogram's count,
+   p50 and p99 as ``--metrics`` prints them must equal
+   ``_histogram_quantile`` over the engine's in-process histogram;
+   ``top_row`` must read those quantiles x1000 as FIRST-TOK and
+   ``render_top`` hold the row; ``--events --trace`` must list the
+   cancelled request's eviction and ``--type`` keep that type alone. It
+   prints one ``--metrics`` call's and one ``top_row``'s time beside the
+   card line.
    Then ``serve.decode`` is armed on a llama.tiny engine on the card:
    every request must end "error" and a later submit be refused.
    ``--profile`` adds a torch.profiler breakdown of one 8-row decode step
@@ -473,7 +485,8 @@ Phases, in order; any failure exits nonzero:
    p50 and p99, spawn-to-ready and drain times, the phase's wall time,
    and the ``fleet_slo`` JSON line.
 21. no ``grpc`` or ``google.protobuf`` module loaded by the run (the
-   card's path needs neither); the host cost of one ``Histogram.observe``
+   card's path needs neither), the port's ``oimctl`` among the modules it
+   imported; the host cost of one ``Histogram.observe``
    and one ``events.emit``;
    the main-path, serve, oim_fed, resnet, moe and sources lines, the
    ``obs`` line (every phase's read-backs, phase 5's step_s and phase
@@ -1179,6 +1192,141 @@ def check_burst(obs: ServeObs, reqs: list, what: str) -> tuple[dict, dict]:
     return after, got
 
 
+def _cumulative(child) -> list:
+    """A histogram child's (le, cumulative count) pairs, +Inf last: the
+    buckets a scrape of it parses to."""
+    bounds, counts, total = child.bucket_snapshot()
+    out = list(zip(bounds, itertools.accumulate(float(n) for n in counts)))
+    return out + [(math.inf, float(total))]
+
+
+def oimctl_main(argv: list) -> tuple[str, float]:
+    """``oimctl.main(argv)`` of the port: its standard output and seconds.
+    It must return 0; the process's logger is put back after it."""
+    from oim_tpu_torch.cli import oimctl
+    from oim_tpu_torch.common import logging as oim_logging
+
+    buf = io.StringIO()
+    prev = oim_logging.set_global(oim_logging.Logger())
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = oimctl.main([*argv, "--log-level", "error"])
+        seconds = time.perf_counter() - t0
+    finally:
+        oim_logging.set_global(prev)
+    if rc != 0:
+        fail(f"oimctl {' '.join(argv)} exited {rc}")
+    return buf.getvalue(), seconds
+
+
+def check_oimctl(obs: ServeObs, cancel_trace: str, what: str) -> dict:
+    """The burst's MetricsServer, still up, read back through the port's
+    ``oimctl``: (a) ``--metrics`` exits 0; (b) ``parse_prometheus_text`` and
+    this script's ``parse_metrics`` read every sample of one scrape alike;
+    (c) the first-token histogram's count, p50 and p99, as ``--metrics``
+    prints them, equal ``_histogram_quantile`` over the engine's in-process
+    histogram; (d) ``top_row`` reads those quantiles x1000 as FIRST-TOK and
+    ``render_top`` holds the row; (e) ``--events --trace`` lists the
+    cancelled request's eviction and ``--type`` keeps that type alone.
+    The engine is idle, so no sample moves between the reads."""
+    from oim_tpu_torch.cli import oimctl
+    from oim_tpu_torch.common import events
+    from oim_tpu_torch.common import metrics as M
+
+    target = f"127.0.0.1:{obs.server.port}"
+    out = {}
+    # (a), timed.
+    printed, out["metrics_call_s"] = oimctl_main(["--metrics", target])
+
+    # (b) one scrape in the OpenMetrics form oimctl asks for (exemplars on).
+    text = oimctl._http_get(f"http://{target}/metrics")
+    _, _, samples = oimctl.parse_prometheus_text(text)
+    theirs = {(n, tuple(sorted(labels.items()))): v for n, labels, v in samples}
+    mine = parse_metrics(text)
+    differ = [k for k in set(theirs) | set(mine)
+              if not (k in theirs and k in mine and (theirs[k] == mine[k] or (
+                  math.isnan(theirs[k]) and math.isnan(mine[k]))))]
+    say(f"  oimctl: one scrape, {len(samples)} samples by oimctl's parser, {len(mine)} by "
+        f"parse_metrics, {len(differ)} differing")
+    if differ or len(samples) != len(theirs):
+        fail(f"{what}: oimctl's parser and parse_metrics part on {sorted(differ)[:5]} "
+             f"({len(samples)} samples, {len(theirs)} distinct)")
+    out["samples"] = len(samples)
+
+    # (c) the first-token family as --metrics prints it, series by series.
+    lines = printed.splitlines()
+    head = next((i for i, line in enumerate(lines)
+                 if line.startswith(M.SERVE_FIRST_TOKEN.name + " [histogram]")), None)
+    if head is None:
+        fail(f"{what}: --metrics printed no {M.SERVE_FIRST_TOKEN.name} family")
+    series = {}
+    for line in lines[head + 1:]:
+        if not line.startswith("  "):
+            break
+        m = re.match(r'  \{prefix="(\w+)"\} count=(\S+) mean=\S+s p50~(\S+)s p99~(\S+)s$', line)
+        if m is None:
+            fail(f"{what}: unreadable --metrics line {line!r}")
+        series[m.group(1)] = m.group(2, 3, 4)
+    want = {}
+    merged = None
+    for prefix in ("hit", "miss"):  # the burst has both (check_burst's prefix hits)
+        buckets = _cumulative(M.SERVE_FIRST_TOKEN.labels(prefix=prefix))
+        merged = buckets if merged is None else [
+            (le, a + b) for (le, a), (_, b) in zip(merged, buckets)]
+        want[prefix] = (f"{buckets[-1][1]:g}",
+                        f"{oimctl._histogram_quantile(buckets, 0.5):.6g}",
+                        f"{oimctl._histogram_quantile(buckets, 0.99):.6g}")
+    say(f"  oimctl --metrics: {M.SERVE_FIRST_TOKEN.name} (count, p50 s, p99 s) by prefix "
+        f"{series}; in process {want}")
+    if series != want or not want:
+        fail(f"{what}: --metrics prints {series}, the engine's histogram holds {want}")
+    out["first_token"] = {k: {"count": float(c), "p50_s": float(a), "p99_s": float(b)}
+                          for k, (c, a, b) in series.items()}
+
+    # (d) the --top row of this replica. FIRST-TOK reads the kind="first"
+    # token latency, which observes what the prefix split observes.
+    first = _cumulative(M.SERVE_TOKEN_LATENCY.labels(kind="first"))
+    if first != merged:
+        fail(f"{what}: the first-token latency buckets {first} are not the prefix split's "
+             f"sum {merged}")
+    t0 = time.perf_counter()
+    row = oimctl.top_row("serve/chip-smoke", "ALIVE", "serve", target)
+    out["top_row_s"] = time.perf_counter() - t0
+    ft = tuple(oimctl._histogram_quantile(first, q) * 1e3 for q in (0.5, 0.99))
+    table = oimctl.render_top([row])
+    cell = f"{ft[0]:.1f}/{ft[1]:.1f}"
+    shown = [line for line in table.splitlines()
+             if line.startswith("serve/chip-smoke ") and f" {cell} " in line]
+    say(f"  oimctl top_row: status {row['status']}, FIRST-TOK {row['ft_ms']} ms (in process "
+        f"{ft}), events {row['events']}")
+    if row["status"] != "ALIVE" or tuple(row["ft_ms"]) != ft or len(shown) != 1:
+        fail(f"{what}: top_row reads {row}, want FIRST-TOK {ft} ms; table:\n{table}")
+    out["ft_ms"] = list(ft)
+
+    # (e) the flight recorder, by trace and by type.
+    by_trace, _ = oimctl_main(["--events", target, "--trace", cancel_trace])
+    cols = [line.split("\t") for line in by_trace.splitlines()]
+    evicted = [c for c in cols if len(c) == 4 and c[1:3] == [events.SLOT_EVICTED, cancel_trace]
+               and "reason=cancelled" in c[3].split()]
+    if len(evicted) != 1 or any(len(c) != 4 or c[2] != cancel_trace for c in cols):
+        fail(f"{what}: --events --trace {cancel_trace} printed:\n{by_trace}")
+    by_type, _ = oimctl_main(["--events", target, "--type", events.SLOT_EVICTED])
+    types = [(line.split("\t") + ["", ""])[1] for line in by_type.splitlines()]
+    ring = events.recorder().events(type_=events.SLOT_EVICTED)
+    both, _ = oimctl_main(["--events", target, "--trace", cancel_trace,
+                           "--type", events.SLOT_EVICTED])
+    say(f"  oimctl --events: {len(cols)} on the cancelled request's trace, its eviction "
+        f"among them; {len(types)} of type {events.SLOT_EVICTED} (the ring holds "
+        f"{len(ring)}); trace and type: {len(both.splitlines())}")
+    if set(types) != {events.SLOT_EVICTED} or len(types) != len(ring) \
+            or len(both.splitlines()) != 1:
+        fail(f"{what}: --events --type {events.SLOT_EVICTED} printed {types}, the ring holds "
+             f"{len(ring)}; with --trace: {both!r}")
+    out["events_on_trace"], out["events_of_type"] = len(cols), len(types)
+    return out
+
+
 def check_phase_spans(obs: ServeObs, reqs: list, what: str) -> dict:
     """One serve.queue_wait span for each admitted request and one
     serve.decode span for each request with more than one token."""
@@ -1482,6 +1630,7 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     import torch
 
     from oim_tpu_torch import kernels
+    from oim_tpu_torch.common import tracing
     from oim_tpu_torch.models import generate as gen
     from oim_tpu_torch.serve import ServeEngine
 
@@ -1499,7 +1648,14 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     alone["out"] = alone["handle"].result(timeout=RESULT_TIMEOUT)
     rest = [r for r in reqs if r is not alone]
     for r in rest:
-        r["handle"] = _submit(eng, r)
+        if r["name"] == SERVE_CANCEL:
+            # A root span of its own, as oim-serve's handler opens one: the
+            # request's events carry its trace id (oimctl --events --trace).
+            with tracing.start_span("chip_smoke.request") as root:
+                r["handle"] = _submit(eng, r)
+            r["trace_id"] = root.trace_id
+        else:
+            r["handle"] = _submit(eng, r)
 
     def cancel_after(r):
         out = []
@@ -1561,6 +1717,9 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
         obs_out["inter_token"][f"p{q * 100:.0f}"] = {
             "histogram_le_s": bounds[i], "host_s": host}
     obs_out["prefix"] = prefix
+    obs_out["oimctl"] = check_oimctl(obs, by[SERVE_CANCEL]["trace_id"], "serving")
+    say(f"  oimctl read-back: one --metrics call {obs_out['oimctl']['metrics_call_s'] * 1e3:.1f}"
+        f" ms, one top_row {obs_out['oimctl']['top_row_s'] * 1e3:.1f} ms ({card_line()})")
 
     freed = eng.evict_prefix_store()  # the engine is idle: every request ended
     host = eng.host_stats()
@@ -7519,6 +7678,8 @@ def main() -> int:
     say(f"  grpc and protobuf modules loaded by the run: {wire or 'none'}")
     if wire:
         fail(f"the card's path loaded the gRPC surface: {wire[:5]}")
+    if "oim_tpu_torch.cli.oimctl" not in sys.modules:
+        fail("phase 7's oimctl read-back did not import the port's oimctl")
     fed["grpc_loaded"] = False
     obs = {"main_path": {"step_s": main["step_s"], **main.pop("obs")},
            "serve": {"decode_step_ms": serve["decode_step_ms"], **serve.pop("obs")},
