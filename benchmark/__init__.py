@@ -1,0 +1,8 @@
+"""The benchmark of ``oim_tpu_torch`` on NVIDIA GPUs.
+
+``python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` and prints one JSON
+line. Everything that belongs to one configuration, traffic mix or
+per-layer metric is a file of its own (``configs/``, ``traffic/``,
+``metrics/``) that the harness finds by the name ``BENCHMARK.json`` gives.
+"""
