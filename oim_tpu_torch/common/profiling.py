@@ -4,7 +4,9 @@ of the hot region, as the JAX package takes a ``jax.profiler`` one.
 Usage: ``with profile_trace(dir):`` around the region, or the ``--profile
 DIR`` flag of the trainer CLI. The trace (host ops, and the card's kernels
 and copies where there is a card) is written to DIR as a Chrome trace
-(``chrome://tracing`` or Perfetto). An empty DIR is a no-op.
+(``chrome://tracing`` or Perfetto), named ``*.trace.json`` so that
+``tracing.merge_trace_dir`` over a ``--trace-dir`` that holds it puts it on
+one timeline with the spans. An empty DIR is a no-op.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def profile_trace(trace_dir: str | None):
         try:
             prof.__exit__(None, None, None)
             os.makedirs(trace_dir, exist_ok=True)
-            path = os.path.join(trace_dir, f"trace.{os.getpid()}.{int(time.time())}.json")
+            path = os.path.join(trace_dir, f"profile.{os.getpid()}.{int(time.time())}.trace.json")
             prof.export_chrome_trace(path)
             log.info("profile written", path=path)
         except Exception as err:  # noqa: BLE001 - the trace is best effort

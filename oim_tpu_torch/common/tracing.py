@@ -17,6 +17,13 @@ with trace-context propagation, without the gRPC interceptors.
   (crash-safe: the JSON array is intentionally left unterminated, which
   Perfetto accepts), and the metrics server serves the ring buffer at
   ``GET /debug/spans``.
+* The device trace: while a ``torch.profiler`` records, every live span
+  is also a ``record_function`` range of its name, and ``device_range``
+  marks a block that the ring should not hold (a layer of one step), so
+  the kernels a block launches land under its name in the profiler's
+  trace. With no profiler recording neither touches the profiler.
+  ``load_trace_file`` moves a profiler export onto the spans' Unix clock,
+  so ``merge_trace_dir`` lines the two up.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import contextvars
 import json
 import os
 import secrets
+import sys
 import threading
 import time
 from typing import Any, Iterator, NamedTuple, Sequence
@@ -311,6 +319,22 @@ def trace_id() -> str:
     return span.trace_id if span is not None else ""
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
+def device_range(name: str) -> contextlib.AbstractContextManager:
+    """A ``torch.profiler`` range ``name`` around the block while a torch
+    profiler records (its host ops and the kernels they launch fall under
+    it in the profiler's trace), else a no-op that costs one flag read: a
+    ``record_function`` entered with no profiler costs ~10 us. Records
+    nothing in the span ring. Never imports torch: a process that has not
+    loaded it has no profiler to mark."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return torch.autograd.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def start_span(name: str, parent: SpanContext | None = None,
                **attrs: Any) -> Iterator[Span]:
@@ -318,7 +342,8 @@ def start_span(name: str, parent: SpanContext | None = None,
 
     Parent resolution: an explicit ``parent`` (e.g. extracted from request
     metadata) wins; otherwise the context's current span; otherwise a new
-    trace is born here (root span).
+    trace is born here (root span). The block is also a ``device_range``
+    of the same name.
     """
     if parent is None:
         parent = current_context()
@@ -331,7 +356,8 @@ def start_span(name: str, parent: SpanContext | None = None,
     span = Span(name, ctx, parent_id, attrs)
     token = _current.set(span)
     try:
-        yield span
+        with device_range(name):
+            yield span
     finally:
         _current.reset(token)
         span.finish()
@@ -396,17 +422,26 @@ def load_trace_file(path: str) -> list[dict[str, Any]]:
     AND a final record truncated mid-write (SIGKILL between the write
     syscalls of one event). The writer emits one event per line, so a
     torn tail is recovered by dropping trailing lines until the array
-    parses — the same torn-tail stance as the registry journal replay."""
+    parses — the same torn-tail stance as the registry journal replay.
+    A ``torch.profiler`` export (``{"traceEvents": ..., "baseTimeNanoseconds":
+    ...}``) stamps its events relative to that base: they are shifted onto
+    the spans' Unix-microsecond clock."""
     text = open(path).read().strip()
     if not text:
         return []
 
     def parse(candidate: str):
-        if not candidate.endswith("]"):
+        if candidate.startswith("[") and not candidate.endswith("]"):
             candidate = candidate.rstrip().rstrip(",") + "]"
         events = json.loads(candidate)
         if isinstance(events, dict):  # a complete {"traceEvents": ...} export
+            base = events.get("baseTimeNanoseconds")
             events = events.get("traceEvents", [])
+            if base:
+                shift = base / 1e3
+                for ev in events:
+                    if "ts" in ev:
+                        ev["ts"] = float(ev["ts"]) + shift
         return events
 
     try:
@@ -428,7 +463,8 @@ def load_trace_file(path: str) -> list[dict[str, Any]]:
 def merge_trace_dir(trace_dir: str, out_path: str = "") -> list[dict[str, Any]]:
     """Merge every ``*.trace.json`` under ``trace_dir`` into one event
     list (optionally written as a complete Chrome trace at ``out_path``) —
-    wall-clock timestamps align processes on one Perfetto timeline."""
+    wall-clock timestamps align processes on one Perfetto timeline, and a
+    ``profile_trace`` export there joins them on the same clock."""
     events: list[dict[str, Any]] = []
     for name in sorted(os.listdir(trace_dir)):
         if name.endswith(".trace.json"):

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from oim_tpu_torch.common import tracing
 from oim_tpu_torch.parallel import collectives
 from oim_tpu_torch.parallel.ring import shard_positions
 from oim_tpu_torch.parallel.sharding import EMBED, EXPERT, LAYER, MLP
@@ -308,7 +309,13 @@ def apply(params, x, cfg: MoEConfig, with_stats: bool = False,
     ``ctx`` places the layer under a mesh: ``x`` is this rank's tokens
     (replicated over the ``model`` and ``expert`` axes) and ``params`` its
     pieces; ``out`` comes out whole on every rank, and aux and dropped are
-    this rank's shares of the global values."""
+    this rank's shares of the global values. On a torch profiler's trace
+    the layer is a ``moe.forward`` range (``tracing.device_range``)."""
+    with tracing.device_range("moe.forward"):
+        return _apply(params, x, cfg, with_stats, ctx)
+
+
+def _apply(params, x, cfg: MoEConfig, with_stats: bool, ctx: MeshContext | None):
     if cfg.dispatch not in _DISPATCH:
         raise ValueError(f"unknown MoE dispatch mode {cfg.dispatch!r} "
                          "(valid: 'gather', 'einsum')")

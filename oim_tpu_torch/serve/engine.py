@@ -64,6 +64,16 @@ What the port keeps of the reference, and what it changes:
   fault points ``serve.admit``,
   ``spec.propose``, ``serve.retire`` and ``serve.decode``. Every metric
   reads a value the host already holds: recording adds no device sync.
+* The engine thread's loop on the device trace (``tracing.device_range``,
+  ranges only while a torch profiler records), one range after another:
+  ``serve.admit`` (an admission pass, its prefills inside),
+  ``serve.decode_step`` (operands, the device program, the token fetch)
+  and ``serve.emit`` (the host turn after a fetch or a pass: emission,
+  retirement, the loop's way back). ``request_stats()`` counts, from
+  host-held values, the live rows' keys over target steps
+  (``decode_kv_tokens``), the host turns outside admission passes
+  (``decode_host_seconds``) and the admissions that held resident rows
+  (``prefill_stall_seconds``).
 * Tensor-parallel serving (``shard > 1``, ``serve/shard.py``): the target
   programs (prefill, decode, the spec verify) run on ``shard`` members,
   each holding its Megatron slice of the weights and its KV heads of the
@@ -512,6 +522,15 @@ class ServeEngine:
         self._target_steps = 0
         self._decode_tokens = 0
         self._row_steps = 0  # live rows summed over target steps
+        self._kv_tokens = 0  # live rows' keys (prompt + emitted) over target steps
+        self._decode_host_s = 0.0  # host turns outside admission passes
+        self._prefill_stall_s = 0.0  # admissions that held resident rows
+        # The open host turn (_open_host_turn): its start and its range.
+        self._host_from: float | None = None
+        self._host_range: Any = None
+        self._in_admit = False
+        self._admit_mark = 0.0  # where the pass's current admission began
+        self._admit_decode_s = 0.0  # decode rounds run inside that admission
         self._prefix_hits = 0
         self._prefix_misses = 0
         self._prefill_cached = 0
@@ -750,6 +769,9 @@ class ServeEngine:
             return {
                 "finished_total": self.finished_total,
                 "decode_row_steps": self._row_steps,
+                "decode_kv_tokens": self._kv_tokens,
+                "decode_host_seconds": self._decode_host_s,
+                "prefill_stall_seconds": self._prefill_stall_s,
                 "prefix_hits": self._prefix_hits,
                 "prefix_misses": self._prefix_misses,
                 "prefill_tokens_cached": self._prefill_cached,
@@ -810,6 +832,7 @@ class ServeEngine:
                         while (not self._pending and not self._cmds
                                and not any(s is not None for s in self._slots)
                                and not (self._stopping or self._draining)):
+                            self._end_host_turn()
                             self._work.wait()
                         if self._stopping or self._draining:
                             self._fail_pending_locked("drained")
@@ -838,6 +861,8 @@ class ServeEngine:
                 self._stopping = True
                 self._fail_pending_locked("error")
             self._fail_cmds()
+        finally:
+            self._end_host_turn()
 
     def _fail_pending_locked(self, reason: str) -> None:
         while self._pending:
@@ -1148,7 +1173,43 @@ class ServeEngine:
         self._pos = d_pos.cpu().numpy().copy()
         self._dev = None
 
+    def _open_host_turn(self) -> None:
+        """A step's tokens came back, or an admission pass ended: the
+        engine thread's host turn (emission, retirement, the loop's way
+        back) runs until the next step or pass begins or the engine idles,
+        a ``serve.emit`` range whose time ``decode_host_seconds`` counts.
+        A decode round run inside an admission pass opens none."""
+        if self._in_admit:
+            return
+        self._host_from = time.monotonic()
+        self._host_range = tracing.device_range("serve.emit")
+        self._host_range.__enter__()
+
+    def _end_host_turn(self) -> None:
+        if self._host_from is not None:
+            self._decode_host_s += time.monotonic() - self._host_from
+            self._host_from = None
+            self._host_range.__exit__(None, None, None)
+
     def _admit(self) -> None:
+        """One admission pass, when a slot is free and a request queued: a
+        ``serve.admit`` range around it. Each admission in it whose prefill
+        started while a row was resident adds its host time (from the end
+        of the one before, less decode rounds run between prefill chunks)
+        to ``prefill_stall_seconds`` as it ends."""
+        with self._lock:
+            if not self._pending or all(s is not None for s in self._slots):
+                return
+        self._end_host_turn()
+        self._in_admit, self._admit_mark, self._admit_decode_s = True, time.monotonic(), 0.0
+        try:
+            with tracing.device_range("serve.admit"):
+                self._admit_requests()
+        finally:
+            self._in_admit = False
+            self._open_host_turn()
+
+    def _admit_requests(self) -> None:
         """Insert queued requests into free slots (prefill between decode
         steps). Admission reserves the request's pages first; an exhausted
         pool leaves the request AT THE HEAD of the queue and returns. The
@@ -1207,6 +1268,7 @@ class ServeEngine:
                 req.admitted_at - req.submitted_at, self._trace_id(req))
             gen_ = (_generator(req.seed, self.device)
                     if req.temperature > 0 else None)
+            resident = any(s is not None for s in self._slots)
             tok = self._prefill_slot(req, free, n, m, gen_)
             if spec_row:
                 self._draft_prefill_slot(req, free, n)
@@ -1222,6 +1284,10 @@ class ServeEngine:
             self._occupancy()
             self._emit(req, tok)
             self._retire_if_done(free, req, tok)
+            now = time.monotonic()
+            if resident:
+                self._prefill_stall_s += now - self._admit_mark - self._admit_decode_s
+            self._admit_mark, self._admit_decode_s = now, 0.0
 
     def _map_slot(self, req: _Request, slot: int, n: int,
                   m: int, shared: list[int]) -> bool:
@@ -1392,7 +1458,9 @@ class ServeEngine:
                     with self._lock:
                         resident = any(r is not None for r in self._slots)
                     if resident:
+                        t_round = time.monotonic()
                         self._decode_once()
+                        self._admit_decode_s += time.monotonic() - t_round
                 else:
                     tok = self._first_token(req, piece, table_dev, P + off, gen_)
                     M.SERVE_PREFILL_CHUNK_SECONDS.observe(
@@ -1532,29 +1600,33 @@ class ServeEngine:
         accepted prefix plus one target-supplied token. Rows without a
         draft slot ride the same programs at plain-decode semantics."""
         K = self.spec_tokens
-        d_tokens, d_pos, d_temps = self._operands()
-        if self._draft_tables_dev is None:
-            self._draft_tables_dev = self._upload(self._draft_tables)
-        with self._lock:
-            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
-            spec_rows = list(self._spec_row)
-        if self._spec_mask_dev is None:
-            self._spec_mask_dev = torch.tensor(spec_rows, device=self.device)
-        draft_toks, draft_logits = propose_program(
-            self._draft_params, self._draft_cache, d_tokens, d_pos, d_temps,
-            self._draws(self._draft_gens, K + 1), self._draft_tables_dev,
-            self._draft_cfg, self.page_tokens, self.max_seq, K)
-        out, n_emit, tok, pos = verify_program(
-            self._verify_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
-            self._draws(self._gens, K + 1), self._tables_dev, draft_toks,
-            draft_logits, self._spec_mask_dev, self.max_seq)
-        self._dev = (tok, pos, d_temps)
-        fetched = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
-        out, n_emit = fetched[:, :-1], fetched[:, -1]  # the per-round sync
+        self._end_host_turn()
+        with tracing.device_range("serve.decode_step"):
+            d_tokens, d_pos, d_temps = self._operands()
+            if self._draft_tables_dev is None:
+                self._draft_tables_dev = self._upload(self._draft_tables)
+            with self._lock:
+                live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+                spec_rows = list(self._spec_row)
+            if self._spec_mask_dev is None:
+                self._spec_mask_dev = torch.tensor(spec_rows, device=self.device)
+            draft_toks, draft_logits = propose_program(
+                self._draft_params, self._draft_cache, d_tokens, d_pos, d_temps,
+                self._draws(self._draft_gens, K + 1), self._draft_tables_dev,
+                self._draft_cfg, self.page_tokens, self.max_seq, K)
+            out, n_emit, tok, pos = verify_program(
+                self._verify_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
+                self._draws(self._gens, K + 1), self._tables_dev, draft_toks,
+                draft_logits, self._spec_mask_dev, self.max_seq)
+            self._dev = (tok, pos, d_temps)
+            fetched = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
+            out, n_emit = fetched[:, :-1], fetched[:, -1]  # the per-round sync
+        self._open_host_turn()
         self._target_steps += 1
         if self._group is not None:
             self._observe_ici(live)
         self._row_steps += len(live)
+        self._kv_tokens += sum(len(r.prompt) + r.emitted for _, r in live)
         self._spec_rounds += 1
         proposed = K * sum(spec_rows)
         accepted = sum(int(n_emit[i]) - 1 for i, _ in live if spec_rows[i])
@@ -1605,18 +1677,22 @@ class ServeEngine:
         compute a discarded token. Each step's outputs ARE the next step's
         operands, so steady-state decode costs one step plus one [B] token
         fetch."""
-        d_tokens, d_pos, d_temps = self._operands()
-        tok, pos = decode_program(
-            self._decode_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
-            self._draws(self._gens, 1)[:, 0], self._tables_dev, self.max_seq)
-        self._dev = (tok, pos, d_temps)
-        tok = tok.cpu().numpy()  # the only per-step sync
+        self._end_host_turn()
+        with tracing.device_range("serve.decode_step"):
+            d_tokens, d_pos, d_temps = self._operands()
+            tok, pos = decode_program(
+                self._decode_fwd, self.params, self._cache, d_tokens, d_pos, d_temps,
+                self._draws(self._gens, 1)[:, 0], self._tables_dev, self.max_seq)
+            self._dev = (tok, pos, d_temps)
+            tok = tok.cpu().numpy()  # the only per-step sync
+        self._open_host_turn()
         self._target_steps += 1
         with self._lock:
             live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
         if self._group is not None:
             self._observe_ici(live)
         self._row_steps += len(live)
+        self._kv_tokens += sum(len(r.prompt) + r.emitted for _, r in live)
         for i, req in live:
             if req.cancelled.is_set():
                 self._cancel_slot(i, req)

@@ -10,7 +10,10 @@ package), ``flops_per_step`` (an MoE model's on its active parameters),
 CUDA device name), and ``Trainer`` with ``init_or_resume``, ``evaluate``
 and ``run``. A model's stats (an MoE model's ``moe_drop_frac``) ride the
 step's stats, averaged over the microbatches, into the history. Each step
-runs in a ``train.step`` span; each logged step sets the ``oim_train_*``,
+runs in a ``train.step`` span, and on a torch profiler's trace its parts
+in ``train.forward_backward``, ``train.grad_norm``, ``train.optimizer``
+and ``train.feed`` ranges (``tracing.device_range``: no-ops with no
+profiler recording); each logged step sets the ``oim_train_*``,
 ``oim_feed_wait_seconds`` and ``oim_moe_drop_fraction`` gauges from the
 values it logs, and each eval pass ``oim_eval_loss`` (and
 ``oim_eval_accuracy``).
@@ -519,34 +522,36 @@ def make_train_step(cfg: TrainConfig, tx, device, mesh: Mesh | None = None):
 
     def step_fn(state: TrainState, batch: dict):
         leaves = list(tree_leaves(state.params))
-        if accum == 1:
-            loss, extra, stats, grads = grads_of(state.params, state.extra, batch)
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum:
-                raise ValueError(f"batch {n} not divisible by accum_steps {accum}")
-            # Accumulate in f32 (a bf16 accumulator drops low bits every
-            # add), average, cast back to the param dtype. The model's
-            # state runs through the microbatches in order.
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in leaves]
-            loss_sum = 0.0
-            stats_sum: dict = {}
-            extra = state.extra
-            for parts in zip(*(v.chunk(accum) for v in batch.values())):
-                loss, extra, mstats, grads = grads_of(state.params, extra,
-                                                      dict(zip(batch, parts)))
-                for a, g in zip(gsum, grads):
-                    a += g.float()
-                loss_sum = loss_sum + loss
-                for k, v in mstats.items():
-                    stats_sum[k] = stats_sum.get(k, 0.0) + v.detach()
-            grads = [(a / accum).to(p.dtype) for a, p in zip(gsum, leaves)]
-            loss = loss_sum / accum
-            stats = {k: v / accum for k, v in stats_sum.items()}
-        with torch.no_grad():
+        with tracing.device_range("train.forward_backward"):
+            if accum == 1:
+                loss, extra, stats, grads = grads_of(state.params, state.extra, batch)
+            else:
+                n = next(iter(batch.values())).shape[0]
+                if n % accum:
+                    raise ValueError(f"batch {n} not divisible by accum_steps {accum}")
+                # Accumulate in f32 (a bf16 accumulator drops low bits every
+                # add), average, cast back to the param dtype. The model's
+                # state runs through the microbatches in order.
+                gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                        for p in leaves]
+                loss_sum = 0.0
+                stats_sum: dict = {}
+                extra = state.extra
+                for parts in zip(*(v.chunk(accum) for v in batch.values())):
+                    loss, extra, mstats, grads = grads_of(state.params, extra,
+                                                          dict(zip(batch, parts)))
+                    for a, g in zip(gsum, grads):
+                        a += g.float()
+                    loss_sum = loss_sum + loss
+                    for k, v in mstats.items():
+                        stats_sum[k] = stats_sum.get(k, 0.0) + v.detach()
+                grads = [(a / accum).to(p.dtype) for a, p in zip(gsum, leaves)]
+                loss = loss_sum / accum
+                stats = {k: v / accum for k, v in stats_sum.items()}
+        with torch.no_grad(), tracing.device_range("train.grad_norm"):
             grads, norm = reduce_grads(grads)
-        tx.update(tree_unflatten(state.params, grads), state.opt_state, state.params, norm)
+        with tracing.device_range("train.optimizer"):
+            tx.update(tree_unflatten(state.params, grads), state.opt_state, state.params, norm)
         state.extra = extra
         state.step += 1
         return state, {
@@ -806,7 +811,10 @@ class Trainer:
         t_prev = time.monotonic()
         last_logged = start_step
         # The next batch is placed while the current step's kernels run.
-        pending = self.place_batch(next(data)) if start_step < steps else None
+        pending = None
+        if start_step < steps:
+            with tracing.device_range("train.feed"):
+                pending = self.place_batch(next(data))
         feed_wait = 0.0
         for i in range(start_step, steps):
             batch = pending
@@ -815,10 +823,11 @@ class Trainer:
             with tracing.start_span("train.step", step=i + 1):
                 self.state, stats = self.step_fn(self.state, batch)
                 if i + 1 < steps:
-                    t_feed = time.monotonic()
-                    nxt = next(data)
-                    feed_wait += time.monotonic() - t_feed
-                    pending = self.place_batch(nxt)
+                    with tracing.device_range("train.feed"):
+                        t_feed = time.monotonic()
+                        nxt = next(data)
+                        feed_wait += time.monotonic() - t_feed
+                        pending = self.place_batch(nxt)
             if (i + 1) % cfg.log_every == 0 or i + 1 == steps:
                 last_loss = float(stats["loss"])  # sync point
                 now = time.monotonic()
