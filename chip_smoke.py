@@ -38,7 +38,12 @@ Phases, in order; any failure exits nonzero:
    with an explicit bottom-right mask as a yardstick the port never calls;
    each kernel also timed on its fma route (the first port's kernels) on
    the same inputs, and each route's registers, spills, shared memory and
-   blocks per SM printed.
+   blocks per SM printed. Then the paged-decode kernel at
+   mistral-7b.conv's decode shapes (``phase_paged_decode``: bf16 on the
+   mma route, f32 on the fma route, T = 1 and 5) against the plain path,
+   its time beside its bytes bound, the plain path's and SDPA's; its
+   record joins the ``kernels`` line with phase 7's launches and routes
+   and phase 12's launches.
 4. agreement: llama.tiny's loss and gradients on the card (kernels) held
    against the same model on the CPU (plain versions).
 5. main path: the CLI's Trainer on llama3-8b at full width, cut to
@@ -222,7 +227,12 @@ Phases, in order; any failure exits nonzero:
    within SERVE_LOGIT_REL x max|logit| of solo ``cached_forward``, the
    decode step's time beside its bound, which reads all four experts'
    weights; solo prefill by bucket) and the decode rows' smallest router
-   margin. Phase 7's read-backs of outcomes, tokens, first tokens, prefix
+   margin. A row whose token goes to other experts than solo's at some
+   MoE layer (``first_route_flip``) passes only where, at the first such
+   layer, solo's router logit gap between its k-th and next expert lies
+   below that gap's spread under one bf16 step of the FFN input, and then
+   only if its logits, with the step's routes pinned to solo's at every
+   layer, lie within the same limit. Phase 7's read-backs of outcomes, tokens, first tokens, prefix
    hits, pages and spans hold here too. ``--profile`` adds one profiled decode step
    (``chiprun_out/chip_smoke_moe_serve_profile.json``).
 13. oim-infer: the trainer CLI writes a llama-tiny-moe checkpoint on the
@@ -524,6 +534,7 @@ import base64
 import bisect
 import collections
 import contextlib
+import dataclasses
 import http.server
 import io
 import itertools
@@ -826,6 +837,158 @@ def build_read_engine() -> dict:
             "build_s": build_s}
 
 
+# The paged-decode kernel at mistral-7b.conv's decode shapes: 32 rows, 8 KV
+# heads of 128 under 32 query heads (group 4), pages of 16 tokens, tables
+# of 320 blocks (max_seq 5120), live contexts of 800-2000 keys (~1.4k).
+PAGED_CONV = dict(b=32, kvh=8, g=4, hd=128, page=16, nb=320, lo=800, hi=2000)
+
+
+def paged_decode_inputs(b, kvh, g, hd, page, nb, t, lens, dtype, seed):
+    """q [b, t, g*kvh, hd], a pool of random pages, per-row tables of
+    distinct pages and positions ``lens`` (each row's keys 0..lens[r] + t - 1)."""
+    import torch
+
+    gen_ = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device="cuda", generator=gen_).to(dtype)  # noqa: E731
+    n_pages = 1 + b * nb
+    tables = 1 + torch.randperm(b * nb, device="cuda", generator=gen_).reshape(b, nb)
+    pos = torch.tensor(lens, dtype=torch.int64, device="cuda")
+    return (mk(b, t, g * kvh, hd), mk(n_pages, page, kvh, hd), mk(n_pages, page, kvh, hd),
+            tables.contiguous(), pos)
+
+
+def queued_ms(fn, iters: int) -> tuple[float, float]:
+    """(mean device ms, host us a call) of fn() over iters calls enqueued
+    behind a ~10 ms device sleep: the launches queue up while the card
+    sleeps, so the device time holds none of the host's turn between calls,
+    and the host time none of the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_us
+
+
+def phase_paged_decode() -> dict:
+    """The paged-decode kernel at conv's shapes (PAGED_CONV), T = 1 and the
+    verify's T = 5: bf16 on the rule's route ("mma") and f32 on the
+    CUDA-core one ("fma"), each held against the plain path (``_gather``
+    and ``_cache_attention``) in its dtype, at BF16_REL_TOL x max|plain|
+    and F32_ABS_TOL; the bf16 kernel's ms beside its bytes bound (the live
+    K/V once, q and the output), the plain path's ms and SDPA's over the
+    pre-gathered cache as yardstick (never on the port's path), and the
+    f32 kernel's ms (twice the bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from oim_tpu_torch import kernels
+    from oim_tpu_torch.models import generate as gen
+    from oim_tpu_torch.models import llama
+
+    c = PAGED_CONV
+    b, kvh, g, hd, page, nb = c["b"], c["kvh"], c["g"], c["hd"], c["page"], c["nb"]
+    lens = np.random.RandomState(25).randint(c["lo"], c["hi"], b).tolist()
+    S = nb * page
+    out = {"shape": dict(c), "mean_live_keys": float(np.mean(lens)) + 1, "by_t": {}}
+    for t in (1, 5):
+        res = {}
+        for dtype, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+            cfg = dataclasses.replace(llama.LLAMA3_8B, n_heads=g * kvh, n_kv_heads=kvh,
+                                      head_dim=hd, dtype=dtype)
+            q, pk, pv, tables, pos = paged_decode_inputs(b, kvh, g, hd, page, nb, t, lens,
+                                                         dtype, 30 + t)
+            plain = lambda: gen._cache_attention(  # noqa: E731
+                q, gen._gather(pk, tables, S), gen._gather(pv, tables, S), pos, cfg)
+            want = plain()
+            tol = (BF16_REL_TOL * float(want.float().abs().max()) if dtype == torch.bfloat16
+                   else F32_ABS_TOL)
+            kernels.reset_launches()
+            got = kernels.paged_decode(q, pk, pv, tables, pos)
+            err = max_err(got, want)
+            if kernels.ROUTES["paged_decode"][route] != 1:
+                fail(f"paged decode at conv's shapes, {dtype}: routes "
+                     f"{kernels.ROUTES['paged_decode']}, want {route}")
+            if not err <= tol or not bool(got.isfinite().all()):
+                fail(f"paged decode at conv's shapes, T {t}, {dtype}: max_abs_err {err} > "
+                     f"{tol}")
+            res[route] = {"max_abs_err": err, "tol": tol}
+            if route == "fma":
+                res[route]["ms"], _ = queued_ms(
+                    lambda: kernels.paged_decode(q, pk, pv, tables, pos), 20)
+                del q, pk, pv, want, got
+                torch.cuda.empty_cache()
+                continue
+            ms, host_us = queued_ms(lambda: kernels.paged_decode(q, pk, pv, tables, pos), 20)
+            plain_ms = cuda_ms(plain, 5)
+            ms2, _ = queued_ms(lambda: kernels.paged_decode(q, pk, pv, tables, pos), 20)
+            # SDPA's yardstick: the cache gathered beforehand (not timed),
+            # [B, kvh, S, hd], a boolean mask on absolute positions.
+            ck = gen._gather(pk, tables, S).transpose(1, 2).contiguous()
+            cv = gen._gather(pv, tables, S).transpose(1, 2).contiguous()
+            qs = q.transpose(1, 2)
+            mask = (pos[:, None, None, None]
+                    + torch.arange(t, device="cuda")[None, None, :, None]
+                    >= torch.arange(S, device="cuda"))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ck, cv, attn_mask=mask, enable_gqa=True), 20, warmup=3)
+            del ck, cv
+            live = sum(min(n + t, S) for n in lens)
+            nbytes = live * kvh * hd * 2 * 2 + 2 * q.numel() * 2
+            flops = live * kvh * g * t * hd * 2 * 2
+            bound_ms, bound_by = bound(flops, nbytes)
+            best = min(ms, ms2)
+            split = kernels.paged_decode_splits(b, kvh, g * t, nb, page,
+                                                kernels._sm_count(q.device), route)
+            res[route].update(ms=best, ms_runs=[ms, ms2], host_us=host_us, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              bytes=nbytes, roofline_pct=100 * bound_ms / best,
+                              split=split._asdict())
+            del q, pk, pv, want, got
+            torch.cuda.empty_cache()
+        m, f = res["mma"], res["fma"]
+        say(f"  paged_decode T {t}: kernel {m['ms_runs'][0]:.4f}/{m['ms_runs'][1]:.4f} ms "
+            f"(bf16, mma; host {m['host_us']:.1f} us a call)  plain {m['plain_ms']:.3f} ms  "
+            f"SDPA (pre-gathered) {m['library_ms']:.3f} ms  bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}; {m['bytes'] / 1e6:.1f} MB)  {m['roofline_pct']:.1f}% of the "
+            f"bound  max_abs_err {m['max_abs_err']:.3e} (tol {m['tol']:.3e})  {m['split']}; "
+            f"f32 (fma) {f['ms']:.4f} ms, max_abs_err {f['max_abs_err']:.3e} "
+            f"(tol {f['tol']:.0e})")
+        out["by_t"][t] = {**m, "fma_route_ms": f["ms"],
+                          "fma_route_max_abs_err": f["max_abs_err"]}
+    return out
+
+
+def paged_decode_record(paged: dict, serve: dict, moe_serve: dict) -> dict:
+    """The paged-decode kernel's entry in the ``kernels`` line: phase 3's
+    numbers at conv's decode shapes (T = 1; the verify's T = 5 under
+    ``verify``), phase 7's launches and routes (counted from zero there)
+    and phase 12's launches."""
+    one = paged["by_t"][1]
+    return {
+        "name": "paged_decode", "route": "cuda",
+        "source": "oim_tpu_torch/kernels/csrc/paged_decode.cu", "replaces": None,
+        "launches": serve["kernel_launches"]["paged_decode"],
+        "routes": serve["paged_decode_routes"],
+        "moe_launches": moe_serve["kernel_launches"]["paged_decode"],
+        "max_abs_err": one["max_abs_err"], "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "library_ms": one["library_ms"], "roofline_pct": one["roofline_pct"],
+        "fma_route_ms": one["fma_route_ms"], "fma_route_dtype": "float32",
+        "shape": paged["shape"], "verify": paged["by_t"][5],
+        "library": "scaled_dot_product_attention over the pre-gathered cache, boolean mask",
+    }
+
+
 def phase_agreement():
     """Phase 4: llama.tiny on the card against the same model on the CPU."""
     import dataclasses
@@ -973,6 +1136,42 @@ def moe_calls(calls: list):
             return apply(params, x, cfg, with_stats, **kw)
         return spy
     return wrap
+
+
+def bf16_step(x):
+    """The spacing of bf16 values at each element of x (0 at zeros)."""
+    import torch
+
+    _, e = torch.frexp(x.float())
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8),
+                       torch.zeros_like(x, dtype=torch.float32))
+
+
+def first_route_flip(batch_calls, row, solo_calls):
+    """The first MoE layer at which row ``row`` of a batch step's token
+    goes to another top-k expert set than the same token's solo step
+    (``moe_calls`` lists of both), or None: that layer, solo's router
+    logit gap between its k-th and (k+1)-th expert, and the spread of that
+    gap under one bf16 step of each element of solo's FFN input (the root
+    of the summed squares of step x the two experts' router columns'
+    difference). A gap below that spread is a near tie that rounding can
+    flip."""
+    import torch
+
+    from oim_tpu_torch.models import moe
+
+    for layer, ((p, xb, c), (_, xs, _)) in enumerate(zip(batch_calls, solo_calls)):
+        router = p["router"]
+        xb, xs = xb.reshape(-1, xb.shape[-1])[row], xs.reshape(-1, xs.shape[-1])[-1]
+        lb, ls = (moe._router_logits(x[None], router)[0] for x in (xb, xs))
+        if set(lb.topk(c.top_k).indices.tolist()) == set(ls.topk(c.top_k).indices.tolist()):
+            continue
+        order = ls.argsort(descending=True)
+        e1, e2 = order[c.top_k - 1], order[c.top_k]
+        spread = torch.linalg.vector_norm(bf16_step(xs) * (router[:, e1] - router[:, e2]))
+        return {"layer": layer, "gap": float(ls[e1] - ls[e2]), "step_noise": float(spread),
+                "max_abs_ffn_in_diff": float((xb.float() - xs.float()).abs().max())}
+    return None
 
 
 def profiled_train_step(trainer, batch):
@@ -1815,9 +2014,15 @@ def phase_serve_main(cfg, params, device="cuda", profile=False) -> dict:
     del eng
     gc.collect()
     result["kernel_launches"] = dict(kernels.LAUNCHES)
+    result["paged_decode_routes"] = dict(kernels.ROUTES["paged_decode"])
     result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     say(f"  peak memory {result['peak_mem_gb']:.1f} GB; kernel launches on the "
-        f"serving path {result['kernel_launches']} (no kernel of the port is on it)")
+        f"serving path {result['kernel_launches']} (the paged-decode kernel on every "
+        f"decode and verify step, K1-K3 on none)")
+    if not result["kernel_launches"]["paged_decode"] or any(
+            result["kernel_launches"][n] for n in kernels.FLASH):
+        fail(f"serving: the decode steps did not all go through the paged-decode kernel, "
+             f"or K1-K3 ran: {result['kernel_launches']}")
     return result
 
 
@@ -1866,25 +2071,71 @@ def serve_measure(cfg, params, reqs, device, profile, moe_inputs: list | None = 
         logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
     errs, floor = {}, {}
 
-    def solo_decode(prompt, tok, batch):
+    def solo_decode(prompt, tok, batch, calls=None):
         n = len(prompt)
         cache = gen.init_cache(cfg, batch, n + 1, device=device)
         gen.cached_forward(params, torch.tensor([prompt] * batch, device=device), cache,
                            0, cfg)
-        return gen.cached_forward(params, tok.expand(batch, 1), cache, n, cfg)[0][0, -1]
+        with (contextlib.nullcontext() if calls is None
+              else patched(moe, "apply", moe_calls(calls))):
+            return gen.cached_forward(params, tok.expand(batch, 1), cache, n, cfg)[0][0, -1]
 
+    wants, flips, solo_logits = [], {}, {}
     for b, r in enumerate(rows):
-        want = solo_decode(r["prompt"], tokens[b:b + 1, None], 1)
+        solo_calls = None if moe_inputs is None else []
+        want = solo_decode(r["prompt"], tokens[b:b + 1, None], 1, solo_calls)
+        wants.append(want)
         # The noise floor: the same dense path with the prompt twice in
         # the batch (other product shapes, so other bf16 roundings).
         twin = solo_decode(r["prompt"], tokens[b:b + 1, None], 2)
         errs[r["name"]] = float((logits[b] - want).abs().max() / want.abs().max())
         floor[r["name"]] = float((twin - want).abs().max() / want.abs().max())
+        if moe_inputs is not None:
+            flip = first_route_flip(moe_inputs, b, solo_calls)
+            if flip is not None:
+                flips[r["name"]] = flip
+                solo_logits[b] = [moe._router_logits(x.reshape(-1, x.shape[-1]), p["router"])[0]
+                                  for p, x, _ in solo_calls]
     say(f"  first decode step, 8 paged rows against solo cached_forward: max|diff| / "
         f"max|logit| {({k: round(v, 5) for k, v in errs.items()})} (limit "
         f"{SERVE_LOGIT_REL:.4f}); solo at batch 2 against batch 1, the same "
         f"measure: {({k: round(v, 5) for k, v in floor.items()})}")
-    bad = {k: v for k, v in errs.items() if not v <= SERVE_LOGIT_REL}
+    pinned = {}
+    if solo_logits:
+        # A row whose token goes to other experts than solo's is held to
+        # the same limit with its routes pinned to solo's: the step again,
+        # its router logits at every MoE layer replaced by solo's.
+        layer = itertools.count()
+
+        def pin(router_logits):
+            def logits_pinned(tokens, router):
+                out, at = router_logits(tokens, router), next(layer)
+                for b, per_layer in solo_logits.items():
+                    out[b] = per_layer[at]
+                return out
+            return logits_pinned
+
+        with patched(moe, "_router_logits", pin):
+            pinned_logits, _ = gen.decode_step(params, tokens, pool, tables, pos, cfg, page)
+        for b in solo_logits:
+            want, name = wants[b], rows[b]["name"]
+            pinned[name] = float((pinned_logits[b] - want).abs().max() / want.abs().max())
+            flips[name]["pinned_rel_err"] = pinned[name]
+        say(f"  rows routed unlike solo (first MoE layer that parts, solo's logit gap "
+            f"between its k-th and next expert, that gap's spread under one bf16 step of "
+            f"the FFN input; then max|diff| / max|logit| with solo's routes pinned): "
+            f"{flips}")
+    bad = {}
+    for name, err in errs.items():
+        flip = flips.get(name)
+        if flip is None:
+            if not err <= SERVE_LOGIT_REL:
+                bad[name] = err
+        elif not flip["gap"] < flip["step_noise"]:
+            bad[name] = (f"routed unlike solo at MoE layer {flip['layer']}, where solo's gap "
+                         f"{flip['gap']:.3e} exceeds one bf16 step's {flip['step_noise']:.3e}")
+        elif not pinned[name] <= SERVE_LOGIT_REL:
+            bad[name] = f"{pinned[name]} with solo's routes pinned"
     if bad:
         fail(f"serving: the paged batch's first-decode logits differ from solo "
              f"cached_forward beyond {SERVE_LOGIT_REL} x max|logit|: {bad}")
@@ -1924,6 +2175,7 @@ def serve_measure(cfg, params, reqs, device, profile, moe_inputs: list | None = 
                                        for T, ms in prefill.items()))
     out = {"greedy_equal_prefix": agree, "first_decode_logit_rel_err": errs,
            "first_decode_logit_rel_err_batch2_solo": floor,
+           "first_decode_route_flips": flips,
            "decode_step_ms": step_ms, "decode_tokens_per_s": len(rows) / step_ms * 1e3,
            "decode_bound_ms": bound, "decode_positions": [int(p) for p in pos],
            "prefill_ms": prefill}
@@ -7563,6 +7815,9 @@ def main() -> int:
          torch.float32, 19),
     ]
     records = phase_kernels(shapes, odd)
+    say("  the paged-decode kernel at mistral-7b.conv's decode shapes")
+    paged = phase_paged_decode()
+    say(json.dumps({"paged_decode": paged}))
 
     say("== 4. llama.tiny: card against CPU")
     phase_agreement()
@@ -7707,6 +7962,7 @@ def main() -> int:
     say(json.dumps({"registry_stream": registry, "card": card}))
     say(json.dumps({"chaos": chaos, "card": card}))
     say(json.dumps({"fleet_slo": fleet_slo, "card": card}))
+    records.append(paged_decode_record(paged, serve, moe_serve))
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

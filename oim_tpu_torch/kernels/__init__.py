@@ -21,6 +21,14 @@ alignment alone, before the launch; they are one rule, never a ``try``, so
 a failed build or launch still raises. ``ROUTES[name][route]`` counts the
 launches each route took, beside ``LAUNCHES[name]``.
 
+The paged-decode kernel (``paged_decode``: the serving steps' attention
+over each row's pages, read in place through the page table;
+``models/generate.py`` dispatches a CUDA pool to it) has two routes, picked
+by ``paged_route``: "mma" (``mma.sync`` tensor cores) for bf16 at head_dim
+16, 32, 64 or 128 with 16-byte aligned operands, "fma" (CUDA cores) for
+everything else. A call counts one launch set (its split and merge
+kernels) in ``LAUNCHES`` and under its route in ``ROUTES``.
+
 Nothing here imports or builds at module import time; the CPU tests import
 this module and never reach a build.
 """
@@ -28,6 +36,7 @@ this module and never reach a build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +44,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -48,13 +58,16 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
+    "paged_decode": "paged_decode.cu",
 }
+FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # K1-K3, the kernels with routes
 _HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 
 # Launch counts per kernel, and per kernel and route; chip_smoke.py zeroes
 # them around the main path.
 LAUNCHES = {name: 0 for name in SOURCES}
-ROUTES = {name: {"wgmma": 0, "fma": 0} for name in SOURCES}
+ROUTES = {name: {"wgmma": 0, "fma": 0} for name in FLASH}
+ROUTES["paged_decode"] = {"mma": 0, "fma": 0}
 WGMMA_HEAD_DIMS = (64, 128)  # the head_dims the tensor-core kernels take
 
 MAX_HEAD_DIM = 128  # kMaxD in flash_common.cuh
@@ -67,8 +80,9 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-        for route in ROUTES[name]:
-            ROUTES[name][route] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
 
 
 def _route(q, *others) -> str:
@@ -293,7 +307,7 @@ def kernel_info(name: str, route: str, head_dim: int) -> dict:
     ``head_dim`` 64 or 128, "fma" at bf16): registers per thread, local
     memory bytes per thread (spills), dynamic shared memory per block and
     resident blocks per SM, from the CUDA runtime. Launches nothing."""
-    if name not in SOURCES or route not in ("wgmma", "fma"):
+    if name not in FLASH or route not in ("wgmma", "fma"):
         raise ValueError(f"no route {route!r} of {name!r}")
     out = (ctypes.c_int * 4)()
     err = _fn(name, f"oim_{name}_info", [_I, _I, _P])(int(route == "wgmma"), head_dim, out)
@@ -319,3 +333,144 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float, route=None
     _check(err, "flash_bwd_dq")
     _count("flash_bwd_dq", route)
     return dq
+
+
+# The paged-decode kernel's split rule is the host's alone
+# (paged_decode_splits): the card reads n_max, tab_len, min_pages and the
+# query rows a block takes from the call's arguments.
+PAGED_MIN_SPLIT_KEYS = 128  # least keys a split takes
+PAGED_MMA_HEAD_DIMS = (16, 32, 64, 128)
+PAGED_MMA_ROWS = 16  # query rows a block on "mma": mma.sync's M (kMmaRows)
+PAGED_BLOCKS_PER_SM = 8  # blocks the split grid aims at for each SM
+PAGED_MAX_SPLIT_PAGES = 4096  # table entries a block keeps in shared memory
+_sm_counts: dict[int, int] = {}
+
+
+class PagedSplit(NamedTuple):
+    n_max: int      # the most splits one row's live pages take
+    tab_len: int    # the most table entries one split reads
+    min_pages: int  # the least pages a split takes
+    rc: int         # query rows a block takes
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def paged_route(q, pk, pv) -> str:
+    """The kernel a CUDA call of ``paged_decode`` takes: "mma" for bf16 at
+    head_dim 16, 32, 64 or 128 with q, pk and pv 16-byte aligned (the
+    tensor-core kernel copies 16-byte chunks and loads bf16 pairs), "fma"
+    for everything else. A pure function of the tensors' metadata."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in PAGED_MMA_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in (q, pk, pv))):
+        return "mma"
+    return "fma"
+
+
+def paged_row_split(live: int, page: int, n_max: int, min_pages: int) -> tuple[int, int]:
+    """(splits, keys a split) of a row whose queries see ``live`` keys:
+    the rule the card applies to each row (``row_split`` in
+    paged_decode.cu), min(n_max, ceil(pages / min_pages)) splits of equal
+    page counts, the last holding at least one key."""
+    pages = -(-live // page)
+    n = min(n_max, -(-pages // min_pages))
+    pps = -(-pages // n)
+    return -(-pages // pps), pps * page
+
+
+@functools.lru_cache(maxsize=256)
+def paged_decode_splits(b: int, kvh: int, rows: int, n_blocks: int, page: int,
+                        sms: int, route: str) -> PagedSplit:
+    """The split rule of a paged-decode call of ``rows`` query rows a KV
+    head (group x T) on ``route``. A block takes PAGED_MMA_ROWS query rows
+    on "mma", 8 on "fma" (4 where the call has no more); n_max gives the
+    grid of (row, KV head, row chunk, split) blocks about
+    PAGED_BLOCKS_PER_SM blocks an SM, never splits a row finer than
+    PAGED_MIN_SPLIT_KEYS keys, and never leaves one split more than
+    PAGED_MAX_SPLIT_PAGES pages; tab_len is the longest split
+    ``paged_row_split`` makes of any live length."""
+    rc = PAGED_MMA_ROWS if route == "mma" else 4 if rows <= 4 else 8
+    chunks = -(-rows // rc)
+    min_pages = -(-PAGED_MIN_SPLIT_KEYS // page)
+    n = -(-(PAGED_BLOCKS_PER_SM * sms) // (b * kvh * chunks))
+    n = max(1, min(n, -(-n_blocks // min_pages)), -(-n_blocks // PAGED_MAX_SPLIT_PAGES))
+    # A row of up to min_pages pages is one split; a longer row's splits
+    # are shorter than min_pages until it takes n splits, and the longest
+    # row's are then the longest.
+    tab_len = max(paged_row_split(live * page, page, n, min_pages)[1] // page
+                  for live in (min(min_pages, n_blocks), n_blocks))
+    return PagedSplit(n, tab_len, min_pages, rc)
+
+
+def check_paged_decode(q, pk, pv, page_tables, pos) -> None:
+    """Raise unless the paged-decode kernel takes these operands: q [B, T,
+    H, hd], one layer's pool pk/pv [n_pages, page, kvh, hd] in q's dtype
+    (f32 or bf16, head_dim <= 128, kvh dividing H), int64 page_tables
+    [B, n_blocks] and pos [B], all contiguous on one CUDA device."""
+    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("page_tables", page_tables),
+                    ("pos", pos)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, the kernel needs q's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES or pk.dtype != q.dtype or pv.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, pk {pk.dtype}, pv {pv.dtype}: want one of "
+                         f"{list(_DTYPES)}, all alike")
+    if q.dim() != 4 or pk.dim() != 4 or pv.shape != pk.shape:
+        raise ValueError(f"q {tuple(q.shape)} / pk {tuple(pk.shape)} / pv {tuple(pv.shape)}: "
+                         "want [B, T, H, hd] and two [n_pages, page, kvh, hd]")
+    b, t, h, d = q.shape
+    kvh = pk.shape[2]
+    if pk.shape[3] != d or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim q {d}, pool {pk.shape[3]}: the kernel takes 1..{MAX_HEAD_DIM}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"q heads {h} not divisible by kv heads {kvh}")
+    if page_tables.dtype != torch.int64 or page_tables.dim() != 2 or page_tables.shape[0] != b:
+        raise ValueError(f"page_tables {page_tables.dtype} {tuple(page_tables.shape)}: "
+                         f"want int64 [{b}, n_blocks]")
+    if pos.dtype != torch.int64 or pos.shape != (b,):
+        raise ValueError(f"pos {pos.dtype} {tuple(pos.shape)}: want int64 [{b}]")
+    if 0 in (b, t, pk.shape[0], pk.shape[1], page_tables.shape[1]):
+        raise ValueError("empty batch, query, pool or table")
+    if b > 65535 or kvh > 65535:
+        raise ValueError(f"batch {b} or kv heads {kvh} exceed the grid's limit 65535")
+    if page_tables.shape[1] * pk.shape[1] >= 2 ** 31:
+        raise ValueError("a table of 2^31 keys or more")
+
+
+def paged_decode(q, pk, pv, page_tables, pos):
+    """Attention of q [B, T, H, hd] over each row's pages of one layer's
+    pool, read in place: ``generate._cache_attention(q, _gather(pk,
+    page_tables, S), _gather(pv, page_tables, S), pos)`` with S = n_blocks
+    x page, where query t of row b sees positions s <= pos[b] + t. Returns
+    [B, T, H, hd] in q's dtype; table entries must name pages of the pool.
+    The kernel is ``paged_route``'s."""
+    check_paged_decode(q, pk, pv, page_tables, pos)
+    route = paged_route(q, pk, pv)
+    b, t, h, d = q.shape
+    page, kvh = pk.shape[1], pk.shape[2]
+    nb = page_tables.shape[1]
+    rows = (h // kvh) * t
+    split = paged_decode_splits(b, kvh, rows, nb, page, _sm_count(q.device), route)
+    part = torch.empty(b * kvh * split.n_max * rows * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    args = [_ptr(q), _ptr(pk), _ptr(pv), _ptr(page_tables), _ptr(pos), _ptr(part), _ptr(out),
+            b, t, h, kvh, d, page, nb, split.n_max]
+    if route == "mma":
+        fn = _fn("paged_decode", "oim_paged_decode_mma", [_P] * 7 + [_I] * 11 + [_F, _P])
+        err = fn(*args, split.tab_len, split.min_pages, split.rc, float(d ** -0.5), _stream(q))
+    else:
+        row_bytes = d * q.element_size()
+        vec = next(v for v in (16, 8, 4, 2)
+                   if row_bytes % v == 0 and pk.data_ptr() % v == 0 and pv.data_ptr() % v == 0)
+        fn = _fn("paged_decode", "oim_paged_decode", [_P] * 7 + [_I] * 12 + [_F, _I, _P])
+        err = fn(*args, vec, split.tab_len, split.min_pages, split.rc, float(d ** -0.5),
+                 _DTYPES[q.dtype], _stream(q))
+    _check(err, "paged_decode")
+    _count("paged_decode", route)
+    return out

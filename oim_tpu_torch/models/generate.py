@@ -15,6 +15,14 @@ exact), masked scores are -inf on ABSOLUTE positions (``pos + t >= s``,
 never SDPA's top-left ``is_causal``), and the probabilities drop to the
 cache dtype before the PV product.
 
+Which path the paged steps' attention takes depends on the pool's device
+(``_paged_attention``): ``decode_step`` and ``verify_step`` on a CUDA pool
+call the Hopper paged-decode kernel (``kernels.paged_decode``), which reads
+each row's live pages in place through its page table with the same
+numerics; a CPU pool gathers each row's whole table (``_gather``) for
+``_cache_attention``, as the reference does. Prefill and the dense cache
+keep ``_cache_attention`` on every device.
+
 Out-of-range indices clamp in JAX and raise in torch, so the port clamps
 where the reference relies on it: the RoPE table index clamps to S-1
 (only rows whose output is discarded ever reach it: an idle serving row at
@@ -53,6 +61,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from oim_tpu_torch import kernels
 from oim_tpu_torch.models.llama import Config, _ffn, check_supported, layer_params
 from oim_tpu_torch.ops.norms import rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -163,9 +172,9 @@ def _cache_attention(q, ck, cv, pos, cfg: Config):
     return out.reshape(B, T, H, hd).to(q.dtype)
 
 
-def _block(x, layer, cfg: Config, cos, sin, positions, kv_into, axis=None):
-    """One decoder layer around the cache: ``kv_into(k, v)`` writes this
-    step's K/V and returns the (ck, cv, pos) the queries attend."""
+def _block(x, layer, cfg: Config, cos, sin, positions, attend, axis=None):
+    """One decoder layer around the cache: ``attend(q, k, v)`` writes this
+    step's K/V and returns the queries' attention over the cache."""
     B, T, _ = x.shape
     h = rmsnorm(x, layer["attn_norm"])
     q = (h @ layer["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
@@ -173,8 +182,7 @@ def _block(x, layer, cfg: Config, cos, sin, positions, kv_into, axis=None):
     v = (h @ layer["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    ck, cv, pos = kv_into(k, v)
-    attn = _cache_attention(q, ck, cv, pos, cfg)
+    attn = attend(q, k, v)
     x = x + _project(attn.reshape(B, T, cfg.q_dim), layer["wo"], axis)
     h = rmsnorm(x, layer["mlp_norm"])
     if axis is None:
@@ -214,12 +222,12 @@ def cached_forward(params, tokens, cache, pos: int, cfg: Config, axis=None):
     for i in range(cfg.n_layers):
         ck, cv = cache["k"][i], cache["v"][i]
 
-        def kv_into(k, v, ck=ck, cv=cv):
+        def attend(q, k, v, ck=ck, cv=cv):
             ck[:, start:start + T] = k
             cv[:, start:start + T] = v
-            return ck, cv, pos
+            return _cache_attention(q, ck, cv, pos, cfg)
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, attend,
                    axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), cache
@@ -231,8 +239,11 @@ def cached_forward(params, tokens, cache, pos: int, cfg: Config, axis=None):
 # page_tokens, kv_heads, head_dim] shared by every live request, addressed
 # through per-slot page tables (logical position s of slot b lives at
 # pool[:, table[b, s // page], s % page]). A step scatters this step's K/V
-# through the table and gathers the slot's logical [S] cache for the SAME
-# ``_cache_attention`` the solo path uses. Masked positions (unwritten
+# through the table, then attends the slot's logical [S] cache
+# (``_paged_attention``). On a CUDA pool the decode and verify steps read
+# each row's live pages in place with the paged-decode kernel; on the CPU,
+# and in prefill everywhere, they gather the slot's whole table for the
+# SAME ``_cache_attention`` the solo path uses. Masked positions (unwritten
 # pads, stale bytes in a reused page, scratch page 0) weigh exactly zero
 # (-inf score -> 0 probability), so paged and dense attention sum the same
 # terms.
@@ -251,6 +262,18 @@ def _gather(pages, table, S: int):
     """The logical [B, S, kvh, hd] cache view of ``table`` [B, n_blocks]."""
     B = table.shape[0]
     return pages[table].reshape(B, S, *pages.shape[2:])
+
+
+def _paged_attention(q, pk, pv, tables, pos, cfg: Config, page_tokens: int):
+    """q [B, T, H, hd] over each row's pages of one layer's pool ``pk``/
+    ``pv`` through ``tables`` [B, n_blocks] (int64), query t of row b at
+    position ``pos[b] + t``. A CUDA pool goes to the paged-decode kernel,
+    which reads the live pages in place (it raises on what it does not
+    take); a CPU pool to ``_gather`` and ``_cache_attention``."""
+    if pk.is_cuda:
+        return kernels.paged_decode(q.contiguous(), pk, pv, tables, pos)
+    S = tables.shape[1] * page_tokens
+    return _cache_attention(q, _gather(pk, tables, S), _gather(pv, tables, S), pos, cfg)
 
 
 @torch.no_grad()
@@ -285,12 +308,12 @@ def prefill_into_pages(params, tokens, n_tokens: int, pool, page_table,
     for i in range(cfg.n_layers):
         pk, pv = pool["k"][i], pool["v"][i]
 
-        def kv_into(k, v, pk=pk, pv=pv):
+        def attend(q, k, v, pk=pk, pv=pv):
             pk.index_put_((phys, off), k[0, :keep])
             pv.index_put_((phys, off), v[0, :keep])
-            return _gather(pk, table, S), _gather(pv, table, S), start
+            return _cache_attention(q, _gather(pk, table, S), _gather(pv, table, S), start, cfg)
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, attend,
                    axis)
     last = rmsnorm(x[:, n_tokens - 1], params["final_norm"])
     return (last @ params["lm_head"]).float()[0], pool
@@ -313,8 +336,8 @@ def decode_step(params, tokens, pool, page_tables, pos, cfg: Config,
     nb = page_tables.shape[1]
     S = nb * page_tokens
     dev = tokens.device
-    page_tables = page_tables.long()
-    pos = pos.long()
+    page_tables = page_tables.long().contiguous()
+    pos = pos.long().contiguous()
     cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta, device=dev)
     positions = _rope_positions(pos[:, None], S)
     rows = torch.arange(B, device=dev)
@@ -325,12 +348,12 @@ def decode_step(params, tokens, pool, page_tables, pos, cfg: Config,
     for i in range(cfg.n_layers):
         pk, pv = pool["k"][i], pool["v"][i]
 
-        def kv_into(k, v, pk=pk, pv=pv):
+        def attend(q, k, v, pk=pk, pv=pv):
             pk.index_put_((phys, off), k[:, 0])
             pv.index_put_((phys, off), v[:, 0])
-            return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
+            return _paged_attention(q, pk, pv, page_tables, pos, cfg, page_tokens)
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, attend,
                    axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float()[:, 0], pool
@@ -354,8 +377,8 @@ def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
     nb = page_tables.shape[1]
     S = nb * page_tokens
     dev = tokens.device
-    page_tables = page_tables.long()
-    pos = pos.long()
+    page_tables = page_tables.long().contiguous()
+    pos = pos.long().contiguous()
     cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta, device=dev)
     logical = pos[:, None] + torch.arange(T, device=dev)  # [B, T]
     positions = _rope_positions(logical, S)
@@ -367,12 +390,12 @@ def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
     for i in range(cfg.n_layers):
         pk, pv = pool["k"][i], pool["v"][i]
 
-        def kv_into(k, v, pk=pk, pv=pv):
+        def attend(q, k, v, pk=pk, pv=pv):
             pk.index_put_((phys, off), k)
             pv.index_put_((phys, off), v)
-            return _gather(pk, page_tables, S), _gather(pv, page_tables, S), pos
+            return _paged_attention(q, pk, pv, page_tables, pos, cfg, page_tokens)
 
-        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, kv_into,
+        x = _block(x, layer_params(params["layers"], i), cfg, cos, sin, positions, attend,
                    axis)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), pool
@@ -381,8 +404,15 @@ def verify_step(params, tokens, pool, page_tables, pos, cfg: Config,
 def inverse_cdf(dist, uniforms):
     """The index each row of ``dist`` [B, V] (nonnegative, any scale)
     yields at its U[0,1) draw in ``uniforms`` [B]: the first i with
-    u * total < cdf[i], so an index of zero mass is never picked."""
-    cdf = dist.cumsum(dim=-1)
+    u * total < cdf[i], so an index of zero mass is never picked.
+
+    The CDF is taken over at least two rows: CUDA's cumsum of a single
+    row is one device-wide scan whose float sums change from call to call
+    (235 distinct results in 300 calls on an H100), so a batch-1 engine's
+    sampled streams could part between replicas where a draw falls at a
+    cell's edge; two or more rows are scanned one block a row, the same
+    bits every call (and on the CPU a row's sums are the same either way)."""
+    cdf = (dist.expand(2, -1) if dist.shape[0] == 1 else dist).cumsum(dim=-1)[:dist.shape[0]]
     idx = (cdf <= uniforms[:, None] * cdf[:, -1:]).sum(dim=-1)
     return idx.clamp(max=dist.shape[-1] - 1)
 
