@@ -1,8 +1,12 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration,
-traffic mix and limits, and the per-layer metrics' readers, each found by
-its name.
+its architecture's family, traffic mix and limits, and the per-layer
+metrics' readers, each found by its name.
 
-- a configuration: the ``file`` its ``configs`` entry gives;
+- a configuration: the ``file`` its ``configs`` entry gives, which names
+  its family under the top-level key ``"family"``;
+- a family: ``benchmark/families/<family>.py``, the module that turns the
+  configuration into sizes, weights, the program's configs, the plain
+  reference and the counts of operations and bytes;
 - a traffic mix: ``benchmark/traffic/<traffic>.json``;
 - a cell's limits of the comparison: ``benchmark/limits/<cell>.json``;
 - a per-layer metric: ``benchmark/metrics/<metric>.py``, whose
@@ -13,6 +17,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -40,6 +45,38 @@ def config_file(bench: dict, root: Path, name: str) -> Path:
         if c["name"] == name:
             return root / c["file"]
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def config(path: Path) -> dict:
+    """The configuration file at ``path``; it has to name its family."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"no configuration at {path}")
+    conf = json.loads(path.read_text())
+    if not isinstance(conf.get("family"), str):
+        raise ValueError(f"the configuration {path} names no family: it needs a top-level "
+                         f"\"family\" key, the name of a module benchmark/families/<family>.py")
+    return conf
+
+
+def family(name: str, root: Path = HERE):
+    """The module of family ``name`` (one import a path, kept in
+    ``sys.modules`` so that its classes stay one)."""
+    path = (Path(root) / "families" / f"{name}.py").resolve()
+    if not path.is_file():
+        raise FileNotFoundError(f"no family {name!r} at {path}")
+    key = "benchmark_family_" + re.sub(r"\W", "_", str(path))
+    module = sys.modules.get(key)
+    if module is None:
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return module
 
 
 def limits(name: str, root: Path = HERE) -> dict:

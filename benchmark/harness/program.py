@@ -111,17 +111,6 @@ def _snapshots(run, key: str, n: int) -> list:
     return got if run.get("kind") == "serve" and len(got) == n else []
 
 
-def decode_bytes(d, steps: int, row_steps: int, kv_tokens: int) -> float:
-    """``flops.decode_step_bytes`` summed over ``steps`` decode steps, from
-    the engine's sums over them of live rows and of their keys: the
-    weights' bytes grow by one embedding row a row, the K/V's by one
-    token's K/V a key read and a key written."""
-    kv_token = 2 * d.n_layers * d.kv_dim * flops.BF16
-    per_row = flops.weight_bytes(d, 1) - flops.weight_bytes(d, 0)
-    return (steps * flops.weight_bytes(d, 0) + row_steps * per_row
-            + kv_token * (kv_tokens + row_steps))
-
-
 def _per_step_ms(run, counter: str):
     """``counter``'s ms a target step over the window less the profiled
     part, from just before the profiler's start to just after its stop:
@@ -168,8 +157,8 @@ def decode_kv_roofline(run):
     if (run.get("kind") != "serve" or not steps or device_s <= 0 or not n
             or "decode_kv_tokens" not in part):
         return None
-    step_bytes = decode_bytes(run["dims"], steps, part["decode_row_steps"],
-                              part["decode_kv_tokens"]) / steps
+    step_bytes = run["family"].decode_bytes(run["dims"], steps, part["decode_row_steps"],
+                                            part["decode_kv_tokens"]) / steps
     return 100.0 * (step_bytes / flops.PEAK_BYTES) / (device_s / n)
 
 

@@ -1,7 +1,9 @@
-"""The plain reference: the published architecture (Mistral's and
-Mixtral's decoder: RMSNorm, split-half RoPE, grouped-query causal
-attention, SwiGLU or a top-k expert SwiGLU) in float32 PyTorch, with no
-kernel, cache or batching of the program. It imports nothing of the
+"""The plain reference's pieces that any family's reference uses, in
+float32 PyTorch with no kernel, cache or batching of the program: the
+projection (and its fp8 control), RMSNorm, split-half RoPE, grouped-query
+causal attention, a layer's weights from a stacked tree, and the served
+tokens' gaps. A family's own reference (``benchmark/families/<family>.py``:
+``logits_at``, ``loss``) is built from them. It imports nothing of the
 program and takes from the harness only the weights and tokens the
 harness made.
 
@@ -9,20 +11,11 @@ TF32 is switched off: a float32 product on the card would otherwise run
 in a lower precision. ``quant="fp8"`` is the control: the same model with
 every weight, every activation entering a projection and the K/V rounded
 to float8 e4m3 (per output column, per row and per head-row scales, as
-an fp8 deployment scales them), products accumulated in float32.
-
-Departures, each stated in the configuration's file: the program's
-RMSNorm epsilon is fixed at 1e-6 and the reference uses it; the MoE layer
-follows the GShard capacity rule the configuration assumes (tokens over
-an expert's capacity are dropped, kept gates renormalised), with
-Switch's top-1 load-balance loss, as the program computes it."""
+an fp8 deployment scales them), products accumulated in float32."""
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
-
-from benchmark.harness.model import Dims
 
 FP8_MAX = 448.0
 Q_CHUNK = 1024  # query rows of the attention scores held at once
@@ -56,14 +49,6 @@ def rmsnorm(x, w, eps: float):
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w
 
 
-def rope_tables(d: Dims, positions: torch.Tensor):
-    half = d.head_dim // 2
-    exps = torch.arange(0, d.head_dim, 2, dtype=torch.float32, device=positions.device)
-    inv = 1.0 / (d.rope_theta ** (exps / d.head_dim))
-    ang = positions.float()[:, None] * inv[None, :half]
-    return torch.cos(ang), torch.sin(ang)
-
-
 def rope(x, cos, sin):
     """x [..., T, H, hd]: the pairs (x[:hd/2], x[hd/2:]) rotated."""
     half = x.shape[-1] // 2
@@ -91,72 +76,6 @@ def causal_attention(q, k, v):
     return out
 
 
-def moe_ffn(h, w, d: Dims, quant=None):
-    """The top-k expert SwiGLU over h [N, D] under the GShard capacity
-    rule: round r takes each token's r-th best expert by router
-    probability; a token's slot is its rank in (round, token) order among
-    the tokens sent to that expert, and slots past
-    int(top_k * N * capacity_factor / E) are dropped. Kept gates are
-    renormalised over the token's kept experts. Returns (out, aux, the
-    dropped share)."""
-    n = h.shape[0]
-    e, k = d.n_experts, d.top_k
-    cap = max(1, int(k * n * d.capacity_factor / e))
-    probs = torch.softmax(h @ w["router"], dim=-1)
-    order = torch.argsort(probs.detach(), dim=-1, descending=True, stable=True)
-    fill = torch.zeros(e, dtype=torch.long, device=h.device)
-    chosen, kept = [], []
-    for r in range(k):
-        ex = order[:, r]
-        onehot = F.one_hot(ex, e)
-        rank = (torch.cumsum(onehot, dim=0) - 1 + fill)[torch.arange(n, device=h.device), ex]
-        keep = rank < cap
-        fill = fill + (onehot * keep[:, None]).sum(dim=0)
-        chosen.append(ex)
-        kept.append(keep)
-    gates = [probs.gather(1, ex[:, None])[:, 0] * keep for ex, keep in zip(chosen, kept)]
-    if k > 1:
-        denom = torch.clamp(sum(gates), min=1e-9)
-        gates = [g / denom for g in gates]
-    out = torch.zeros_like(h)
-    for ex, keep, g in zip(chosen, kept, gates):
-        for j in range(e):
-            rows = torch.nonzero((ex == j) & keep).squeeze(1)
-            if rows.numel() == 0:
-                continue
-            x = h[rows]
-            f = F.silu(_proj(x, w["w_gate"][j], quant)) * _proj(x, w["w_up"][j], quant)
-            y = _proj(f, w["w_down"][j], quant)
-            out = out.index_add(0, rows, y * g[rows, None])
-    top1 = F.one_hot(order[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(top1 * probs.mean(dim=0))
-    dropped = 1.0 - sum(x.float().sum() for x in kept) / (n * k)
-    return out, aux, dropped
-
-
-def layer(x, w, d: Dims, cos, sin, quant=None):
-    """One decoder block on x [B, T, D] (float32); returns (x, aux,
-    dropped) (aux and dropped 0 for a dense FFN). The router stays in
-    float32 under ``quant``, as it does in the program."""
-    B, T, D = x.shape
-    h = rmsnorm(x, w["attn_norm"], d.norm_eps)
-    q = _proj(h, w["wq"], quant).view(B, T, d.n_heads, d.head_dim)
-    k = _proj(h, w["wk"], quant).view(B, T, d.n_kv_heads, d.head_dim)
-    v = _proj(h, w["wv"], quant).view(B, T, d.n_kv_heads, d.head_dim)
-    q, k = rope(q, cos, sin), rope(k, cos, sin)
-    if quant == "fp8":
-        k, v = fp8_round(k, -1), fp8_round(v, -1)
-    a = causal_attention(q, k, v).reshape(B, T, d.q_dim)
-    x = x + _proj(a, w["wo"], quant)
-    h = rmsnorm(x, w["mlp_norm"], d.norm_eps)
-    if d.n_experts:
-        out, aux, dropped = moe_ffn(h.reshape(B * T, D), w["moe"], d, quant)
-        return x + out.view(B, T, D), aux, dropped
-    f = F.silu(_proj(h, w["w_gate"], quant)) * _proj(h, w["w_up"], quant)
-    zero = x.new_zeros(())
-    return x + _proj(f, w["w_down"], quant), zero, zero
-
-
 def layer_weights(params: dict, i: int, device=None) -> dict:
     """Layer ``i``'s weights from the stacked tree, as float32 copies."""
     def pick(tree):
@@ -164,23 +83,6 @@ def layer_weights(params: dict, i: int, device=None) -> dict:
             return {k: pick(v) for k, v in tree.items()}
         return tree[i].to(device=device, dtype=torch.float32)
     return pick(params["layers"])
-
-
-@torch.no_grad()
-def logits_at(params: dict, d: Dims, tokens, rows, quant=None):
-    """Float32 logits [len(rows), vocab] at positions ``rows`` of the
-    sequence ``tokens`` [T] (a list or 1-d tensor), run layer by layer
-    with each layer's weights upcast on the fly."""
-    dev = params["embed"].device
-    ids = torch.as_tensor(tokens, device=dev, dtype=torch.long)
-    T = ids.shape[0]
-    cos, sin = rope_tables(d, torch.arange(T, device=dev))
-    x = params["embed"][ids].float()[None]
-    for i in range(d.n_layers):
-        x, _, _ = layer(x, layer_weights(params, i), d, cos, sin, quant)
-    rows = torch.as_tensor(rows, device=dev, dtype=torch.long)
-    h = rmsnorm(x[0, rows], params["final_norm"].float(), d.norm_eps)
-    return _proj(h, params["lm_head"].float(), quant)
 
 
 def served_gaps(ref_logits, served) -> torch.Tensor:

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark.harness import flops, reference, stats, traffic, weights
+from benchmark.harness import reference, stats, traffic, weights
 from benchmark.harness.trace import Profiler, in_range, patched
 
 TRACE_LEAD_S = 2.0  # the profiled part starts this far into the window
@@ -86,29 +86,21 @@ def _buckets(engine, longest: int) -> list[int]:
         b *= 2
 
 
-def model_config(d, mix, dtype):
-    from oim_tpu_torch.models import llama
-
-    return llama.Config(vocab=d.vocab, dim=d.dim, n_layers=d.n_layers, n_heads=d.n_heads,
-                        n_kv_heads=d.n_kv_heads, head_dim=d.head_dim, mlp_dim=d.mlp_dim,
-                        max_seq=mix["engine"]["max_seq"], rope_theta=d.rope_theta,
-                        dtype=dtype, n_experts=d.n_experts, moe_top_k=d.top_k or 2)
-
-
-def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace: bool,
-        device, t_start: float, fault=None, control: bool = False) -> dict:
-    """One run of a serving cell; returns the pieces of the result line
-    and the per-layer readers' context. ``fault`` (tests only) breaks the
-    timed path; ``control`` adds the fp8 reference's reading."""
+def run(cell: dict, fam, d, mix: dict, limits: dict, seed: int, seconds: float,
+        trace: bool, device, t_start: float, fault=None, control: bool = False) -> dict:
+    """One run of a serving cell of family ``fam`` (its module) at sizes
+    ``d``; returns the pieces of the result line and the per-layer
+    readers' context. ``fault`` (tests only) breaks the timed path;
+    ``control`` adds the fp8 reference's reading."""
     from oim_tpu_torch.common import tracing
     from oim_tpu_torch.models import generate as gen
     from oim_tpu_torch.serve import engine as eng
 
     device = torch.device(device)
     dtype = weights.DTYPES[d.dtype]
-    cfg = model_config(d, mix, dtype)
+    cfg = fam.serve_config(d, mix, dtype)
     tracing.configure("benchmark", capacity=1 << 16)
-    params = weights.make_params(d, seed, device)
+    params = fam.make_params(d, seed, device)
     e_cfg = mix["engine"]
     clients = int(mix["clients"])
     engine = eng.ServeEngine(params, cfg, max_batch=e_cfg["max_batch"],
@@ -220,7 +212,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
         path = os.path.join(tempfile.gettempdir(), f"benchmark_trace_{os.getpid()}.json")
         traced = prof.reduce(path, RANGES)
         contexts = [live_contexts(log, a, b) for a, b, _ in steps if prof.t0 <= a < prof.t1]
-        traced["decode_bytes"] = sum(flops.decode_step_bytes(d, c) for c in contexts if c)
+        traced["decode_bytes"] = sum(fam.decode_step_bytes(d, c) for c in contexts if c)
         traced["decode_steps"] = sum(1 for c in contexts if c)
     spans = [(s.duration, int(s.attrs.get("prompt_tokens", 0)))
              for s in tracing.recorder().spans()
@@ -232,10 +224,10 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
         n = len(r["prompt"])
         for j, t in enumerate(r["times"]):
             if t0 <= t < t1:
-                window_flops += (flops.prompt_flops(d, n) if j == 0
-                                 else flops.forward_flops(d, n + j))
+                window_flops += (fam.prompt_flops(d, n) if j == 0
+                                 else fam.forward_flops(d, n + j))
     context = {
-        "kind": "serve", "dims": d, "mix": mix, "window_s": window,
+        "kind": "serve", "family": fam, "dims": d, "mix": mix, "window_s": window,
         "counters": {"target_steps": after[0] - before[0],
                      "decode_row_steps": after[1] - before[1],
                      "max_batch": e_cfg["max_batch"]},
@@ -251,7 +243,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
     for r in log:
         r.pop("handle", None)
     t_ref = time.monotonic()
-    check = compare(params, d, log, seed, limits, control)
+    check = compare(fam, params, d, log, seed, limits, control)
     say(f"reference {time.monotonic() - t_ref:.2f} s")
     return {"e2e": e2e, "context": context, "attempted": len(sent), "failed": len(failed),
             "memory_peak_bytes": peak, "check": check}
@@ -330,11 +322,11 @@ def pick_sample(log: list[dict], seed: int, check: dict) -> list[dict]:
     return picked
 
 
-def compare(params, d, log, seed, limits: dict, control: bool) -> dict:
-    """The widest gap by which a served token's reference logit lies below
-    the reference's best, over the sample; with ``control``, the same
-    reading for the token the fp8 reference puts first at each of those
-    positions."""
+def compare(fam, params, d, log, seed, limits: dict, control: bool) -> dict:
+    """The widest gap by which a served token's reference logit (the
+    family's ``logits_at``) lies below the reference's best, over the
+    sample; with ``control``, the same reading for the token the fp8
+    reference puts first at each of those positions."""
     reference.no_tf32()
     sample = pick_sample(log, seed, limits["sample"])
     widest, control_widest, n_tokens = 0.0, 0.0, 0
@@ -342,11 +334,11 @@ def compare(params, d, log, seed, limits: dict, control: bool) -> dict:
         seq = r["prompt"] + r["tokens"][:-1]
         n = len(r["prompt"])
         rows = list(range(n - 1, len(seq)))
-        ref = reference.logits_at(params, d, seq, rows)
+        ref = fam.logits_at(params, d, seq, rows)
         widest = max(widest, float(reference.served_gaps(ref, r["tokens"]).max()))
         n_tokens += len(r["tokens"])
         if control:
-            low = reference.logits_at(params, d, seq, rows, quant="fp8")
+            low = fam.logits_at(params, d, seq, rows, quant="fp8")
             control_widest = max(control_widest,
                                  float(reference.served_gaps(ref, low.argmax(dim=-1)).max()))
         del ref

@@ -6,7 +6,7 @@ category, and the longest idle gaps.
 A kernel belongs to a range when the host call that launched it (the
 runtime event of the same correlation id) lies inside that range on the
 profiled thread. The categories copy ``chip_smoke.py``'s grouping of
-kernel names."""
+kernel names, with the paged-decode kernels named apart."""
 
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ def category(kernel: str) -> str:
     name = kernel.lower()
     if "oimflash" in name:
         return "attention kernels (K1-K3)"
+    if "paged_decode" in name:  # paged_decode_split, _merge, _mma
+        return "attention kernels (paged decode)"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmuls (cuBLAS)"
     if "reduce" in name or "norm" in name:

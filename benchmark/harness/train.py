@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark.harness import flops, reference, traffic, weights
+from benchmark.harness import reference, traffic
 from benchmark.harness.trace import Profiler, in_range, patched
 
 CHECK_STEPS = 3
@@ -90,22 +90,6 @@ def batch_rows(path: str, batch: int, seq: int, k: int) -> np.ndarray:
     return np.array(records[idx])
 
 
-def train_config(d, mix):
-    from oim_tpu_torch.train import TrainConfig
-
-    opt = mix["optimizer"]
-    over = {"vocab": d.vocab, "dim": d.dim, "n_layers": d.n_layers, "n_heads": d.n_heads,
-            "n_kv_heads": d.n_kv_heads, "head_dim": d.head_dim, "mlp_dim": d.mlp_dim,
-            "max_seq": mix["seq"], "rope_theta": d.rope_theta, "dtype": weights.DTYPES[d.dtype],
-            "n_experts": d.n_experts, "moe_top_k": d.top_k or 2,
-            "moe_capacity_factor": d.capacity_factor or 1.25,
-            "moe_aux_weight": d.aux_weight, "vocab_chunk": d.vocab_chunk}
-    return TrainConfig(model="llama3-8b", model_overrides=over, batch_size=mix["batch"],
-                       seq_len=mix["seq"], lr=opt["lr"], warmup_steps=opt["warmup_steps"],
-                       total_steps=opt["total_steps"], weight_decay=opt["weight_decay"],
-                       log_every=mix.get("log_every", 10), seed=0)
-
-
 def _faults(trainer, fault, vocab: int):
     """Break the timed path underneath (tests of the comparison only)."""
     import contextlib
@@ -114,7 +98,7 @@ def _faults(trainer, fault, vocab: int):
         return contextlib.nullcontext()
     if fault == "unchanged":  # the step returns its state unchanged
         return patched(trainer.tx, "update", lambda f: lambda grads, st, params, norm=None:
-                       torch.zeros((), device=params["embed"].device))
+                       torch.zeros((), device=next(leaf_items(params))[1].device))
     if fault == "half_batch":  # half the rows left out, the mean over the rest
         def wrap(step_fn):
             def half(state, batch):
@@ -132,8 +116,10 @@ def _faults(trainer, fault, vocab: int):
     raise ValueError(f"unknown training fault {fault!r}")
 
 
-def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace: bool,
-        device, t_start: float, fault=None, control: bool = False) -> dict:
+def run(cell: dict, fam, d, mix: dict, limits: dict, seed: int, seconds: float,
+        trace: bool, device, t_start: float, fault=None, control: bool = False) -> dict:
+    """One run of a training cell of family ``fam`` (its module) at sizes
+    ``d``; as ``serve.run``."""
     from oim_tpu_torch.controller import CUDABackend, StagedVolume, StageState
     from oim_tpu_torch.data.feeds import volume_token_batches
     from oim_tpu_torch.models import moe
@@ -141,7 +127,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
     from oim_tpu_torch.train import Trainer
 
     device = torch.device(device)
-    cfg = train_config(d, mix)
+    cfg = fam.train_config(d, mix)
     B, T = mix["batch"], mix["seq"]
     tmp = tempfile.mkdtemp(prefix="benchmark-train-")
     path = os.path.join(tmp, "tokens.npy")
@@ -155,7 +141,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
         raise RuntimeError(f"the token volume did not stage: {vol.state} {vol.error}")
     say(f"volume staged at {time.monotonic() - t_start:.2f} s")
     trainer = Trainer(cfg, device=str(device))
-    trainer.init(params=weights.make_params(d, seed, device))
+    trainer.init(params=fam.make_params(d, seed, device))
     feed = volume_token_batches(vol.array, cfg)
     b1 = trainer.tx.b1
 
@@ -174,7 +160,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
                 first = {name: (m.detach().to("cpu", copy=True), 1 / (1 - b1))
                          for name, m in mu.items()}
                 del mu
-        init = weights.make_params(d, seed, device)
+        init = fam.make_params(d, seed, device)
         change_norms = {name: diff_norm(p, p0) for (name, p), (_, p0)
                         in zip(leaf_items(trainer.state.params), leaf_items(init))}
         del init
@@ -209,9 +195,9 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
     window_hist = [h for h in trainer.history[hist0:] if "loss" in h]
     tokens = n_steps * B * T
     e2e = {"train_tokens_per_s": tokens / window, "setup_s": setup_s}
-    context = {"kind": "train", "dims": d, "mix": mix, "window_s": window,
+    context = {"kind": "train", "family": fam, "dims": d, "mix": mix, "window_s": window,
                "steps": n_steps, "tokens": tokens,
-               "step_flops": flops.train_flops(d, B, T),
+               "step_flops": fam.train_flops(d, B, T),
                "feed_wait_s": [h["feed_wait_s"] for h in window_hist],
                "trace": traced}
     say(f"window {window:.2f} s, {n_steps} steps")
@@ -227,7 +213,7 @@ def run(cell: dict, d, mix: dict, limits: dict, seed: int, seconds: float, trace
     batches = [batch_rows(path, B, T, k) for k in range(CHECK_STEPS)]
     os.remove(path)
     os.rmdir(tmp)
-    check = compare(d, mix, seed, device, batches, losses, grad_norms, change_norms, first,
+    check = compare(fam, d, mix, seed, device, batches, losses, grad_norms, change_norms, first,
                     limits, control)
     say(f"reference {time.monotonic() - t_ref:.2f} s")
     return {"e2e": e2e, "context": context, "attempted": n_steps + CHECK_STEPS + WARM_STEPS,
@@ -242,7 +228,7 @@ def gaps(prog: dict, ref: dict, keep, scale: dict | None = None) -> float:
     return max(abs(prog[k] - ref[k]) / max(scale[k], median) for k in keep)
 
 
-def compare(d, mix, seed, device, batches, losses, grad_norms, change_norms, first,
+def compare(fam, d, mix, seed, device, batches, losses, grad_norms, change_norms, first,
             limits, control: bool) -> dict:
     """The numbers of the comparison with the reference's first three
     steps: the worst step's relative loss gap; by the worst leaf, the gap
@@ -256,9 +242,10 @@ def compare(d, mix, seed, device, batches, losses, grad_norms, change_norms, fir
     reference.no_tf32()
     judge = {"program": first}
     if control:
-        low = reference_steps(d, mix, seed, device, batches, quant="fp8", keep_first=True)
+        low = reference_steps(fam, d, mix, seed, device, batches, quant="fp8",
+                              keep_first=True)
         judge["control"] = {k: (g, 1.0) for k, g in low.pop("first").items()}
-    ref = reference_steps(d, mix, seed, device, batches, judge=judge)
+    ref = reference_steps(fam, d, mix, seed, device, batches, judge=judge)
     out = readings(ref, losses, grad_norms, change_norms, ref["first_diffs"]["program"])
     checks = {k: {"value": v, "limit": limits[k]} for k, v in out.items() if k in limits}
     checks["ok"] = all(v["value"] <= v["limit"] for v in checks.values())
@@ -289,12 +276,13 @@ def readings(ref: dict, losses, grad_norms, change_norms, first_diffs) -> dict:
             "change_gap": gaps(change_norms, ref["change_norms"], moved)}
 
 
-def reference_steps(d, mix, seed, device, batches, quant=None, judge=None,
+def reference_steps(fam, d, mix, seed, device, batches, quant=None, judge=None,
                     keep_first: bool = False) -> dict:
-    """The plain reference's first steps from the same weights and rows:
-    float32 params and AdamW state (optax's order: clip by global norm,
-    moments, bias corrections, decoupled decay, lr at the count before the
-    step), each layer recomputed in the backward pass to fit. ``judge``
+    """The plain reference's first steps (the family's ``loss``) from the
+    same weights and rows: float32 params and AdamW state (optax's order:
+    clip by global norm, moments, bias corrections, decoupled decay, lr at
+    the count before the step), each layer recomputed in the backward pass
+    to fit. ``judge``
     maps a name to host tensors by leaf, each with a factor, read as a
     first gradient: the norm of its difference from the reference's is
     returned by leaf under ``first_diffs``. ``keep_first`` returns the
@@ -303,7 +291,7 @@ def reference_steps(d, mix, seed, device, batches, quant=None, judge=None,
 
     opt = mix["optimizer"]
     lr_at = lambda count: _schedule(opt, count)  # noqa: E731
-    init = weights.make_params(d, seed, device)
+    init = fam.make_params(d, seed, device)
     names = [n for n, _ in leaf_items(init)]
     params = [p.detach().float().clone().requires_grad_(True) for _, p in leaf_items(init)]
     del init
@@ -317,7 +305,7 @@ def reference_steps(d, mix, seed, device, batches, quant=None, judge=None,
     b1, b2, eps, wd, clip = 0.9, 0.95, 1e-8, opt["weight_decay"], 1.0
     for k, rows in enumerate(batches):
         tokens = torch.from_numpy(rows.astype(np.int64)).to(device)
-        loss = _loss(tree, d, tokens, quant, ckpt)
+        loss = fam.loss(tree, d, tokens, quant, ckpt)
         grads = torch.autograd.grad(loss, params)
         losses.append(float(loss.detach()))
         del loss
@@ -354,7 +342,7 @@ def reference_steps(d, mix, seed, device, batches, quant=None, judge=None,
         if device.type == "cuda":  # each step's activations from a clean cache
             torch.cuda.empty_cache()
     del mu, nu
-    init = weights.make_params(d, seed, device)
+    init = fam.make_params(d, seed, device)
     change_norms = {n: diff_norm(p, p0) for n, p, (_, p0) in zip(names, params, leaf_items(init))}
     del init, params, tree
     return {"losses": losses, "grad_norms": grad_norms, "change_norms": change_norms,
@@ -420,31 +408,3 @@ def _unflatten(names, leaves) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return tree
-
-
-def _loss(tree, d, tokens, quant, ckpt):
-    """Mean next-token cross entropy over tokens [B, T+1] plus
-    router_aux_loss_coef x the layers' summed load-balance losses."""
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    B, T = inputs.shape
-    cos, sin = reference.rope_tables(d, torch.arange(T, device=tokens.device))
-    x = tree["embed"][inputs]
-    aux = x.new_zeros(())
-    for i in range(d.n_layers):
-        w = {k: (v[i] if not isinstance(v, dict) else {kk: vv[i] for kk, vv in v.items()})
-             for k, v in tree["layers"].items()}
-
-        def block(x, w=w):
-            y, a, _ = reference.layer(x, w, d, cos, sin, quant)
-            return y, a
-
-        x, a = ckpt.checkpoint(block, x, use_reentrant=False)
-        aux = aux + a
-    h = reference.rmsnorm(x, tree["final_norm"], d.norm_eps).reshape(B * T, -1)
-    flat = labels.reshape(-1)
-    total = h.new_zeros(())
-    for a in range(0, B * T, 4096):
-        logits = reference._proj(h[a:a + 4096], tree["lm_head"], quant)
-        total = total + torch.nn.functional.cross_entropy(logits, flat[a:a + 4096],
-                                                          reduction="sum")
-    return total / (B * T) + d.aux_weight * aux

@@ -1,7 +1,8 @@
 """The decode steps' bytes bound (the weights, each live row's K/V read
-once, the new K/V written; ``flops.decode_step_bytes``) over 3.35e12 B/s,
-over the device time of the kernels launched under the harness's range
-around ``engine.decode_program``, in the profiled part, in %."""
+once, the new K/V written; the family's ``decode_step_bytes``, summed by
+the serving driver into ``decode_bytes``) over 3.35e12 B/s, over the
+device time of the kernels launched under the harness's range around
+``engine.decode_program``, in the profiled part, in %."""
 
 from benchmark.harness import flops
 

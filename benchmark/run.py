@@ -65,15 +65,16 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
              t_start: float, fault=None, control: bool = False) -> dict:
     """Run ``cell`` and return its result line's object (without the chip
     and module checks, which ``main`` makes)."""
-    from benchmark.harness import manifest, model, serve, train, traffic
+    from benchmark.harness import manifest, serve, train, traffic
 
-    conf = model.load(cell["config"], manifest.config_file(bench, ROOT, cell["config"]))
-    d = model.dims(conf)
+    conf = manifest.config(manifest.config_file(bench, ROOT, cell["config"]))
+    fam = manifest.family(conf["family"])
+    d = fam.dims(conf)
     mix = traffic.load(cell["traffic"])
     limits = manifest.limits(cell["name"])
     driver = {"serve": serve.run, "train": train.run}[mix["kind"]]
-    res = driver(cell, d, mix, limits, seed, seconds, trace, device, t_start, fault=fault,
-                 control=control)
+    res = driver(cell, fam, d, mix, limits, seed, seconds, trace, device, t_start,
+                 fault=fault, control=control)
     import torch
 
     on_gpu = torch.device(device).type == "cuda"

@@ -10,8 +10,9 @@ import time
 
 import pytest
 
-from benchmark.harness import model, serve, train
+from benchmark.harness import manifest, serve, train
 
+LLAMA = manifest.family("llama")
 TINY = dict(vocab=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
             rope_theta=1e6, norm_eps=1e-6, dtype="float32")
 SERVE_MIX = {"name": "tiny", "kind": "serve", "clients": 4, "at_close": "first_token",
@@ -29,15 +30,15 @@ TRAIN_LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "grad_diff": 1e-3, "change_g
 
 
 def _serve(fault=None, control=False, seed=2**31 + 7):
-    d = model.Dims(name="tiny", mlp_dim=192, **TINY)
-    return serve.run({"name": "tiny"}, d, SERVE_MIX, SERVE_LIMITS, seed, 3.0, False, "cpu",
+    d = LLAMA.Dims(name="tiny", mlp_dim=192, **TINY)
+    return serve.run({"name": "tiny"}, LLAMA, d, SERVE_MIX, SERVE_LIMITS, seed, 3.0, False, "cpu",
                      time.monotonic(), fault=fault, control=control)
 
 
 def _train(fault=None, control=False, seed=2**31 + 7):
-    d = model.Dims(name="tiny", mlp_dim=96, n_experts=4, top_k=2, aux_weight=0.02,
+    d = LLAMA.Dims(name="tiny", mlp_dim=96, n_experts=4, top_k=2, aux_weight=0.02,
                    capacity_factor=1.25, vocab_chunk=64, **TINY)
-    return train.run({"name": "tiny"}, d, TRAIN_MIX, TRAIN_LIMITS, seed, 0.5, False, "cpu",
+    return train.run({"name": "tiny"}, LLAMA, d, TRAIN_MIX, TRAIN_LIMITS, seed, 0.5, False, "cpu",
                      time.monotonic(), fault=fault, control=control)
 
 

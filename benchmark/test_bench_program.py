@@ -12,10 +12,11 @@ import time
 import pytest
 
 from benchmark import program_view
-from benchmark.harness import flops, model, program, trace
-from benchmark.test_bench_drivers import SERVE_LIMITS, SERVE_MIX, TINY, TRAIN_LIMITS, TRAIN_MIX
+from benchmark.harness import flops, program, trace
+from benchmark.test_bench_drivers import (LLAMA, SERVE_LIMITS, SERVE_MIX, TINY, TRAIN_LIMITS,
+                                          TRAIN_MIX)
 
-D = model.Dims(name="tiny", mlp_dim=192, **TINY)
+D = LLAMA.Dims(name="tiny", mlp_dim=192, **TINY)
 
 
 def _range(name, ts, dur, tid=1):
@@ -90,8 +91,8 @@ def test_reduce_events_reads_the_same_with_the_programs_ranges_in_the_trace():
 
 def test_decode_bytes_sum_the_steps_bytes():
     steps = [[30, 41], [31, 42, 7], [8]]
-    want = sum(flops.decode_step_bytes(D, c) for c in steps)
-    got = program.decode_bytes(D, len(steps), sum(map(len, steps)), sum(map(sum, steps)))
+    want = sum(LLAMA.decode_step_bytes(D, c) for c in steps)
+    got = LLAMA.decode_bytes(D, len(steps), sum(map(len, steps)), sum(map(sum, steps)))
     assert got == want
 
 
@@ -111,7 +112,7 @@ def _serve_context(program_counters=True, ranged=True):
     ranges = ({"range_s": {"serve.decode_step": 2.05}, "count": {"serve.decode_step": 21},
                "whole": {"serve.decode_step": 20}, "whole_s": {"serve.decode_step": 2.0}}
               if ranged else {"range_s": {}, "count": {}, "whole": {}, "whole_s": {}})
-    return {"kind": "serve", "dims": D, "trace": {"program": ranges},
+    return {"kind": "serve", "family": LLAMA, "dims": D, "trace": {"program": ranges},
             "program": {"window": window, "profiled": profiled}}
 
 
@@ -120,7 +121,7 @@ def test_the_serving_readings_and_their_none_cases():
     # the window's 200 steps less the profiled part's 20, with its start and stop
     assert program.prefill_stall_ms(ctx) == pytest.approx((10 - 2) / 180 * 1e3)
     assert program.decode_host_ms(ctx) == pytest.approx((2.5 - 0.5) / 180 * 1e3)
-    step_bytes = program.decode_bytes(D, 20, 600, 800_000) / 20
+    step_bytes = LLAMA.decode_bytes(D, 20, 600, 800_000) / 20
     assert program.decode_kv_roofline(ctx) == pytest.approx(
         100 * step_bytes / flops.PEAK_BYTES / 0.1)
     parent = _serve_context(program_counters=False, ranged=False)
@@ -145,7 +146,7 @@ def test_the_view_hooks_around_the_serving_driver():
 
     seen = {"edges": [], "profiled": [], "context": None}
     with program_view._hooks(seen):
-        serve.run({"name": "tiny"}, D, SERVE_MIX, SERVE_LIMITS, 2**31 + 7, 3.0, True, "cpu",
+        serve.run({"name": "tiny"}, LLAMA, D, SERVE_MIX, SERVE_LIMITS, 2**31 + 7, 3.0, True, "cpu",
                   time.monotonic())
     ctx = seen["context"]
     assert len(ctx["program"]["window"]) == 2 and len(ctx["program"]["profiled"]) == 3
@@ -163,11 +164,11 @@ def test_the_view_hooks_around_the_serving_driver():
 def test_the_view_hooks_around_the_training_driver():
     from benchmark.harness import train
 
-    d = model.Dims(name="tiny", mlp_dim=96, n_experts=4, top_k=2, aux_weight=0.02,
+    d = LLAMA.Dims(name="tiny", mlp_dim=96, n_experts=4, top_k=2, aux_weight=0.02,
                    capacity_factor=1.25, vocab_chunk=64, **TINY)
     seen = {"edges": [], "profiled": [], "context": None}
     with program_view._hooks(seen):
-        train.run({"name": "tiny"}, d, TRAIN_MIX, TRAIN_LIMITS, 2**31 + 7, 0.5, True, "cpu",
+        train.run({"name": "tiny"}, LLAMA, d, TRAIN_MIX, TRAIN_LIMITS, 2**31 + 7, 0.5, True, "cpu",
                   time.monotonic())
     out = program_view.view(seen["context"])
     steps = seen["context"]["trace"]["steps"]

@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 
-from benchmark.harness import flops, guard, manifest, model, stats, traffic
+from benchmark.harness import flops, guard, manifest, stats, traffic
 
 
 # -- traffic -----------------------------------------------------------------
@@ -79,18 +79,23 @@ def test_flash_counts_reproduce_the_kernel_table(kernel, gflop, mb):
     assert round(b / 1e6, 1) == mb
 
 
+def _dims(config: str):
+    conf = manifest.config(manifest.HERE / "configs" / f"{config}.json")
+    fam = manifest.family(conf["family"])
+    return fam, fam.dims(conf)
+
+
 def test_model_counts():
-    d = model.dims(model.load("mistral-7b"))
+    fam, d = _dims("mistral-7b")
     # Mistral-7B: 7.25e9 parameters, 14.5 GB in bf16
-    from benchmark.harness import weights
-    assert weights.count_params(d) == pytest.approx(7.248e9, rel=1e-3)
-    assert flops.weight_bytes(d, 0) == pytest.approx(2 * (weights.count_params(d)
-                                                          - d.vocab * d.dim), rel=1e-3)
-    assert flops.prompt_flops(d, 1) == pytest.approx(flops.forward_flops(d, 1))
-    m = model.dims(model.load("mixtral-8x7b-2l"))
-    assert weights.count_params(m) == pytest.approx(3.165e9, rel=1e-3)
+    assert fam.count_params(d) == pytest.approx(7.248e9, rel=1e-3)
+    assert fam.weight_bytes(d, 0) == pytest.approx(2 * (fam.count_params(d)
+                                                        - d.vocab * d.dim), rel=1e-3)
+    assert fam.prompt_flops(d, 1) == pytest.approx(fam.forward_flops(d, 1))
+    fam, m = _dims("mixtral-8x7b-2l")
+    assert fam.count_params(m) == pytest.approx(3.165e9, rel=1e-3)
     # a step of 2 x 8192 tokens: ~97 TFLOP
-    assert flops.train_flops(m, 2, 8192) == pytest.approx(9.7e13, rel=0.05)
+    assert fam.train_flops(m, 2, 8192) == pytest.approx(9.7e13, rel=0.05)
 
 
 # -- the manifest --------------------------------------------------------------
